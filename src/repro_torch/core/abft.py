@@ -1,0 +1,75 @@
+"""Algorithm-Based Fault Tolerance for the integer conv (exact checksums).
+
+The conv half of ``repro.core.abft``.  The hot path is integer, so the
+Huang–Abraham identity
+
+    sum_Cout( conv(x, W) )  ==  conv(x, sum_Cout W)        (mod 2^32)
+
+holds bit for bit, and a flipped bit b < 32 in any accumulator changes the
+checksum by ±2^b ≠ 0 (mod 2^32): zero false positives, zero false
+negatives.  PyTorch sums int32 into int64, so every checksum here is summed
+exactly in int64 and wrapped to int32 explicitly (``wrap_int32``), which is
+the reference's int32 wrap-around sum.
+
+Recovery is a host branch on the detection flag where the reference uses
+``lax.cond``: one device-to-host synchronisation per checked layer.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import backend as backend_mod
+
+
+class AbftResult(NamedTuple):
+    acc: torch.Tensor              # (N,OH,OW,Cout) int32 (possibly corrected)
+    ok: torch.Tensor               # () bool — no fault left after correction
+    faults_detected: torch.Tensor  # () int32 — pixels flagged in the first pass
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced mod 2^32 into int32 two's complement.
+
+    Done by arithmetic rather than a cast, so it does not rely on what a
+    narrowing conversion does out of range."""
+    return (((v.to(torch.int64) + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def channel_checksum(acc: torch.Tensor) -> torch.Tensor:
+    """(N,OH,OW,Cout) int32 → (N,OH,OW) int32: the Cout-sum mod 2^32."""
+    return wrap_int32(acc.sum(dim=3, dtype=torch.int64))
+
+
+def conv_checksum_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """(KH, KW, Cin, Cout) → (KH, KW, Cin, 1): the Cout-summed check filter."""
+    return w_q.to(torch.int32).sum(dim=3, keepdim=True).to(torch.int32)
+
+
+def abft_qconv2d(
+    x_q: torch.Tensor, x_zp: torch.Tensor, w_q: torch.Tensor,
+    bias: torch.Tensor, stride=(1, 1), padding="SAME", *, inject=None,
+    w_check=None, backend: backend_mod.BackendLike = None,
+) -> AbftResult:
+    """Checksummed quantized conv accumulator (detection per output pixel).
+
+    ``w_check`` — optional precomputed ``conv_checksum_weight`` from a
+    known-good weight copy; with it a weight-memory SEU is detected too.
+    """
+    be = backend_mod.resolve(backend)
+    if w_check is None:
+        w_check = conv_checksum_weight(w_q)
+    acc_dot, want = be.conv_acc_checksum(x_q, x_zp, w_q, w_check, stride,
+                                         padding)
+    if inject is not None:
+        acc_dot = inject(acc_dot)
+
+    pix_ok = channel_checksum(acc_dot) == want           # (N, OH, OW)
+    faults = torch.sum(~pix_ok).to(torch.int32)
+    # host branch (the reference's lax.cond): one sync per checked layer
+    if bool(faults > 0):
+        fresh = be.conv_acc(x_q, x_zp, w_q, stride, padding)
+        acc_dot = torch.where(pix_ok[..., None], acc_dot, fresh)
+    ok = torch.all(channel_checksum(acc_dot) == want)
+    return AbftResult(acc_dot + bias[None, None, None, :], ok, faults)

@@ -1,0 +1,147 @@
+"""Dependability policy layer — ABFT / NMR / checkpoint-restart around the
+quantized conv.
+
+The counterpart of ``Policy``, ``DependabilityStats`` and
+``dependable_qconv2d`` in ``repro.core.dependability``:
+
+  NONE  — plain accumulator path.
+  ABFT  — exact integer checksum verify + recompute-recover.
+  DMR   — dual execution + bitwise compare (detect-only).
+  TMR   — triple execution + bitwise majority vote.
+  CKPT  — checksum detection, recovery by rolling back to the golden
+          operand checkpoint and re-executing the whole op.
+
+Every policy is written against a ``core.backend`` handle.  Where the
+reference branches on the device with ``lax.cond``, the port branches on
+the host (``bool(detected)``): one device-to-host synchronisation per
+ABFT- or CKPT-checked layer.  The counters stay on the device.
+"""
+from __future__ import annotations
+
+import enum
+from typing import Optional
+
+import torch
+
+from repro_torch.core import abft as abft_mod
+from repro_torch.core import backend as backend_mod
+from repro_torch.core import redundancy
+from repro_torch.core.quant import requantize
+
+
+class Policy(str, enum.Enum):
+    NONE = "none"
+    ABFT = "abft"
+    DMR = "dmr"
+    TMR = "tmr"
+    CKPT = "ckpt"
+
+
+class DependabilityStats:
+    """Counters exported by dependable ops (a dict of () int32 tensors).
+
+    ``faults_detected``  checks that flagged a divergence.
+    ``faults_corrected`` detected faults healed in place (ABFT recompute that
+                         re-verified clean, TMR votes that out-voted the bad
+                         replica); DMR never corrects.
+    ``faults_recovered`` detected faults healed by rollback (CKPT).
+    ``checks_run``       how many verification opportunities executed.
+    """
+
+    KEYS = ("faults_detected", "faults_corrected", "faults_recovered",
+            "checks_run")
+
+    @staticmethod
+    def zero(device="cpu"):
+        return {k: torch.zeros((), dtype=torch.int32, device=device)
+                for k in DependabilityStats.KEYS}
+
+    @staticmethod
+    def merge(a: dict, b: dict) -> dict:
+        """Keywise sum over the union of two stats dicts."""
+        return {k: a.get(k, 0) + b.get(k, 0) for k in {*a, *b}}
+
+    @staticmethod
+    def to_host(stats: dict) -> dict:
+        """Device scalars → plain ints, for reports and log lines."""
+        return {k: int(v) for k, v in stats.items()}
+
+
+def _count(v):
+    return v.to(torch.int32) if isinstance(v, torch.Tensor) else int(v)
+
+
+def _bump(stats: dict, detected, corrected, recovered=False) -> dict:
+    """One verification round folded into the running counters."""
+    return {
+        "faults_detected": stats["faults_detected"] + _count(detected),
+        "faults_corrected": stats["faults_corrected"] + _count(corrected),
+        "faults_recovered": stats["faults_recovered"] + _count(recovered),
+        "checks_run": stats["checks_run"] + 1,
+    }
+
+
+def dependable_qconv2d(
+    policy: Policy,
+    x_q: torch.Tensor, x_zp: torch.Tensor, w_q: torch.Tensor,
+    bias: torch.Tensor, scale: torch.Tensor, out_zp: torch.Tensor,
+    *, stride=(1, 1), padding="SAME",
+    inject=None, stats: Optional[dict] = None, w_check=None,
+    ckpt=None, backend: backend_mod.BackendLike = None,
+):
+    """Quantized NHWC conv + requant under a dependability policy.
+
+    ``inject`` corrupts the int32 accumulator (replica 0's under DMR/TMR);
+    ``w_check`` is the optional deploy-time check filter; ``ckpt`` is the
+    optional golden operand checkpoint ``(x_q, w_q)`` CKPT rolls back to.
+    Returns (y_q int8, stats dict).
+    """
+    if stats is None:
+        stats = DependabilityStats.zero(x_q.device)
+    be = backend_mod.resolve(backend)
+
+    def finish(acc):
+        return requantize(acc + bias[None, None, None, :], scale, out_zp)
+
+    if policy == Policy.ABFT:
+        res = abft_mod.abft_qconv2d(x_q, x_zp, w_q, bias, stride=stride,
+                                    padding=padding, inject=inject,
+                                    w_check=w_check, backend=be)
+        y = requantize(res.acc, scale, out_zp)
+        corrected = res.faults_detected * res.ok.to(torch.int32)
+        return y, _bump(stats, res.faults_detected, corrected)
+
+    if policy == Policy.CKPT:
+        ck_x, ck_w = (x_q, w_q) if ckpt is None else ckpt
+        wc = w_check if w_check is not None \
+            else abft_mod.conv_checksum_weight(ck_w)
+        acc_dot, want = be.conv_acc_checksum(x_q, x_zp, w_q, wc, stride,
+                                             padding)
+        if inject is not None:
+            acc_dot = inject(acc_dot)
+        detected = torch.any(abft_mod.channel_checksum(acc_dot) != want)
+        # host branch (the reference's lax.cond): one sync per checked layer
+        if bool(detected):
+            acc_dot = be.conv_acc(ck_x, x_zp, ck_w, stride, padding)
+        recovered = detected & torch.all(
+            abft_mod.channel_checksum(acc_dot) == want)
+        return finish(acc_dot), _bump(stats, detected, False, recovered)
+
+    def run(inj):
+        acc = be.conv_acc(x_q, x_zp, w_q, stride, padding)
+        if inj is not None:
+            acc = inj(acc)
+        return finish(acc)
+
+    if policy == Policy.DMR:
+        y = run(inject)
+        detected = ~redundancy.agree([y, run(None)])
+        return y, _bump(stats, detected, False)
+
+    if policy == Policy.TMR:
+        r0, r1 = run(inject), run(None)
+        disagreed = ~redundancy.agree([r0, r1])
+        y = redundancy.vote([r0, r1, run(None)])
+        return y, _bump(stats, disagreed, disagreed)
+
+    return run(inject), stats

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels and the execution-backend dispatch.
+
+  qconv2d    int8 NHWC conv: accumulator, accumulator + ABFT check channel,
+             fused requantisation (a (kernel.py, ops.py, ref.py) triple
+             with its CUDA source under ``csrc/``)
+
+``dispatch`` registers the ``ref`` and ``cuda`` backends into
+``core.backend``; everything above the kernels selects among them by name.
+"""

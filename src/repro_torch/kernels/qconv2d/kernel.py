@@ -1,0 +1,197 @@
+"""The three int8 conv kernels: build, ctypes binding and wrappers.
+
+CUDA C++ for ``sm_90a`` in ``csrc/qconv2d.cu`` (the source's header says
+which TPU kernel each replaces, what bounds it and what its design does
+about that).  The library is built with ``nvcc`` at first use into
+``build/kernels/`` at the root of the checkout, named by a hash of the
+source, and loaded with ctypes.
+
+Each wrapper checks dtypes, shapes and contiguity, then:
+
+* on CUDA tensors allocates its outputs with ``torch.empty``, launches on
+  the current stream, raises if the launch reports an error, and adds one
+  to its ``launches`` count;
+* on CPU tensors runs the kernel's plain version (``ref.py``).
+
+A CUDA tensor reaches the kernel or an exception, never the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.qconv2d import ref
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "qconv2d.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GEOMETRY = [_I] * 11 + [_P]      # n hp wp cin kh kw cout oh ow sh sw, stream
+_ENTRIES = {
+    "qconv2d_acc_launch": [_P] * 5 + _GEOMETRY,
+    "qconv2d_acc_checksum_launch": [_P] * 7 + _GEOMETRY,
+    "qconv2d_launch": [_P] * 7 + _GEOMETRY,
+}
+
+
+def build() -> Tuple[pathlib.Path, str]:
+    """Compile ``csrc/qconv2d.cu`` unless a library built from the same
+    source exists.  Returns (library path, nvcc's messages or "")."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"qconv2d-{digest}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)            # atomic: concurrent builders agree
+    return lib, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _geometry(x_p, w_q, stride):
+    if x_p.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"x_p and w_q must be int8, got {x_p.dtype}, "
+                        f"{w_q.dtype}")
+    if x_p.dim() != 4 or w_q.dim() != 4:
+        raise ValueError(f"need NHWC x_p and HWIO w_q, got {tuple(x_p.shape)}"
+                         f", {tuple(w_q.shape)}")
+    n, hp, wp, cin = x_p.shape
+    kh, kw, cin2, cout = w_q.shape
+    sh, sw = stride
+    if cin != cin2 or sh < 1 or sw < 1 or hp < kh or wp < kw:
+        raise ValueError(f"bad conv geometry: x_p {tuple(x_p.shape)}, "
+                         f"w_q {tuple(w_q.shape)}, stride {stride}")
+    oh = (hp - kh) // sh + 1
+    ow = (wp - kw) // sw + 1
+    return n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw
+
+
+def _expect(t, name, dtype, shape):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _on_card(*tensors) -> bool:
+    """True to launch, False for the plain version; raises on a mix of
+    devices, a device other than CPU or CUDA, or a non-contiguous input."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"qconv2d kernels run on CUDA or CPU, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qconv2d kernels need contiguous inputs")
+    return True
+
+
+def _launch(name, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def qconv2d_acc(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
+                zp: torch.Tensor, *, stride=(1, 1)) -> torch.Tensor:
+    """conv(x_p - zp, w) as conv(x_p, w) - zp·colsum → int32 (N,OH,OW,Cout).
+    ``x_p`` is already padded with the zero point; zp is (1,) int32."""
+    geo = _geometry(x_p, w_q, stride)
+    n, _, _, _, _, _, cout, oh, ow, _, _ = geo
+    _expect(colsum, "colsum", torch.int32, (cout,))
+    _expect(zp, "zp", torch.int32, (1,))
+    if not _on_card(x_p, w_q, colsum, zp):
+        return ref.qconv2d_acc_plain(x_p, w_q, colsum, zp, stride=stride)
+    out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
+    _launch("qconv2d_acc_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
+            colsum.data_ptr(), zp.data_ptr(), out.data_ptr(), *geo)
+    qconv2d_acc.launches += 1
+    return out
+
+
+def qconv2d_acc_checksum(x_p: torch.Tensor, w_q: torch.Tensor,
+                         colsum: torch.Tensor, w_check: torch.Tensor,
+                         zp: torch.Tensor, *, stride=(1, 1)):
+    """(acc, want): ``qconv2d_acc`` plus the per-pixel ABFT check channel
+    want (N,OH,OW) int32 = conv(x_p - zp, w_check) mod 2^32, which equals
+    the Cout-sum of acc mod 2^32 on a fault-free pass."""
+    geo = _geometry(x_p, w_q, stride)
+    n, _, _, cin, kh, kw, cout, oh, ow, _, _ = geo
+    _expect(colsum, "colsum", torch.int32, (cout,))
+    _expect(w_check, "w_check", torch.int32, (kh, kw, cin, 1))
+    _expect(zp, "zp", torch.int32, (1,))
+    if not _on_card(x_p, w_q, colsum, w_check, zp):
+        return ref.qconv2d_acc_checksum_plain(x_p, w_q, colsum, w_check, zp,
+                                              stride=stride)
+    out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
+    want = torch.empty((n, oh, ow), dtype=torch.int32, device=x_p.device)
+    _launch("qconv2d_acc_checksum_launch", x_p.device, x_p.data_ptr(),
+            w_q.data_ptr(), colsum.data_ptr(), w_check.data_ptr(),
+            zp.data_ptr(), out.data_ptr(), want.data_ptr(), *geo)
+    qconv2d_acc_checksum.launches += 1
+    return out, want
+
+
+def qconv2d(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
+            bias: torch.Tensor, scale: torch.Tensor, zps: torch.Tensor, *,
+            stride=(1, 1)) -> torch.Tensor:
+    """Conv with the fused requantisation epilogue → int8 (N,OH,OW,Cout):
+    acc - x_zp·colsum + bias, ×scale in f32, round half to even, + out_zp,
+    clip.  zps is (2,) int32 = [x_zp, out_zp]."""
+    geo = _geometry(x_p, w_q, stride)
+    n, _, _, _, _, _, cout, oh, ow, _, _ = geo
+    _expect(colsum, "colsum", torch.int32, (cout,))
+    _expect(bias, "bias", torch.int32, (cout,))
+    _expect(scale, "scale", torch.float32, (cout,))
+    _expect(zps, "zps", torch.int32, (2,))
+    if not _on_card(x_p, w_q, colsum, bias, scale, zps):
+        return ref.qconv2d_plain(x_p, w_q, colsum, bias, scale, zps,
+                                 stride=stride)
+    out = torch.empty((n, oh, ow, cout), dtype=torch.int8, device=x_p.device)
+    _launch("qconv2d_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
+            colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+            zps.data_ptr(), out.data_ptr(), *geo)
+    qconv2d.launches += 1
+    return out
+
+
+KERNELS = (qconv2d_acc, qconv2d_acc_checksum, qconv2d)
+for _k in KERNELS:
+    _k.launches = 0
+del _k
+
+
+def reset_launches() -> None:
+    """Set every kernel's ``launches`` count to 0."""
+    for k in KERNELS:
+        k.launches = 0
