@@ -6,20 +6,35 @@
 Phases, each of which raises on failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the qconv2d kernels from ``src/repro_torch/kernels/qconv2d/csrc``;
-3. hold each kernel ``torch.equal`` to its plain version on the card, at
-   all 8 ``network_specs(194)`` layer shapes (N = 2), a ragged Cout tail,
-   a stride (2, 1) case, non-zero zero points, a check channel that
+2. build the qconv2d and qmatmul kernels from their ``csrc/`` sources, one
+   ``nvcc`` each, both started together;
+3. hold each conv kernel ``torch.equal`` to its plain version on the card,
+   at all 8 ``network_specs(194)`` layer shapes (N = 2), a ragged Cout
+   tail, a stride (2, 1) case, non-zero zero points, a check channel that
    wraps mod 2^32 and 48 seeded random geometries;
-4. the slice: ``shipdet.forward`` at ``network_specs(194)`` on 4 frames
+4. slice 1: ``shipdet.forward`` at ``network_specs(194)`` on 4 frames
    under the fused NONE path and, on the ``cuda`` backend, NONE, ABFT, CKPT
    (deploy checks + golden weights), DMR and TMR; all bit-identical to each
    other and to the ``ref`` backend; ABFT heals a flipped accumulator bit,
    CKPT a flipped weight bit; within 4 output steps of ``float_forward``;
    every kernel's launch count above 0;
-5. time each kernel per layer shape (N = 4) with CUDA events beside its
-   plain version and its bound, the forward's frames/s per policy, and the
-   forward's device busy time and idle share under torch.profiler.
+5. hold each matmul kernel ``torch.equal`` to its plain version on the
+   card: the W8A8 FFN shapes of SmolLM-135M at M = 8 and 64, a ragged
+   case, zero points, a check vector that wraps past 2^31, odd K and N and
+   seeded random geometries;
+6. slice 2: ``Engine`` over SmolLM-135M at full width (30 layers, W8A8
+   FFN, bf16 compute, random weights from a seed) serves 16 seeded requests
+   under no map, ``ffn.*=abft``, ``ffn.*=tmr`` and the ``ref`` backend:
+   every request completes, the four token streams are bit-identical, and
+   each kernel's launch count equals the one derived from the engine's
+   steps; ``dependable_matmul_acc`` heals an injected accumulator flip at
+   each FFN shape; ``qlinear_act`` drives the fused ``qmatmul`` at the FFN
+   shapes;
+7. time each kernel at the main paths' shapes with CUDA events beside its
+   plain version, its bound and the library call where one exists, the
+   forward's frames/s per policy, decode ms/step, tokens/s and prefill ms
+   per map; then, under torch.profiler, the device busy time and idle share
+   of the forward and of decode steps, and each kernel call's device time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -29,6 +44,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import functools
 import json
 import os
@@ -51,12 +68,35 @@ BATCH = 4                          # frames per forward on the main path
 RANDOM_CASES = 48                  # seeded random geometries in phase 3
 FORWARD_ROUNDS = 5                 # timing rounds of 10 forwards per policy
 DEVICE = "cuda"
-KERNEL_SOURCE = "src/repro_torch/kernels/qconv2d/csrc/qconv2d.cu"
+CONV_SOURCE = "src/repro_torch/kernels/qconv2d/csrc/qconv2d.cu"
+MATMUL_SOURCE = "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu"
 REPLACES = {
     "qconv2d_acc": "src/repro/kernels/qconv2d/kernel.py:128",
     "qconv2d_acc_checksum": "src/repro/kernels/qconv2d/kernel.py:163",
     "qconv2d": "src/repro/kernels/qconv2d/kernel.py:211",
 }
+MATMUL_REPLACES = {
+    "qmatmul_acc": "src/repro/kernels/qmatmul/kernel.py:138",
+    "qmatmul_acc_checksum": "src/repro/kernels/qmatmul/kernel.py:176",
+    "qmatmul": "src/repro/kernels/qmatmul/kernel.py:224",
+}
+# slice 2: the serving path
+ARCH = "smollm-135m"
+CAPACITY = 8                       # decode slots: the FFN runs M = 8
+PREFILL_PAD = 64                   # prefill FFN runs M = 64
+N_REQUESTS = 16
+MAX_NEW = 32
+MAX_LEN = 256
+MAPS = {                           # engine keywords per serving cell
+    "none": {},
+    "ffn_abft": {"policy_map": {"rules": [{"pattern": "ffn.*",
+                                           "policy": "abft"}]}},
+    "ffn_tmr": {"policy_map": {"rules": [{"pattern": "ffn.*",
+                                          "policy": "tmr"}]}},
+    "ref_backend": {"backend": "ref"},
+}
+RANDOM_MATMUL_CASES = 24
+DECODE_ROUNDS = 3                  # timing rounds of 20 decode steps per map
 
 
 def phase_card() -> str:
@@ -73,15 +113,23 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
-def phase_build(K) -> float:
+def _timed_build(mod):
     t0 = time.perf_counter()
-    lib, log = K.build()
-    secs = time.perf_counter() - t0
-    print(f"build: {lib.name} in {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"  {line.strip()}")
-    return secs
+    lib, log = mod.build()
+    return lib, log, time.perf_counter() - t0
+
+
+def phase_build(mods) -> float:
+    """One nvcc per source, all started together; returns the wall time."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
+        builds = list(pool.map(_timed_build, mods))
+    for lib, log, secs in builds:
+        print(f"build: {lib.name} in {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {line.strip()}")
+    return time.perf_counter() - t0
 
 
 class Case:
@@ -316,9 +364,11 @@ def _time_ms(fn, reps, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps) -> float | None:
-    """Mean device time of the kernels ``fn`` launches, from the profiler's
-    CUPTI trace (None where the profiler sees no device activity)."""
+def _device_ms(fn, reps, match="qconv2d_kernel") -> float | None:
+    """Mean device time of the kernels ``fn`` launches whose name holds
+    ``match`` (every device op where ``match`` is None), from the
+    profiler's CUPTI trace (None where the profiler sees no device
+    activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -329,7 +379,7 @@ def _device_ms(fn, reps) -> float | None:
         torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and "qconv2d_kernel" in e.name]
+             and (match is None or match in e.name)]
     return sum(spans) / reps / 1e3 if spans else None
 
 
@@ -400,53 +450,65 @@ def phase_forward(specs, params, frames):
     return out
 
 
+def _profile_window(fn, reps):
+    """``fn`` run ``reps`` times under torch.profiler (CUPTI): per run, the
+    host wall ms, the device busy ms (the union of kernel and copy
+    intervals), the idle share of the window, the device ops, and the six
+    device entries that take the most time.  None where the profiler sees
+    no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for start, stop, kname in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[kname] = by_name.get(kname, 0.0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_us / reps / 1e3, "busy_ms": busy / reps / 1e3,
+            "idle_share": 1.0 - busy / wall_us, "ops": len(spans) / reps,
+            "top": [(k[:90], v / reps / 1e3) for k, v in top]}
+
+
 def phase_profile(specs, params, frames, rows, calls, reps=5):
     """Device busy time of the forward under torch.profiler (CUPTI): the
     union of kernel and copy intervals over the host wall time of the same
     window, and the kernels that take the most device time; then each
     kernel call's device time, filled into ``rows``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.dependability import Policy
     from repro_torch.models import shipdet
     out = {}
     for name, kw in (("none_fused", {}), ("abft", {"policy": Policy.ABFT})):
-        shipdet.forward(specs, params, frames, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                shipdet.forward(specs, params, frames, **kw)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not spans:
+        w = _profile_window(
+            lambda: shipdet.forward(specs, params, frames, **kw), reps)
+        if w is None:
             print(f"profile {name}: the profiler saw no device time "
                   f"(not measured)")
             out[name] = None
             continue
-        busy, end, by_name = 0.0, float("-inf"), {}
-        for start, stop, kname in spans:
-            busy += max(0.0, stop - max(start, end))
-            end = max(end, stop)
-            by_name[kname] = by_name.get(kname, 0.0) + (stop - start)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        out[name] = {"wall_ms_per_forward": wall_us / reps / 1e3,
-                     "device_busy_ms_per_forward": busy / reps / 1e3,
-                     "idle_share": 1.0 - busy / wall_us,
-                     "device_launches_per_forward": len(spans) / reps,
-                     "top": [{"name": k[:90], "ms_per_forward": v / reps / 1e3}
-                             for k, v in top]}
-        o = out[name]
-        print(f"profile {name}: wall {o['wall_ms_per_forward']:.3f} ms, "
-              f"device busy {o['device_busy_ms_per_forward']:.3f} ms, idle "
-              f"share {o['idle_share']:.3f}, "
-              f"{o['device_launches_per_forward']:.0f} device ops/forward")
-        for t in o["top"]:
-            print(f"    {t['ms_per_forward']:8.4f} ms  {t['name']}")
+        out[name] = {"wall_ms_per_forward": w["wall_ms"],
+                     "device_busy_ms_per_forward": w["busy_ms"],
+                     "idle_share": w["idle_share"],
+                     "device_launches_per_forward": w["ops"],
+                     "top": [{"name": k, "ms_per_forward": v}
+                             for k, v in w["top"]]}
+        print(f"profile {name}: wall {w['wall_ms']:.3f} ms, device busy "
+              f"{w['busy_ms']:.3f} ms, idle share {w['idle_share']:.3f}, "
+              f"{w['ops']:.0f} device ops/forward")
+        for k, v in w["top"]:
+            print(f"    {v:8.4f} ms  {k}")
 
     for row, call in zip(rows, calls):
         row["device_ms"] = _device_ms(call, reps=10)
@@ -460,6 +522,401 @@ def phase_profile(specs, params, frames, rows, calls, reps=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the int8 matmul kernels under the W8A8 serving path
+# ---------------------------------------------------------------------------
+
+
+class MatmulCase:
+    """Random inputs of one matmul kernel call, made on the card."""
+
+    def __init__(self, gen, m, k, n, x_zp=None, out_zp=None, x_fill=None,
+                 w_fill=None):
+        from repro_torch.core.abft import checksum_vector
+
+        def ints(lo, hi, shape, dtype):
+            return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
+                                 dtype=dtype)
+
+        self.shape = (m, k, n)
+        self.x_q = ints(-128, 128, (m, k), torch.int8)
+        self.w_q = ints(-127, 128, (k, n), torch.int8)
+        if x_fill is not None:
+            self.x_q.fill_(x_fill)
+        if w_fill is not None:
+            self.w_q.fill_(w_fill)
+        x_zp = int(ints(-10, 11, (), torch.int32)) if x_zp is None else x_zp
+        out_zp = int(ints(-10, 11, (), torch.int32)) if out_zp is None \
+            else out_zp
+        self.colsum = self.w_q.to(torch.int32).sum(0).to(torch.int32)
+        self.w_check = checksum_vector(self.w_q)
+        self.bias = ints(-1000, 1000, (n,), torch.int32)
+        self.scale = torch.empty(n, device=DEVICE).uniform_(
+            1e-4, 5e-3, generator=gen)
+        self.zps = torch.tensor([x_zp, out_zp], dtype=torch.int32,
+                                device=DEVICE)
+
+    def args(self, name):
+        if name == "qmatmul_acc":
+            return (self.x_q, self.w_q)
+        if name == "qmatmul_acc_checksum":
+            return (self.x_q, self.w_q, self.w_check)
+        return (self.x_q, self.w_q, self.colsum, self.bias, self.scale,
+                self.zps)
+
+    def bound_ms(self, name):
+        """Least time on an H100 SXM: each input read once, each output
+        written once, int8 MACs at the tensor-core rate (the check vector's
+        int32 MACs at the CUDA-core rate)."""
+        m, k, n = self.shape
+        nbytes = m * k + k * n
+        int8_ops, int32_ops = 2 * m * n * k, 0
+        if name == "qmatmul":
+            nbytes += 12 * n + 8 + m * n
+        else:
+            nbytes += 4 * m * n
+        if name == "qmatmul_acc_checksum":
+            nbytes += 4 * k + 4 * m
+            int32_ops = 2 * m * k
+        t_ops = int8_ops / INT8_OPS_PER_S + int32_ops / INT32_OPS_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), \
+            ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _matmul_kernels():
+    from repro_torch.kernels.qmatmul import kernel as MK
+    from repro_torch.kernels.qmatmul import ref as MR
+    return {"qmatmul_acc": (MK.qmatmul_acc, MR.qmatmul_acc_plain),
+            "qmatmul_acc_checksum": (MK.qmatmul_acc_checksum,
+                                     MR.qmatmul_acc_checksum_plain),
+            "qmatmul": (MK.qmatmul, MR.qmatmul_plain)}
+
+
+def ffn_shapes(cfg):
+    """The W8A8 FFN's (M, K, N): decode at M = capacity and prefill at
+    M = prefill_pad, for wg/wi (d → d_ff) and wd (d_ff → d)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return [(m, k, n) for m in (CAPACITY, PREFILL_PAD)
+            for k, n in ((d, ff), (ff, d))]
+
+
+def phase_compare_matmul(cfg, gen) -> dict:
+    from repro_torch.core.abft import row_checksum
+    cases = [(f"ffn_{m}x{k}x{n}", MatmulCase(gen, m, k, n))
+             for m, k, n in ffn_shapes(cfg)]
+    cases += [
+        ("ragged", MatmulCase(gen, 5, 100, 37)),
+        ("odd_k_n", MatmulCase(gen, 3, 99, 41)),
+        ("zero_points", MatmulCase(gen, 9, 64, 48, x_zp=-77, out_zp=53)),
+        ("check_wraps", MatmulCase(gen, 8, 1536, 1536, x_zp=127, out_zp=0,
+                                   x_fill=-128, w_fill=127)),
+    ]
+    rng = random.Random(1)
+    cases += [(f"random_{i}", MatmulCase(
+        gen, rng.randint(1, 80), rng.randint(1, 1600), rng.randint(1, 700),
+        x_zp=rng.randint(-128, 127), out_zp=rng.randint(-128, 127)))
+        for i in range(RANDOM_MATMUL_CASES)]
+    max_err = {name: 0 for name in MATMUL_REPLACES}
+    for label, case in cases:
+        for name, (kern, plain) in _matmul_kernels().items():
+            got = kern(*case.args(name))
+            torch.cuda.synchronize()
+            want = plain(*case.args(name))
+            max_err[name] = max(max_err[name], _max_err(got, want))
+            if name == "qmatmul_acc_checksum" and not torch.equal(
+                    row_checksum(got[0]), got[1]):
+                raise AssertionError(f"{label}: want != row sum of acc")
+    print(f"compare: {len(cases)} cases x 3 matmul kernels torch.equal to "
+          f"the plain versions on the card")
+    return max_err
+
+
+def lm_setup():
+    """SmolLM-135M at full width, W8A8 FFN, bf16 compute, random weights
+    from a seed, on the card; and the seeded requests."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    cfg = dataclasses.replace(registry.get(ARCH), quant="w8a8_ffn")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    rng = random.Random(2)
+    prompts = [[rng.randrange(cfg.vocab_size)
+                for _ in range(rng.randint(3, 16))]
+               for _ in range(N_REQUESTS)]
+    print(f"lm: {ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}), W8A8 FFN, "
+          f"{cfg.compute_dtype} compute, params in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params, prompts
+
+
+def _serve(cfg, params, prompts, max_new, **kw):
+    from repro_torch.runtime.serving import Engine, Request
+    eng = Engine(cfg, params, capacity=CAPACITY, max_len=MAX_LEN,
+                 prefill_pad=PREFILL_PAD, **kw)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    return eng, reqs
+
+
+def phase_serve(cfg, params, prompts):
+    """The main path of slice 2, with every launch count reset before it
+    and read after it."""
+    from repro_torch.kernels.qmatmul import kernel as MK
+    per_call = 3 * cfg.n_layers               # FFN matmuls per token batch
+    MK.reset_launches()
+    runs, t_all = {}, time.perf_counter()
+    for name, kw in MAPS.items():
+        before = {k.__name__: k.launches for k in MK.KERNELS}
+        eng, reqs = _serve(cfg, params, prompts, MAX_NEW, **kw)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        delta = {k.__name__: k.launches - before[k.__name__]
+                 for k in MK.KERNELS}
+        # every prefill and every decode step runs each FFN matmul once
+        batches = len(reqs) + eng.stats.steps
+        want = {"qmatmul_acc": 0, "qmatmul_acc_checksum": 0, "qmatmul": 0}
+        if name == "none":
+            want["qmatmul_acc"] = per_call * batches
+        elif name == "ffn_abft":
+            want["qmatmul_acc_checksum"] = per_call * batches
+        elif name == "ffn_tmr":
+            want["qmatmul_acc"] = 3 * per_call * batches
+        if delta != want:
+            raise AssertionError(f"{name}: launches {delta}, derived {want} "
+                                 f"= {per_call} x ({len(reqs)} prefills + "
+                                 f"{eng.stats.steps} steps)")
+        if any(len(r.output or ()) != MAX_NEW for r in reqs):
+            raise AssertionError(f"{name}: a request did not complete")
+        tokens = sum(len(r.output) for r in reqs)
+        runs[name] = {"streams": [list(r.output) for r in reqs],
+                      "steps": eng.stats.steps, "tokens": tokens,
+                      "wall_s": secs, "tokens_per_s": tokens / secs,
+                      "launches": delta}
+        print(f"  serve {name:11s} {len(reqs)} requests, {tokens} tokens, "
+              f"{eng.stats.steps} decode steps in {secs:.2f} s "
+              f"({tokens / secs:.1f} tokens/s); launches {delta} = derived")
+    launches = {k.__name__: k.launches for k in MK.KERNELS}
+    print(f"serve: 4 runs in {time.perf_counter() - t_all:.2f} s, launches "
+          f"{launches}")
+    base = runs["none"]["streams"]
+    for name, run in runs.items():
+        if run["streams"] != base:
+            raise AssertionError(f"{name}: token streams differ from none")
+    print(f"  all four token streams bit-identical (e.g. request 0: "
+          f"{base[0][:8]}...)")
+    for name in ("qmatmul_acc", "qmatmul_acc_checksum"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never ran on the serving path")
+    return {name: {k: v for k, v in run.items() if k != "streams"}
+            for name, run in runs.items()}, launches
+
+
+def phase_heal(cfg, params, gen):
+    """``dependable_matmul_acc`` under ABFT at each FFN shape, with one
+    accumulator bit flipped: detected, corrected, and the clean result."""
+    from repro_torch.core.dependability import (
+        DependabilityStats, Policy, dependable_matmul_acc)
+    from repro_torch.core.fault_injection import flip_bit_at_index
+    blocks = params["dense_blocks"]
+    weights = {(cfg.d_model, cfg.d_ff): blocks["wg_q"][0],
+               (cfg.d_ff, cfg.d_model): blocks["wd_q"][0]}
+    for m, k, n in ffn_shapes(cfg):
+        x = torch.randint(-127, 128, (m, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        w = weights[(k, n)]
+        clean, _ = dependable_matmul_acc(Policy.NONE, x, w)
+        acc, st = dependable_matmul_acc(
+            Policy.ABFT, x, w,
+            inject=lambda a: flip_bit_at_index(a, a.numel() // 3, 18))
+        st = DependabilityStats.to_host(st)
+        if st["faults_corrected"] < 1 or not torch.equal(acc, clean):
+            raise AssertionError(f"ABFT missed the flip at {(m, k, n)}: {st}")
+        print(f"  heal ({m}, {k}, {n}): {st}")
+
+
+def phase_qlinear(cfg, gen):
+    """``qlinear_act`` (the fused ``qmatmul``) at the FFN shapes, with the
+    launch count reset before and read after; each output equals the
+    op's CPU run on the same inputs and is within 2 % of the float
+    matmul."""
+    from repro_torch.kernels.qmatmul import kernel as MK
+    from repro_torch.kernels.qmatmul import ops
+
+    def qparams(t):
+        lo, hi = min(float(t.min()), 0.0), max(float(t.max()), 0.0)
+        scale = torch.tensor((hi - lo) / 255.0, device=t.device)
+        zp = torch.tensor(int(round(-128 - lo / float(scale))),
+                          dtype=torch.int32, device=t.device)
+        return scale, zp
+
+    cases = []
+    for m, k, n in ffn_shapes(cfg):
+        x = torch.randn((m, k), generator=gen, device=DEVICE)
+        w = torch.randn((k, n), generator=gen, device=DEVICE) * 0.05
+        b = torch.randn((n,), generator=gen, device=DEVICE) * 0.1
+        y_f = x @ w + b
+        cases.append((x, ops.make_qlinear_params(w, b), *qparams(x),
+                      *qparams(y_f), y_f))
+    MK.reset_launches()
+    outs = [ops.qlinear_act(*c[:6]) for c in cases]
+    torch.cuda.synchronize()
+    launches = MK.qmatmul.launches
+    for (m, k, n), c, y in zip(ffn_shapes(cfg), cases, outs):
+        cpu = ops.qlinear_act(*(t.cpu() if isinstance(t, torch.Tensor)
+                                else type(t)(*(u.cpu() for u in t))
+                                for t in c[:6]))
+        if not torch.equal(y.cpu(), cpu):
+            raise AssertionError(f"qlinear_act ({m}, {k}, {n}) on the card "
+                                 f"differs from its CPU run")
+        rel = float((y - c[6]).norm() / c[6].norm())
+        if not rel < 0.02:
+            raise AssertionError(f"qlinear_act ({m}, {k}, {n}) rel err {rel}")
+    print(f"qlinear_act: {len(cases)} calls at the FFN shapes, launches "
+          f"qmatmul {launches}, equal to the CPU runs")
+    if launches != len(cases):
+        raise AssertionError(f"qmatmul launched {launches} times")
+    return launches
+
+
+def phase_time_matmul(cfg, gen, max_err):
+    """CUDA-event times per call at the FFN shapes, beside the plain
+    version, the bound and ``torch._int_mm`` (the library yardstick for the
+    accumulator; the port never calls it)."""
+    rows, calls = [], []
+    for m, k, n in ffn_shapes(cfg):
+        case = MatmulCase(gen, m, k, n)
+        for name, (kern, plain) in _matmul_kernels().items():
+            args = case.args(name)
+            max_err[name] = max(max_err[name],
+                                _max_err(kern(*args), plain(*args)))
+            ms = _time_ms(lambda: kern(*args), reps=100)
+            plain_ms = _time_ms(lambda: plain(*args), reps=10, warmup=1)
+            lib_ms, lib_note = None, None
+            if name == "qmatmul_acc":
+                try:
+                    torch._int_mm(case.x_q, case.w_q)
+                    lib_ms = _time_ms(lambda: torch._int_mm(case.x_q,
+                                                            case.w_q),
+                                      reps=100)
+                except RuntimeError as e:       # the library refuses M <= 16
+                    lib_note = str(e).splitlines()[0][:120]
+            bound, by = case.bound_ms(name)
+            rows.append({"shape": (m, k, n), "kernel": name, "ms": ms,
+                         "device_ms": None, "plain_ms": plain_ms,
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib_ms, "library_refused": lib_note})
+            calls.append(functools.partial(kern, *args))
+    return rows, calls
+
+
+def matmul_totals(cfg, rows):
+    """Per kernel, the FFN matmuls of one decode step at capacity 8:
+    n_layers x (2 x (8, d, d_ff) + (8, d_ff, d))."""
+    mult = {(CAPACITY, cfg.d_model, cfg.d_ff): 2 * cfg.n_layers,
+            (CAPACITY, cfg.d_ff, cfg.d_model): cfg.n_layers}
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "t_bytes": 0.0, "t_ops": 0.0} for name in MATMUL_REPLACES}
+    for r in rows:
+        c = mult.get(tuple(r["shape"]), 0)
+        tot = totals[r["kernel"]]
+        for key in ("ms", "plain_ms", "bound_ms"):
+            tot[key] += c * r[key]
+        tot["t_" + ("bytes" if r["bound_by"] == "bytes" else "ops")] += \
+            c * r["bound_ms"]
+    return totals
+
+
+def _decoding(cfg, params, prompts, kw):
+    """An engine with CAPACITY requests all decoding (long budgets), after
+    the step that prefills and joins them."""
+    eng, _ = _serve(cfg, params, prompts[:CAPACITY], MAX_LEN // 2, **kw)
+    eng.step()
+    if len(eng.active) != CAPACITY:
+        raise AssertionError("the decode batch did not fill")
+    return eng
+
+
+def phase_serve_time(cfg, params, prompts, serve_runs):
+    """Per map: ms per decode step at capacity 8 (host clock; each step
+    ends in the host readback of its tokens), decode tokens/s, and ms per
+    prefill of one 64-token prompt; rounds interleave the maps."""
+    engines = {name: _decoding(cfg, params, prompts, kw)
+               for name, kw in MAPS.items()}
+    step_ms = {name: [] for name in MAPS}
+    for _ in range(DECODE_ROUNDS):
+        for name, eng in engines.items():
+            eng.step()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                eng.step()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3 / 20)
+    toks = torch.tensor([prompts[0] + [0] * (PREFILL_PAD - len(prompts[0]))],
+                        dtype=torch.int32, device=DEVICE)
+    out = {}
+    for name, eng in engines.items():
+        prefill = eng.executor._prefill
+        prefill(eng.params, toks)
+        torch.cuda.synchronize()
+        t_pre = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            prefill(eng.params, toks)
+            torch.cuda.synchronize()
+            t_pre.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(step_ms[name])
+        out[name] = {"ms_per_decode_step": ms, "ms_rounds": step_ms[name],
+                     "decode_tokens_per_s": CAPACITY / (ms / 1e3),
+                     "ms_per_prefill": statistics.median(t_pre),
+                     "serve_tokens_per_s": serve_runs[name]["tokens_per_s"]}
+        o = out[name]
+        print(f"decode {name:11s} {ms:8.3f} ms/step (rounds "
+              f"{', '.join(f'{t:.3f}' for t in step_ms[name])})  "
+              f"{o['decode_tokens_per_s']:8.1f} tokens/s  prefill "
+              f"{o['ms_per_prefill']:8.3f} ms  serve "
+              f"{o['serve_tokens_per_s']:.1f} tokens/s")
+    return out, engines
+
+
+def phase_serve_profile(engines, reps=5):
+    """Decode steps of the none and ffn_abft engines under the profiler."""
+    out = {}
+    for name in ("none", "ffn_abft"):
+        w = _profile_window(engines[name].step, reps)
+        out[name] = w
+        if w is None:
+            print(f"profile decode {name}: the profiler saw no device time "
+                  f"(not measured)")
+            continue
+        print(f"profile decode {name}: wall {w['wall_ms']:.3f} ms/step, "
+              f"device busy {w['busy_ms']:.3f} ms, idle share "
+              f"{w['idle_share']:.3f}, {w['ops']:.0f} device ops/step")
+        for k, v in w["top"]:
+            print(f"    {v:8.4f} ms  {k}")
+    return out
+
+
+def _kernel_lines(names, source, replaces, launches, max_err, totals,
+                  library):
+    return [{
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces[name], "launches": launches[name],
+        "max_abs_err": max_err[name], "ms": totals[name]["ms"],
+        "plain_ms": totals[name]["plain_ms"],
+        "bound_ms": totals[name]["bound_ms"],
+        "bound_by": ("bytes" if totals[name]["t_bytes"]
+                     >= totals[name]["t_ops"] else "operations"),
+        "library_ms": library.get(name),
+    } for name in names]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -468,8 +925,9 @@ def main() -> None:
 
     card = phase_card()
     from repro_torch.kernels.qconv2d import kernel as K
+    from repro_torch.kernels.qmatmul import kernel as MK
     from repro_torch.models import shipdet
-    build_s = phase_build(K)
+    build_s = phase_build([K, MK])
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -480,27 +938,48 @@ def main() -> None:
                         generator=torch.Generator().manual_seed(1)).to(DEVICE)
     launches = phase_slice(specs, params, frames)
 
-    rows, totals, calls = phase_time(specs, gen, max_err)
-    forward = phase_forward(specs, params, frames)
-    profile = phase_profile(specs, params, frames, rows, calls)
+    cfg, lm_params, prompts = lm_setup()
+    max_err.update(phase_compare_matmul(cfg, gen))
+    serve_runs, serve_launches = phase_serve(cfg, lm_params, prompts)
+    launches.update(serve_launches)
+    phase_heal(cfg, lm_params, gen)
+    launches["qmatmul"] = phase_qlinear(cfg, gen)
 
-    kernels = [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES[name], "launches": launches[name],
-        "max_abs_err": max_err[name], "ms": totals[name]["ms"],
-        "plain_ms": totals[name]["plain_ms"],
-        "bound_ms": totals[name]["bound_ms"],
-        "bound_by": ("bytes" if totals[name]["t_bytes"]
-                     >= totals[name]["t_ops"] else "operations"),
-        "library_ms": None,
-    } for name in REPLACES]
+    # every CUDA-event timing before the first profiler session
+    rows, totals, calls = phase_time(specs, gen, max_err)
+    mm_rows, mm_calls = phase_time_matmul(cfg, gen, max_err)
+    forward = phase_forward(specs, params, frames)
+    serving, engines = phase_serve_time(cfg, lm_params, prompts, serve_runs)
+    profile = phase_profile(specs, params, frames, rows, calls)
+    profile["decode"] = phase_serve_profile(engines)
+    for row, call in zip(mm_rows, mm_calls):
+        row["device_ms"] = _device_ms(call, reps=20, match=None)
+    print("matmul kernel times per call (CUDA events; device time, kernel "
+          "and any split-K memset, from the profiler):")
+    for r in mm_rows:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"refused ({r['library_refused']})"
+               if r["library_refused"] else "-")
+        print(f"  {str(r['shape']):18s} {r['kernel']:22s} {r['ms']:8.4f} ms"
+              f"  device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
+              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  _int_mm {lib}")
+
+    mm_totals = matmul_totals(cfg, mm_rows)
+    kernels = _kernel_lines(REPLACES, CONV_SOURCE, REPLACES, launches,
+                            max_err, totals, {})
+    # torch._int_mm refuses M = 8 (the decode step's M): no library time
+    kernels += _kernel_lines(MATMUL_REPLACES, MATMUL_SOURCE, MATMUL_REPLACES,
+                             launches, max_err, mm_totals, {})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "batch": BATCH, "kernels": kernels, "per_layer": rows,
-                       "forward": forward, "profile": profile}, f, indent=1)
+                       "forward": forward, "profile": profile,
+                       "matmul_per_call": mm_rows, "serve": serve_runs,
+                       "serving": serving}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

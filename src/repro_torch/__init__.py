@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the ``repro`` package.
 
 The layout and public names follow ``repro`` (``core/``, ``kernels/``,
-``models/``) so that each module's counterpart is easy to find, and the
-public functions keep its layouts: NHWC activations, HWIO weights.  Entry
+``models/``, ``configs/``, ``runtime/``) so that each module's counterpart
+is easy to find, and the public functions keep its layouts: NHWC
+activations and HWIO weights for the CNN, (M,K)·(K,N) int8 matmuls,
+(L, B, T, KV, hd) KV caches and stacked (L, ...) parameter dicts for the
+transformer.  Entry
 points take an explicit ``device`` (default ``"cuda"``); asking for the card
 where there is none raises, and nothing drops to the CPU on its own.  The
 hand-written kernels run on CUDA tensors; their plain PyTorch versions run

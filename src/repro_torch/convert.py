@@ -18,7 +18,12 @@ _QPARAMS = ("in_scale", "in_zp", "out_scale", "out_zp")
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: carry the bits across
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
 
 
 def shipdet_params_from_numpy(layers: List[Dict[str, Any]],
@@ -36,3 +41,16 @@ def shipdet_params_from_numpy(layers: List[Dict[str, Any]],
             **{k: _tensor(layer[k], dev) for k in _QPARAMS},
         })
     return out
+
+
+def transformer_params_from_numpy(tree: Dict[str, Any],
+                                  device="cuda") -> Dict[str, Any]:
+    """The reference's transformer parameter dict (numpy leaves, nested
+    dicts, int8 ``*_q`` and f32 ``*_s`` leaves included) as the port's:
+    the same keys, shapes and dtypes."""
+    dev = resolve_device(device)
+
+    def conv(v):
+        return {k: conv(x) for k, x in v.items()} if isinstance(v, dict) \
+            else _tensor(v, dev)
+    return conv(tree)

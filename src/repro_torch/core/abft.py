@@ -1,18 +1,20 @@
-"""Algorithm-Based Fault Tolerance for the integer conv (exact checksums).
+"""Algorithm-Based Fault Tolerance for the integer matmul and conv (exact
+checksums).
 
-The conv half of ``repro.core.abft``.  The hot path is integer, so the
-Huang–Abraham identity
+The counterpart of ``repro.core.abft`` (its storage scrub comes with the
+engine's scrubs).  The hot path is integer, so the Huang–Abraham identities
 
-    sum_Cout( conv(x, W) )  ==  conv(x, sum_Cout W)        (mod 2^32)
+    rowsum_N( X·W )          ==  X · (W · 1_N)              (mod 2^32)
+    sum_Cout( conv(x, W) )   ==  conv(x, sum_Cout W)        (mod 2^32)
 
-holds bit for bit, and a flipped bit b < 32 in any accumulator changes the
+hold bit for bit, and a flipped bit b < 32 in any accumulator changes the
 checksum by ±2^b ≠ 0 (mod 2^32): zero false positives, zero false
 negatives.  PyTorch sums int32 into int64, so every checksum here is summed
 exactly in int64 and wrapped to int32 explicitly (``wrap_int32``), which is
 the reference's int32 wrap-around sum.
 
 Recovery is a host branch on the detection flag where the reference uses
-``lax.cond``: one device-to-host synchronisation per checked layer.
+``lax.cond``: one device-to-host synchronisation per checked op.
 """
 from __future__ import annotations
 
@@ -24,9 +26,9 @@ from repro_torch.core import backend as backend_mod
 
 
 class AbftResult(NamedTuple):
-    acc: torch.Tensor              # (N,OH,OW,Cout) int32 (possibly corrected)
+    acc: torch.Tensor              # (M,N) or (N,OH,OW,Cout) int32 (corrected)
     ok: torch.Tensor               # () bool — no fault left after correction
-    faults_detected: torch.Tensor  # () int32 — pixels flagged in the first pass
+    faults_detected: torch.Tensor  # () int32 — rows/pixels flagged at first
 
 
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:
@@ -35,6 +37,73 @@ def wrap_int32(v: torch.Tensor) -> torch.Tensor:
     Done by arithmetic rather than a cast, so it does not rely on what a
     narrowing conversion does out of range."""
     return (((v.to(torch.int64) + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def exact_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M, K) · (K, N) integer tensors → int64 (M, N), exact: the products
+    run in float64, exact while every partial sum stays below 2^53."""
+    return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(
+        torch.int64)
+
+
+def row_checksum(acc: torch.Tensor) -> torch.Tensor:
+    """(M, N) int32 → (M,) int32: the row sum mod 2^32."""
+    return wrap_int32(acc.sum(dim=1, dtype=torch.int64))
+
+
+def checksum_vector(w_q: torch.Tensor) -> torch.Tensor:
+    """W · 1_N — the column-sum check vector, precomputable per layer.
+    (K,) int32."""
+    return w_q.to(torch.int32).sum(dim=1).to(torch.int32)
+
+
+def zp_bias_correct(acc_dot: torch.Tensor, x_zp: torch.Tensor,
+                    w_q: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The matmul dequant algebra, in exactly one place: the zero-point
+    correction hoisted out of the inner product plus the bias,
+    acc = X·W - zp·colsum(W) + bias (mod 2^32).  Shared by the ABFT path
+    here and by every non-ABFT policy in core/dependability.py."""
+    colsum = w_q.to(torch.int64).sum(dim=0)
+    return wrap_int32(acc_dot.to(torch.int64)
+                      - x_zp.to(torch.int64) * colsum[None, :]
+                      + bias[None, :])
+
+
+def verify_rows(x_q: torch.Tensor, acc_dot: torch.Tensor,
+                w_check: torch.Tensor) -> torch.Tensor:
+    """Per-row fault mask for acc_dot = X·W. True == row is clean
+    (mod 2^32)."""
+    want = wrap_int32(exact_dot(x_q, w_check[:, None])[:, 0])
+    return row_checksum(acc_dot) == want
+
+
+def abft_qmatmul(
+    x_q: torch.Tensor, x_zp: torch.Tensor, w_q: torch.Tensor,
+    bias: torch.Tensor, *, inject=None, w_check=None,
+    backend: backend_mod.BackendLike = None,
+) -> AbftResult:
+    """Checksummed quantized matmul accumulator with detect +
+    recompute-recover (detection per output row).
+
+    ``w_check`` lets the caller supply the check vector computed from a
+    known-good weight copy; with it a weight-memory SEU is detected too.
+    Returns the zero-point- and bias-corrected accumulator.
+    """
+    be = backend_mod.resolve(backend)
+    if w_check is None:
+        w_check = checksum_vector(w_q)
+    acc_dot, want = be.matmul_acc_checksum(x_q, w_q, w_check)
+    if inject is not None:
+        acc_dot = inject(acc_dot)
+
+    row_ok = row_checksum(acc_dot) == want
+    faults = torch.sum(~row_ok).to(torch.int32)
+    # host branch (the reference's lax.cond): one sync per checked op
+    if bool(faults > 0):
+        fresh = be.matmul_acc(x_q, w_q)
+        acc_dot = torch.where(row_ok[:, None], acc_dot, fresh)
+    ok = torch.all(row_checksum(acc_dot) == want)
+    return AbftResult(zp_bias_correct(acc_dot, x_zp, w_q, bias), ok, faults)
 
 
 def channel_checksum(acc: torch.Tensor) -> torch.Tensor:
@@ -67,7 +136,7 @@ def abft_qconv2d(
 
     pix_ok = channel_checksum(acc_dot) == want           # (N, OH, OW)
     faults = torch.sum(~pix_ok).to(torch.int32)
-    # host branch (the reference's lax.cond): one sync per checked layer
+    # host branch (the reference's lax.cond): one sync per checked op
     if bool(faults > 0):
         fresh = be.conv_acc(x_q, x_zp, w_q, stride, padding)
         acc_dot = torch.where(pix_ok[..., None], acc_dot, fresh)

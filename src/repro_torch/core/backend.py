@@ -4,14 +4,15 @@ The counterpart of ``repro.core.backend``: the same ``Backend`` fields and
 the same selection precedence (most specific wins):
 
   1. per-call   ``dependable_qconv2d(..., backend="ref")``
-  2. per-layer  per-layer lists in ``models/shipdet.forward``
+  2. per-layer  per-layer lists in ``models/shipdet.forward``;
+                ``cfg.backend`` of the transformer
   3. global     ``set_default_backend`` / ``use_backend`` context manager
 
 All three accept either a backend name or a ``Backend`` instance.  Two
 backends are built in (``kernels/dispatch.py`` registers them):
 
-  ref   independent plain-PyTorch oracle (explicit tap loop, exact integer
-        sums, explicit mod-2^32 wrap)
+  ref   independent plain-PyTorch oracle (exact float64 products, tap loop,
+        exact integer sums, explicit mod-2^32 wrap)
   cuda  the hand-written Hopper kernels; on CPU tensors their wrappers run
         the kernels' plain versions, on CUDA tensors they launch or raise
 
@@ -44,9 +45,9 @@ class Backend:
       matmul_acc_checksum(x_q, w_q, w_check i32 (K,)) -> (acc, want (M,))
       attn(q, k, v, *, causal, window) / attn_checksum(...)
 
-    The matmul and attention entries are ``None`` until the slices that
-    port those kernels; ``kernels/dispatch.py`` raises
-    ``NotImplementedError`` naming the ROADMAP item when one is called.
+    The attention entries are ``None`` until the slice that ports those
+    kernels; ``kernels/dispatch.py`` raises ``NotImplementedError`` naming
+    the ROADMAP item when one is called.
     """
 
     name: str

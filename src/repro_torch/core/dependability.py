@@ -1,8 +1,10 @@
 """Dependability policy layer — ABFT / NMR / checkpoint-restart around the
-quantized conv.
+quantized matmul and conv.
 
-The counterpart of ``Policy``, ``DependabilityStats`` and
-``dependable_qconv2d`` in ``repro.core.dependability``:
+The counterpart of ``Policy``, ``DependabilityStats``,
+``dependable_qmatmul``, ``dependable_matmul_acc`` and ``dependable_qconv2d``
+in ``repro.core.dependability`` (``dependable_attention`` comes with the
+attention kernels):
 
   NONE  — plain accumulator path.
   ABFT  — exact integer checksum verify + recompute-recover.
@@ -14,7 +16,8 @@ The counterpart of ``Policy``, ``DependabilityStats`` and
 Every policy is written against a ``core.backend`` handle.  Where the
 reference branches on the device with ``lax.cond``, the port branches on
 the host (``bool(detected)``): one device-to-host synchronisation per
-ABFT- or CKPT-checked layer.  The counters stay on the device.
+ABFT- or CKPT-checked op — under ``ffn.*=abft`` one per W8A8 FFN matmul,
+3 per layer.  The counters stay on the device of the op's operands.
 """
 from __future__ import annotations
 
@@ -52,7 +55,8 @@ class DependabilityStats:
             "checks_run")
 
     @staticmethod
-    def zero(device="cpu"):
+    def zero(device):
+        """Zeroed counters on ``device`` (that of the op's operands)."""
         return {k: torch.zeros((), dtype=torch.int32, device=device)
                 for k in DependabilityStats.KEYS}
 
@@ -79,6 +83,133 @@ def _bump(stats: dict, detected, corrected, recovered=False) -> dict:
         "faults_recovered": stats["faults_recovered"] + _count(recovered),
         "checks_run": stats["checks_run"] + 1,
     }
+
+
+def dependable_qmatmul(
+    policy: Policy,
+    x_q: torch.Tensor, x_zp: torch.Tensor, w_q: torch.Tensor,
+    bias: torch.Tensor, scale: torch.Tensor, out_zp: torch.Tensor,
+    *, inject=None, stats: Optional[dict] = None, w_check=None,
+    ckpt=None, backend: backend_mod.BackendLike = None,
+):
+    """Quantized matmul + requant executed under a dependability policy.
+
+    ``inject`` corrupts the int32 accumulator (replica 0's under DMR/TMR);
+    ``w_check`` is the optional deploy-time checksum vector; ``ckpt`` is the
+    optional golden operand checkpoint ``(x_q, w_q)`` CKPT rolls back to
+    (defaults to the live operands).  Returns (y_q int8, stats).
+    """
+    if stats is None:
+        stats = DependabilityStats.zero(x_q.device)
+    be = backend_mod.resolve(backend)
+
+    def finish(acc_dot):
+        return requantize(abft_mod.zp_bias_correct(acc_dot, x_zp, w_q, bias),
+                          scale, out_zp)
+
+    if policy == Policy.ABFT:
+        res = abft_mod.abft_qmatmul(x_q, x_zp, w_q, bias, inject=inject,
+                                    w_check=w_check, backend=be)
+        y = requantize(res.acc, scale, out_zp)
+        corrected = res.faults_detected * res.ok.to(torch.int32)
+        return y, _bump(stats, res.faults_detected, corrected)
+
+    if policy == Policy.CKPT:
+        # checksum-detect, then roll back to the golden operands and
+        # re-execute everything, epilogue included (a corrupted w_q must not
+        # leak through the zp/colsum algebra)
+        ck_x, ck_w = (x_q, w_q) if ckpt is None else ckpt
+        wc = w_check if w_check is not None \
+            else abft_mod.checksum_vector(ck_w)
+        acc_dot, want = be.matmul_acc_checksum(x_q, w_q, wc)
+        if inject is not None:
+            acc_dot = inject(acc_dot)
+        detected = torch.any(abft_mod.row_checksum(acc_dot) != want)
+        w_eff = w_q
+        # host branch (the reference's lax.cond): one sync per checked op
+        if bool(detected):
+            acc_dot, w_eff = be.matmul_acc(ck_x, ck_w), ck_w
+        recovered = detected & torch.all(
+            abft_mod.row_checksum(acc_dot) == want)
+        y = requantize(abft_mod.zp_bias_correct(acc_dot, x_zp, w_eff, bias),
+                       scale, out_zp)
+        return y, _bump(stats, detected, False, recovered)
+
+    def run(inj):
+        acc = be.matmul_acc(x_q, w_q)
+        if inj is not None:
+            acc = inj(acc)
+        return finish(acc)
+
+    if policy == Policy.DMR:
+        y = run(inject)
+        detected = ~redundancy.agree([y, run(None)])
+        return y, _bump(stats, detected, False)
+
+    if policy == Policy.TMR:
+        r0, r1 = run(inject), run(None)
+        disagreed = ~redundancy.agree([r0, r1])
+        y = redundancy.vote([r0, r1, run(None)])
+        return y, _bump(stats, disagreed, disagreed)
+
+    return run(inject), stats
+
+
+def dependable_matmul_acc(
+    policy: Policy,
+    x_q: torch.Tensor, w_q: torch.Tensor,
+    *, inject=None, stats: Optional[dict] = None, w_check=None,
+    backend: backend_mod.BackendLike = None,
+):
+    """Bare int32 accumulator ``x_q @ w_q`` under a dependability policy —
+    what a ``PolicyMap`` threads into hot paths that own their own dequant
+    epilogue (the transformer's W8A8 FFN ``_qdot``).
+
+    Every policy is bit-identical to the plain ``be.matmul_acc`` on clean
+    runs.  ABFT recomputes the flagged rows, CKPT the whole op (each after
+    one host sync on the detection flag); DMR detects only; TMR votes.
+    Returns ``(acc int32, stats)``.
+    """
+    if stats is None:
+        stats = DependabilityStats.zero(x_q.device)
+    be = backend_mod.resolve(backend)
+
+    if policy in (Policy.ABFT, Policy.CKPT):
+        wc = w_check if w_check is not None \
+            else abft_mod.checksum_vector(w_q)
+        acc, want = be.matmul_acc_checksum(x_q, w_q, wc)
+        if inject is not None:
+            acc = inject(acc)
+        row_bad = abft_mod.row_checksum(acc) != want
+        detected = torch.any(row_bad)
+        # host branch (the reference's lax.cond): one sync per checked op
+        if bool(detected):
+            fresh = be.matmul_acc(x_q, w_q)
+            acc = torch.where(row_bad[:, None], fresh, acc) \
+                if policy == Policy.ABFT else fresh
+        healed = detected & torch.all(abft_mod.row_checksum(acc) == want)
+        corrected = healed if policy == Policy.ABFT else False
+        recovered = healed if policy == Policy.CKPT else False
+        return acc, _bump(stats, detected, corrected, recovered)
+
+    def run(inj):
+        acc = be.matmul_acc(x_q, w_q)
+        if inj is not None:
+            acc = inj(acc)
+        return acc
+
+    if policy == Policy.DMR:
+        acc = run(inject)
+        detected = ~redundancy.agree([acc, run(None)])
+        return acc, _bump(stats, detected, False)
+
+    if policy == Policy.TMR:
+        r0, r1 = run(inject), run(None)
+        disagreed = ~redundancy.agree([r0, r1])
+        acc = redundancy.vote([r0, r1, run(None)])
+        return acc, _bump(stats, disagreed, disagreed)
+
+    return run(inject), stats
 
 
 def dependable_qconv2d(
@@ -120,7 +251,7 @@ def dependable_qconv2d(
         if inject is not None:
             acc_dot = inject(acc_dot)
         detected = torch.any(abft_mod.channel_checksum(acc_dot) != want)
-        # host branch (the reference's lax.cond): one sync per checked layer
+        # host branch (the reference's lax.cond): one sync per checked op
         if bool(detected):
             acc_dot = be.conv_acc(ck_x, x_zp, ck_w, stride, padding)
         recovered = detected & torch.all(

@@ -1,0 +1,92 @@
+"""Build, bind and launch the hand-written CUDA kernels.
+
+Each kernel family keeps one CUDA C++ source for ``sm_90a`` under its
+``csrc/`` with plain C entry points.  ``build`` compiles a source with
+``nvcc`` at first use into ``build/kernels/`` at the root of the checkout,
+named by a hash of the source, so a changed source builds anew and builds
+of different sources can run at the same time.  ``load`` opens the library
+with ctypes and declares its entries: every pointer and the stream as
+``c_void_p``, every size as ``c_int``, an ``int`` (the CUDA error) back.
+
+The wrappers in ``kernels/<family>/kernel.py`` share the checks below: one
+device for all inputs, CPU (the plain version) or CUDA (the kernel, which
+needs contiguous inputs), and a launch that raises on a CUDA error.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, List, Tuple
+
+import torch
+
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def build(source: pathlib.Path) -> Tuple[pathlib.Path, str]:
+    """Compile ``source`` unless a library built from the same bytes
+    exists.  Returns (library path, nvcc's messages or "")."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{source.stem}-{digest}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)            # atomic: concurrent builders agree
+    return lib, proc.stdout + proc.stderr
+
+
+def load(source: pathlib.Path, entries: Dict[str, List]) -> ctypes.CDLL:
+    """Build ``source`` if needed, open it and declare ``entries``."""
+    lib = ctypes.CDLL(str(build(source)[0]))
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def expect(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def on_card(family: str, *tensors) -> bool:
+    """True to launch, False for the plain version; raises on a mix of
+    devices, a device other than CPU or CUDA, or a non-contiguous input."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{family} kernels run on CUDA or CPU, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{family} kernels need contiguous inputs")
+    return True
+
+
+def launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
+    """Call entry ``name`` on the current stream of ``device``; raise if
+    it reports a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -1,26 +1,26 @@
-"""Built-in execution backends for the quantized conv.
+"""Built-in execution backends for the quantized matmul and conv.
 
 Registers ``ref`` and ``cuda`` into ``core.backend``'s registry (see that
 module for the contract and selection precedence); the registry imports
 this module lazily.  Both are bit-identical: the hot path is integer and
 every sum wraps mod 2^32.
 
-The matmul and attention entries of both backends are empty in this slice:
-calling them raises ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+The attention entries of both backends are empty: calling them raises
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import abft as abft_mod
 from repro_torch.core import backend as backend_mod
 from repro_torch.kernels.qconv2d import kernel as qconv_kernel
 from repro_torch.kernels.qconv2d import ref as qconv_ref
 from repro_torch.kernels.qconv2d.ops import pad_zp, resolve_pads, weight_colsum
+from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
 
-_MATMUL_ITEM = ("the qmatmul kernels come with ROADMAP.md queue 1, item 7 "
-                "(port slice 2)")
-_ATTN_ITEM = "the flash-attention kernels come with ROADMAP.md queue 1, item 12"
+_ATTN_ITEM = ("the flash-attention kernels come with ROADMAP.md queue 1, "
+              "item 10 (port slice 3)")
 
 
 def _pads(x_q, w_q, stride, padding):
@@ -29,8 +29,18 @@ def _pads(x_q, w_q, stride, padding):
 
 
 # ---------------------------------------------------------------------------
-# ref — independent oracle: explicit tap loop on x - zp, no colsum algebra
+# ref — independent oracle: exact float64 products summed in int64; explicit
+# tap loop on x - zp for the conv, no colsum algebra
 # ---------------------------------------------------------------------------
+
+
+def _matmul_acc_ref(x_q, w_q):
+    return abft_mod.wrap_int32(abft_mod.exact_dot(x_q, w_q))
+
+
+def _matmul_acc_checksum_ref(x_q, w_q, w_check):
+    want = abft_mod.exact_dot(x_q, w_check[:, None])[:, 0]
+    return _matmul_acc_ref(x_q, w_q), abft_mod.wrap_int32(want)
 
 
 def _conv_acc_ref(x_q, x_zp, w_q, stride, padding):
@@ -48,6 +58,15 @@ def _conv_acc_checksum_ref(x_q, x_zp, w_q, w_check, stride, padding):
 # ---------------------------------------------------------------------------
 # cuda — the hand-written kernels (their plain versions on CPU tensors)
 # ---------------------------------------------------------------------------
+
+
+def _matmul_acc_cuda(x_q, w_q):
+    return qmatmul_kernel.qmatmul_acc(x_q.contiguous(), w_q.contiguous())
+
+
+def _matmul_acc_checksum_cuda(x_q, w_q, w_check):
+    return qmatmul_kernel.qmatmul_acc_checksum(
+        x_q.contiguous(), w_q.contiguous(), w_check.contiguous())
 
 
 def _conv_acc_cuda(x_q, x_zp, w_q, stride, padding):
@@ -72,11 +91,16 @@ def _conv_acc_checksum_cuda(x_q, x_zp, w_q, w_check, stride, padding):
 for _be in (
     backend_mod.Backend(
         name="ref",
+        matmul_acc=_matmul_acc_ref,
+        matmul_acc_checksum=_matmul_acc_checksum_ref,
         conv_acc=_conv_acc_ref,
         conv_acc_checksum=_conv_acc_checksum_ref,
-        description="independent plain-PyTorch oracle (exact tap loop)"),
+        description="independent plain-PyTorch oracle (exact float64 "
+                    "products, tap loop)"),
     backend_mod.Backend(
         name="cuda",
+        matmul_acc=_matmul_acc_cuda,
+        matmul_acc_checksum=_matmul_acc_checksum_cuda,
         conv_acc=_conv_acc_cuda,
         conv_acc_checksum=_conv_acc_checksum_cuda,
         description="hand-written sm_90a kernels with the fused ABFT check "
@@ -110,15 +134,13 @@ def conv_acc_checksum(x_q, x_zp, w_q, w_check, stride=(1, 1), padding="SAME",
 
 def matmul_acc(x_q, w_q, *, backend: backend_mod.BackendLike = None):
     """Raw int32 accumulator X·W on the selected backend."""
-    be = backend_mod.resolve(backend)
-    return _entry(be, "matmul_acc", _MATMUL_ITEM)(x_q, w_q)
+    return backend_mod.resolve(backend).matmul_acc(x_q, w_q)
 
 
 def matmul_acc_checksum(x_q, w_q, w_check, *,
                         backend: backend_mod.BackendLike = None):
     """(acc, want) with the ABFT check vector computed in the execution path."""
-    be = backend_mod.resolve(backend)
-    return _entry(be, "matmul_acc_checksum", _MATMUL_ITEM)(x_q, w_q, w_check)
+    return backend_mod.resolve(backend).matmul_acc_checksum(x_q, w_q, w_check)
 
 
 def attn(q, k, v, *, causal=True, window=None,

@@ -2,9 +2,7 @@
 
 CUDA C++ for ``sm_90a`` in ``csrc/qconv2d.cu`` (the source's header says
 which TPU kernel each replaces, what bounds it and what its design does
-about that).  The library is built with ``nvcc`` at first use into
-``build/kernels/`` at the root of the checkout, named by a hash of the
-source, and loaded with ctypes.
+about that), built and bound by ``kernels/cuda_lib.py``.
 
 Each wrapper checks dtypes, shapes and contiguity, then:
 
@@ -17,25 +15,17 @@ A CUDA tensor reaches the kernel or an exception, never the plain version.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import P as _P, I as _I
 from repro_torch.kernels.qconv2d import ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "qconv2d.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = [_I] * 11 + [_P]      # n hp wp cin kh kw cout oh ow sh sw, stream
 _ENTRIES = {
     "qconv2d_acc_launch": [_P] * 5 + _GEOMETRY,
@@ -47,31 +37,12 @@ _ENTRIES = {
 def build() -> Tuple[pathlib.Path, str]:
     """Compile ``csrc/qconv2d.cu`` unless a library built from the same
     source exists.  Returns (library path, nvcc's messages or "")."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"qconv2d-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)            # atomic: concurrent builders agree
-    return lib, proc.stdout + proc.stderr
+    return cuda_lib.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
-    for name, argtypes in _ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def _lib():
+    return cuda_lib.load(SOURCE, _ENTRIES)
 
 
 def _geometry(x_p, w_q, stride):
@@ -92,34 +63,15 @@ def _geometry(x_p, w_q, stride):
     return n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw
 
 
-def _expect(t, name, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
+_expect = cuda_lib.expect
 
 
 def _on_card(*tensors) -> bool:
-    """True to launch, False for the plain version; raises on a mix of
-    devices, a device other than CPU or CUDA, or a non-contiguous input."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"inputs on several devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"qconv2d kernels run on CUDA or CPU, not {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("qconv2d kernels need contiguous inputs")
-    return True
+    return cuda_lib.on_card("qconv2d", *tensors)
 
 
 def _launch(name, device, *args):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_lib(), name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    cuda_lib.launch(_lib(), name, device, *args)
 
 
 def qconv2d_acc(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,

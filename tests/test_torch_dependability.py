@@ -196,9 +196,9 @@ def test_scoped_backend_reaches_dependable_ops():
 
 
 def test_unported_entries_name_their_roadmap_item():
+    """Attention is the entry still to come; the matmul entries are in."""
     x = torch.zeros((2, 2), dtype=torch.int8)
     for be in ("ref", "cuda"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdispatch.matmul_acc(x, x, backend=be)
+        assert tdispatch.matmul_acc(x, x, backend=be).dtype == torch.int32
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tdispatch.attn(x, x, x, backend=be)
