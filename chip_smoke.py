@@ -6,8 +6,8 @@
 Phases, each of which raises on failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the qconv2d and qmatmul kernels from their ``csrc/`` sources, one
-   ``nvcc`` each, both started together;
+2. build the qconv2d, qmatmul and flashattn kernels from their ``csrc/``
+   sources, one ``nvcc`` each, all started together;
 3. hold each conv kernel ``torch.equal`` to its plain version on the card,
    at all 8 ``network_specs(194)`` layer shapes (N = 2), a ragged Cout
    tail, a stride (2, 1) case, non-zero zero points, a check channel that
@@ -30,11 +30,30 @@ Phases, each of which raises on failure:
    steps; ``dependable_matmul_acc`` heals an injected accumulator flip at
    each FFN shape; ``qlinear_act`` drives the fused ``qmatmul`` at the FFN
    shapes;
-7. time each kernel at the main paths' shapes with CUDA events beside its
-   plain version, its bound and the library call where one exists, the
-   forward's frames/s per policy, decode ms/step, tokens/s and prefill ms
-   per map; then, under torch.profiler, the device busy time and idle share
-   of the forward and of decode steps, and each kernel call's device time.
+7. hold each attention kernel against its plain version on the card, f32
+   and bf16: SmolLM-135M prefill shapes (1, 9, S, 64)/(1, 3, S, 64) at
+   S = 64, 192, 1024; S = 200 at hd 16, 32, 128; G = 4 with B = 2; a
+   window; non-causal; 12 seeded random geometries.  The three kernels'
+   out are torch.equal to each other and across two launches, csum equals
+   the recomputed bit checksum, the check column is within 1e-4 of
+   rowsum_hd(out);
+8. slice 3: ``Engine`` over the same SmolLM-135M with
+   ``attn_impl="flash"`` serves 8 seeded requests with prompts of 64-1000
+   tokens under no map, ``ffn.*=abft`` and ``ffn.*=tmr``: every request
+   completes, the streams are bit-identical, ``flash_attention_fwd_lse``
+   ran 30 times per prefill; request 0's prefill logits agree with the
+   chunked path's; ``dependable_attention`` on layer 0's q/k/v of a
+   1024-token prefill under every policy: equal on clean input, ABFT and
+   CKPT heal output bit flips, DMR detects, TMR outvotes, launch counts as
+   derived;
+9. time each kernel at the main paths' shapes with CUDA events beside its
+   plain version, its bound and the library call where one exists
+   (``scaled_dot_product_attention`` for attention), the forward's
+   frames/s per policy, decode ms/step, tokens/s and prefill ms per map,
+   flash and chunked prefill ms at S = 64, 256, 1024; then, under
+   torch.profiler, the device busy time and idle share of the forward, of
+   decode steps and of a flash prefill, and each kernel call's device
+   time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -97,6 +116,20 @@ MAPS = {                           # engine keywords per serving cell
 }
 RANDOM_MATMUL_CASES = 24
 DECODE_ROUNDS = 3                  # timing rounds of 20 decode steps per map
+# slice 3: the attention kernels
+BF16_FLOPS_PER_S = 989e12          # tensor cores, dense
+F32_FLOPS_PER_S = 67e12            # CUDA cores
+FLASH_SOURCE = "src/repro_torch/kernels/flashattn/csrc/flashattn.cu"
+FLASH_REPLACES = {
+    "flash_attention": "src/repro/kernels/flashattn/kernel.py:106",
+    "flash_attention_checked": "src/repro/kernels/flashattn/kernel.py:258",
+    "flash_attention_fwd_lse": "src/repro/kernels/flashattn/kernel.py:522",
+}
+FLASH_REQUESTS = 8
+FLASH_MAX_NEW = 16
+FLASH_MAX_LEN = 1280               # prompts up to 1000 tokens, 1024 padded
+FLASH_TIME_S = (64, 256, 1024)
+RANDOM_FLASH_CASES = 12
 
 
 def phase_card() -> str:
@@ -903,6 +936,466 @@ def phase_serve_profile(engines, reps=5):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the flash-attention kernels under attn_impl="flash" serving and
+# dependable_attention
+# ---------------------------------------------------------------------------
+
+
+class FlashCase:
+    """Seeded normal q (B, H, S, hd) and k, v (B, KV, S, hd), on the card."""
+
+    def __init__(self, gen, b, h, kv, s, hd, dtype, causal=True, window=None):
+        def normal(shape):
+            return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+        self.shape = (b, h, kv, s, hd)
+        self.dtype = dtype
+        self.kw = {"causal": causal, "window": window}
+        self.q = normal((b, h, s, hd))
+        self.k = normal((b, kv, s, hd))
+        self.v = normal((b, kv, s, hd))
+
+    def args(self):
+        return self.q, self.k, self.v
+
+    def bound_ms(self, name):
+        """Least time on an H100 SXM: q, k, v read once and the outputs
+        written once over 3.35 TB/s, against 4·B·H·hd·S(S+1)/2 causal FLOPs
+        (S² without causality) at 989 TFLOP/s for bf16, 67 for f32."""
+        b, h, kv, s, hd = self.shape
+        esz = torch.finfo(self.dtype).bits // 8
+        nbytes = esz * hd * s * b * (2 * h + 2 * kv)
+        nbytes += {"flash_attention": 0, "flash_attention_fwd_lse": 4,
+                   "flash_attention_checked": 12}[name] * b * h * s
+        pairs = s * (s + 1) / 2 if self.kw["causal"] else s * s
+        rate = BF16_FLOPS_PER_S if self.dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        t_ops = 4 * b * h * hd * pairs / rate
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), \
+            ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_kernels():
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    plain = {"flash_attention": "out", "flash_attention_checked": "checked",
+             "flash_attention_fwd_lse": "lse"}
+    return {name: (getattr(FK, name),
+                   functools.partial(FR.flash_plain, emit=emit))
+            for name, emit in plain.items()}
+
+
+def _bf16_step(x):
+    """One bf16 step (ulp) at the magnitude of each element of ``x``."""
+    mag = x.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _flash_err(got, want, dtype) -> float:
+    """Max abs error of a kernel output against its plain version; raises
+    beyond the tolerance: 1e-5 (abs and rel) for f32, where both sum the
+    same f32 products in other orders, and one bf16 step of the plain
+    value for bf16, where both round an f32 result that may differ in its
+    last bits."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    lim = _bf16_step(w) if dtype == torch.bfloat16 else 1e-5 * (1 + w.abs())
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"flash kernel disagrees with its plain version "
+                             f"(max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def flash_compare_cases(gen):
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        cases += [(f"prefill_S{s}_{tag}",
+                   FlashCase(gen, 1, 9, 3, s, 64, dt))
+                  for s in (64, 192, 1024)]
+        cases += [(f"hd{hd}_S200_{tag}", FlashCase(gen, 1, 4, 4, 200, hd, dt))
+                  for hd in (16, 32, 128)]
+        cases += [
+            (f"G4_B2_{tag}", FlashCase(gen, 2, 8, 2, 200, 64, dt)),
+            (f"window_{tag}", FlashCase(gen, 1, 9, 3, 300, 64, dt,
+                                        window=100)),
+            (f"noncausal_{tag}", FlashCase(gen, 1, 4, 2, 200, 32, dt,
+                                           causal=False)),
+            (f"noncausal_window_{tag}", FlashCase(gen, 1, 2, 1, 37, 16, dt,
+                                                  causal=False, window=9)),
+        ]
+    rng = random.Random(3)
+    for i in range(RANDOM_FLASH_CASES):
+        kv = rng.choice((1, 2, 3, 4))
+        cases.append((f"random_{i}", FlashCase(
+            gen, rng.randint(1, 3), kv * rng.choice((1, 2, 3, 4)), kv,
+            rng.randint(1, 700), rng.choice((16, 32, 64, 128)),
+            rng.choice((torch.float32, torch.bfloat16)),
+            causal=rng.random() < 0.8,
+            window=rng.choice((None, None, rng.randint(0, 300))))))
+    return cases
+
+
+def phase_compare_flash(gen) -> dict:
+    """Each attention kernel against its plain version on the card; the
+    three kernels' out torch.equal to each other and across two launches;
+    csum equal to the recomputed bit checksum; the check column within
+    1e-4 (rel and abs) of rowsum_hd of the f32 output (for bf16, of the
+    f32 kernel on the same values upcast: the check column is kept in f32
+    and never sees out's bf16 rounding)."""
+    from repro_torch.core.abft import output_row_checksums
+    from repro_torch.kernels.flashattn import kernel as FK
+    kernels = _flash_kernels()
+    max_err = {name: 0.0 for name in FLASH_REPLACES}
+    cases = flash_compare_cases(gen)
+    for label, case in cases:
+        got = {name: kern(*case.args(), **case.kw)
+               for name, (kern, _) in kernels.items()}
+        again = FK.flash_attention(*case.args(), **case.kw)
+        torch.cuda.synchronize()
+        out = got["flash_attention"]
+        for name, (_, plain) in kernels.items():
+            want = plain(*case.args(), **case.kw)
+            g, w = ((got[name], want) if name == "flash_attention"
+                    else (got[name][0], want[0]))
+            max_err[name] = max(max_err[name],
+                                _flash_err(g, w, case.dtype))
+            if name == "flash_attention_fwd_lse":
+                _flash_err(got[name][1], want[1], torch.float32)
+            if name == "flash_attention_checked":
+                _flash_err(got[name][1], want[1], torch.float32)
+        _, check, csum = got["flash_attention_checked"]
+        lse_out = got["flash_attention_fwd_lse"][0]
+        if not (torch.equal(out, got["flash_attention_checked"][0])
+                and torch.equal(out, lse_out)):
+            raise AssertionError(f"{label}: the three kernels' out differ")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{label}: two launches differ")
+        if not torch.equal(csum, output_row_checksums(out)):
+            raise AssertionError(f"{label}: csum != bit checksum of out")
+        ref_out = out if case.dtype == torch.float32 else FK.flash_attention(
+            *(t.float() for t in case.args()), **case.kw)
+        rows = ref_out.float().sum(dim=-1)
+        if not bool(((check - rows).abs() <= 1e-4 * (1 + rows.abs())).all()):
+            raise AssertionError(f"{label}: check column off rowsum_hd(out) "
+                                 f"by {float((check - rows).abs().max())}")
+    print(f"compare: {len(cases)} attention cases x 3 kernels within "
+          f"tolerance of the plain versions (f32 1e-5, bf16 one step); out "
+          f"equal across the three kernels and two launches; csum exact; "
+          f"max abs err {max_err}")
+    return max_err
+
+
+def flash_setup(cfg, params):
+    """The flash config of the served LM, and 8 seeded prompts of 64-1000
+    tokens."""
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    rng = random.Random(4)
+    prompts = [[rng.randrange(cfg.vocab_size)
+                for _ in range(rng.randint(64, 1000))]
+               for _ in range(FLASH_REQUESTS)]
+    return fcfg, prompts
+
+
+def _serve_flash(cfg, params, prompts, **kw):
+    from repro_torch.runtime.serving import Engine, Request
+    eng = Engine(cfg, params, capacity=CAPACITY, max_len=FLASH_MAX_LEN,
+                 prefill_pad=PREFILL_PAD, **kw)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=FLASH_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def phase_serve_flash(fcfg, params, prompts):
+    """The flash serving path, with every attention launch count reset
+    before it and read after it: the Engine under no map, ffn.*=abft and
+    ffn.*=tmr; every request completes, the streams are bit-identical, and
+    flash_attention_fwd_lse ran n_layers times per prefill."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    FK.reset_launches()
+    runs = {}
+    for name in ("none", "ffn_abft", "ffn_tmr"):
+        before = FK.flash_attention_fwd_lse.launches
+        eng, reqs, secs = _serve_flash(fcfg, params, prompts, **MAPS[name])
+        delta = FK.flash_attention_fwd_lse.launches - before
+        if any(len(r.output or ()) != FLASH_MAX_NEW for r in reqs):
+            raise AssertionError(f"flash {name}: a request did not complete")
+        if delta != fcfg.n_layers * len(reqs):
+            raise AssertionError(f"flash {name}: fwd_lse launches {delta}, "
+                                 f"derived {fcfg.n_layers} x {len(reqs)} "
+                                 f"prefills")
+        tokens = sum(len(r.output) for r in reqs)
+        runs[name] = {"streams": [list(r.output) for r in reqs],
+                      "steps": eng.stats.steps, "tokens": tokens,
+                      "wall_s": secs, "tokens_per_s": tokens / secs,
+                      "fwd_lse_launches": delta}
+        print(f"  serve flash {name:9s} {len(reqs)} requests "
+              f"({sum(len(p) for p in prompts)} prompt tokens), {tokens} "
+              f"tokens, {eng.stats.steps} decode steps in {secs:.2f} s; "
+              f"fwd_lse launches {delta} = {fcfg.n_layers} x {len(reqs)}")
+    launches = {k.__name__: k.launches for k in FK.KERNELS}
+    print(f"serve flash: launches {launches}")
+    base = runs["none"]["streams"]
+    for name, run in runs.items():
+        if run["streams"] != base:
+            raise AssertionError(f"flash {name}: streams differ from none")
+    if launches["flash_attention_fwd_lse"] == 0:
+        raise AssertionError("flash_attention_fwd_lse never ran")
+    return runs, launches
+
+
+def phase_flash_vs_chunked(cfg, fcfg, params, prompts, runs):
+    """The chunked engine on the same requests (the share of equal greedy
+    tokens is printed, not asserted: the two round in other places), and
+    request 0's prefill logits, flash against chunked, both bf16.
+
+    The tolerance is the bf16 noise of the path itself, measured in the
+    same run: the relative L2 distance between the chunked prefill's
+    logits in bf16 and in f32 compute.  Flash and chunked differ where they
+    round (chunked rounds the probabilities to bf16 before PV, flash keeps
+    them f32), and each rounding can move a W8A8 activation one int8 step;
+    they must not differ by more than twice what bf16 rounding does to one
+    of them.  A wrong mask, scale or head mapping gives distances of order
+    1."""
+    from repro_torch.models import api
+    _, reqs, _ = _serve_flash(cfg, params, prompts)
+    chunked = [list(r.output) for r in reqs]
+    flash = runs["none"]["streams"]
+    same = sum(a == b for fs, cs in zip(flash, chunked)
+               for a, b in zip(fs, cs))
+    total = sum(len(fs) for fs in flash)
+    p0 = prompts[0]
+    pad = -(-len(p0) // PREFILL_PAD) * PREFILL_PAD
+    toks = torch.tensor([p0 + [0] * (pad - len(p0))], dtype=torch.int32,
+                        device=DEVICE)
+
+    def logits(c):
+        return api.prefill(c, params, toks, FLASH_MAX_LEN)[0][
+            0, :len(p0)].float()
+    lf, lc = logits(fcfg), logits(cfg)
+    l32 = logits(dataclasses.replace(cfg, compute_dtype="float32"))
+    if not bool(torch.isfinite(lf).all()):
+        raise AssertionError("flash prefill logits are not finite")
+    rel = float((lf - lc).norm() / lc.norm())
+    floor = float((lc - l32).norm() / l32.norm())
+    max_abs = float((lf - lc).abs().max())
+    top1 = float((lf.argmax(-1) == lc.argmax(-1)).float().mean())
+    print(f"flash vs chunked: greedy tokens equal {same}/{total} "
+          f"({same / total:.3f}); request 0 ({len(p0)} tokens) prefill "
+          f"logits rel L2 {rel:.5f} (bf16 noise floor, chunked bf16 vs f32: "
+          f"{floor:.5f}), max abs {max_abs:.5f} (logits max abs "
+          f"{float(lc.abs().max()):.3f}), top-1 agree {top1:.4f}")
+    if not rel <= 2 * floor:
+        raise AssertionError(f"flash prefill logits off chunked: rel {rel}, "
+                             f"bf16 noise floor {floor}")
+    return {"greedy_equal_share": same / total, "logits_rel_l2": rel,
+            "bf16_noise_floor_rel_l2": floor, "logits_max_abs": max_abs,
+            "top1_agree": top1}
+
+
+def attention_inputs(fcfg, params, s=1024):
+    """q, k, v of layer 0 of an s-token prefill, (1, H, s, hd) and
+    (1, KV, s, hd), as the flash path hands them to the kernel."""
+    from repro_torch.models import transformer as T
+    toks = torch.randint(0, fcfg.vocab_size, (1, s),
+                         generator=torch.Generator().manual_seed(5)).to(
+                             DEVICE)
+    x = T._embed(fcfg, params, toks)
+    bp = T._layers(params["dense_blocks"])[0]
+    pos = torch.arange(s, device=DEVICE)[None, :]
+    q, k, v = T._qkv(fcfg, bp, x, pos)
+    return [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+
+
+def phase_dependable_attention(fcfg, params):
+    """dependable_attention at full width, bf16, with the attention launch
+    counts reset before and read after: every policy equal to NONE on
+    clean input with no alarm; ABFT heals a flip of out's bit 0, 7 and 15,
+    CKPT recovers, DMR detects and ships replica 0, TMR outvotes; the
+    launches equal those derived from the calls; NONE within one bf16
+    step plus 1e-4 of the ref backend (an independent two-pass oracle)."""
+    from repro_torch.core.dependability import (
+        DependabilityStats, Policy, dependable_attention)
+    from repro_torch.core.fault_injection import flip_bit_at_index
+    from repro_torch.kernels.flashattn import kernel as FK
+    q, k, v = attention_inputs(fcfg, params)
+    per_call = {Policy.NONE: (1, 0), Policy.ABFT: (1, 1),
+                Policy.CKPT: (1, 1), Policy.DMR: (2, 0), Policy.TMR: (3, 0)}
+    want = [0, 0]
+
+    def run(policy, bit=None):
+        inj = None if bit is None else (
+            lambda o: flip_bit_at_index(o, o.numel() // 3 + 5, bit))
+        out, st = dependable_attention(policy, q, k, v, inject=inj)
+        torch.cuda.synchronize()
+        want[0] += per_call[policy][0]
+        want[1] += per_call[policy][1]
+        return out, DependabilityStats.to_host(st)
+
+    FK.reset_launches()
+    clean, _ = run(Policy.NONE)
+    for policy in (Policy.ABFT, Policy.CKPT, Policy.DMR, Policy.TMR):
+        out, st = run(policy)
+        if not torch.equal(out, clean) or st["faults_detected"] != 0:
+            raise AssertionError(f"{policy.value} on clean input: {st}")
+    for bit in (0, 7, 15):
+        out, st = run(Policy.ABFT, bit)
+        if st["faults_corrected"] < 1 or not torch.equal(out, clean):
+            raise AssertionError(f"ABFT missed the flip of bit {bit}: {st}")
+        print(f"  attention abft bit {bit:2d}: {st}")
+    out, st = run(Policy.CKPT, 0)
+    if st["faults_recovered"] < 1 or not torch.equal(out, clean):
+        raise AssertionError(f"CKPT did not recover: {st}")
+    print(f"  attention ckpt bit  0: {st}")
+    out, st = run(Policy.DMR, 0)
+    if st["faults_detected"] != 1 or torch.equal(out, clean):
+        raise AssertionError(f"DMR missed the flip or healed it: {st}")
+    print(f"  attention dmr  bit  0: {st}")
+    out, st = run(Policy.TMR, 15)
+    if st["faults_corrected"] != 1 or not torch.equal(out, clean):
+        raise AssertionError(f"TMR did not outvote: {st}")
+    print(f"  attention tmr  bit 15: {st}")
+    launches = {kk.__name__: kk.launches for kk in FK.KERNELS}
+    derived = {"flash_attention": want[0], "flash_attention_checked": want[1],
+               "flash_attention_fwd_lse": 0}
+    if launches != derived or min(want) == 0:
+        raise AssertionError(f"attention launches {launches}, derived "
+                             f"{derived}")
+    # the ref backend's two-pass softmax sums its 1024 f32 terms in
+    # another order: outputs that cancel to near zero can differ by more
+    # than one bf16 step of their own size, so 1e-4 absolute is allowed
+    # on top of the step
+    oracle, _ = dependable_attention(Policy.NONE, q, k, v, backend="ref")
+    err = (clean.float() - oracle.float()).abs()
+    over = float((err - _bf16_step(oracle)).max())
+    if not over <= 1e-4:
+        raise AssertionError(f"dependable_attention off the ref backend: "
+                             f"max abs err {float(err.max())}, beyond one "
+                             f"bf16 step by {over}")
+    print(f"dependable_attention {tuple(q.shape)}/{tuple(k.shape)} "
+          f"{q.dtype}: all policies equal on clean input, faults healed; "
+          f"launches {launches} = derived; against the ref backend max abs "
+          f"err {float(err.max()):.3e}, beyond one bf16 step by at most "
+          f"{max(over, 0.0):.3e}")
+    return launches
+
+
+def phase_time_flash(gen, max_err):
+    """CUDA-event ms per call of each kernel at the serving shape (1, 9, S,
+    64)/(1, 3, S, 64) bf16, S in 64, 256, 1024, beside its plain version,
+    its bound and, for the kernels that have one,
+    scaled_dot_product_attention (the library yardstick; the port never
+    calls it)."""
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             is_causal=True, enable_gqa=True)
+    rows, calls = [], []
+    for s in FLASH_TIME_S:
+        case = FlashCase(gen, 1, 9, 3, s, 64, torch.bfloat16)
+        for name, (kern, plain) in _flash_kernels().items():
+            args = case.args()
+            got, want = kern(*args), plain(*args)
+            g, w = (got, want) if name == "flash_attention" \
+                else (got[0], want[0])
+            max_err[name] = max(max_err[name],
+                                _flash_err(g, w, torch.bfloat16))
+            ms = _time_ms(lambda: kern(*args), reps=50)
+            plain_ms = _time_ms(lambda: plain(*args), reps=10, warmup=1)
+            lib_ms = None
+            if name != "flash_attention_checked":
+                lib_ms = _time_ms(lambda: sdpa(*args), reps=50)
+            bound, by = case.bound_ms(name)
+            rows.append({"S": s, "kernel": name, "ms": ms, "device_ms": None,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib_ms,
+                         "library_device_ms": None})
+            calls.append((functools.partial(kern, *args),
+                          None if lib_ms is None
+                          else functools.partial(sdpa, *args)))
+    return rows, calls
+
+
+def phase_prefill_flash(cfg, fcfg, params):
+    """Host-clock ms per prefill (one padded prompt, ends in a sync) for
+    flash and chunked, median of 5, at S in 64, 256, 1024, under no map."""
+    from repro_torch.models import api
+    out = {}
+    for s in FLASH_TIME_S:
+        toks = torch.randint(0, cfg.vocab_size, (1, s), device=DEVICE,
+                             generator=torch.Generator(device=DEVICE
+                                                       ).manual_seed(s))
+        row = {}
+        for name, c in (("flash", fcfg), ("chunked", cfg)):
+            api.prefill(c, params, toks, FLASH_MAX_LEN)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                api.prefill(c, params, toks, FLASH_MAX_LEN)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row[name] = statistics.median(times)
+        out[s] = row
+        print(f"prefill S {s:5d}: flash {row['flash']:9.3f} ms, chunked "
+              f"{row['chunked']:9.3f} ms (median of 5)")
+    return out
+
+
+def phase_profile_flash(fcfg, params, rows, calls):
+    """The device busy time and idle share of one flash prefill at S = 64
+    and 1024 under torch.profiler; then each kernel call's and SDPA's
+    device time, filled into ``rows``."""
+    from repro_torch.models import api
+    out = {}
+    for s in (64, 1024):
+        toks = torch.zeros((1, s), dtype=torch.int32, device=DEVICE)
+        w = _profile_window(
+            lambda: api.prefill(fcfg, params, toks, FLASH_MAX_LEN), reps=3)
+        out[s] = w
+        if w is None:
+            print(f"profile flash prefill S {s}: the profiler saw no device "
+                  f"time (not measured)")
+            continue
+        print(f"profile flash prefill S {s}: wall {w['wall_ms']:.3f} ms, "
+              f"device busy {w['busy_ms']:.3f} ms, idle share "
+              f"{w['idle_share']:.3f}, {w['ops']:.0f} device ops/prefill")
+        for kname, v in w["top"]:
+            print(f"    {v:8.4f} ms  {kname}")
+    for row, (call, lib) in zip(rows, calls):
+        row["device_ms"] = _device_ms(call, reps=20, match="flash_fwd")
+        if lib is not None:
+            row["library_device_ms"] = _device_ms(lib, reps=20, match=None)
+    print("attention kernel times per call at (1, 9, S, 64)/(1, 3, S, 64) "
+          "bf16 (CUDA events; device time from the profiler):")
+    for r in rows:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms'] or float('nan'):.4f})")
+        print(f"  S {r['S']:5d} {r['kernel']:24s} {r['ms']:8.4f} ms  device "
+              f"{dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
+              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa {lib}")
+    return out
+
+
+def flash_totals(rows):
+    """Per kernel, one call at S = 1024 (the longest prefill bucket of the
+    main path and dependable_attention's shape)."""
+    return {r["kernel"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                          "bound_ms": r["bound_ms"],
+                          "t_bytes": r["bound_ms"] * (r["bound_by"] == "bytes"),
+                          "t_ops": r["bound_ms"] * (r["bound_by"] != "bytes")}
+            for r in rows if r["S"] == max(FLASH_TIME_S)}, \
+        {r["kernel"]: r["library_ms"] for r in rows
+         if r["S"] == max(FLASH_TIME_S)}
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -924,10 +1417,14 @@ def main() -> None:
     args = ap.parse_args()
 
     card = phase_card()
+    # the plain versions' f32 products stay f32 (PyTorch's default, set
+    # here so that no environment changes it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.flashattn import kernel as FK
     from repro_torch.kernels.qconv2d import kernel as K
     from repro_torch.kernels.qmatmul import kernel as MK
     from repro_torch.models import shipdet
-    build_s = phase_build([K, MK])
+    build_s = phase_build([K, MK, FK])
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -945,9 +1442,22 @@ def main() -> None:
     phase_heal(cfg, lm_params, gen)
     launches["qmatmul"] = phase_qlinear(cfg, gen)
 
+    max_err.update(phase_compare_flash(gen))
+    fcfg, fprompts = flash_setup(cfg, lm_params)
+    flash_runs, flash_launches = phase_serve_flash(fcfg, lm_params, fprompts)
+    launches["flash_attention_fwd_lse"] = \
+        flash_launches["flash_attention_fwd_lse"]
+    flash_cmp = phase_flash_vs_chunked(cfg, fcfg, lm_params, fprompts,
+                                       flash_runs)
+    dep_launches = phase_dependable_attention(fcfg, lm_params)
+    for name in ("flash_attention", "flash_attention_checked"):
+        launches[name] = dep_launches[name]
+
     # every CUDA-event timing before the first profiler session
     rows, totals, calls = phase_time(specs, gen, max_err)
     mm_rows, mm_calls = phase_time_matmul(cfg, gen, max_err)
+    fl_rows, fl_calls = phase_time_flash(gen, max_err)
+    prefill_ms = phase_prefill_flash(cfg, fcfg, lm_params)
     forward = phase_forward(specs, params, frames)
     serving, engines = phase_serve_time(cfg, lm_params, prompts, serve_runs)
     profile = phase_profile(specs, params, frames, rows, calls)
@@ -965,12 +1475,20 @@ def main() -> None:
               f"  device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
               f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  _int_mm {lib}")
 
+    profile["flash_prefill"] = phase_profile_flash(fcfg, lm_params, fl_rows,
+                                                   fl_calls)
+
     mm_totals = matmul_totals(cfg, mm_rows)
+    fl_totals, fl_library = flash_totals(fl_rows)
     kernels = _kernel_lines(REPLACES, CONV_SOURCE, REPLACES, launches,
                             max_err, totals, {})
     # torch._int_mm refuses M = 8 (the decode step's M): no library time
     kernels += _kernel_lines(MATMUL_REPLACES, MATMUL_SOURCE, MATMUL_REPLACES,
                              launches, max_err, mm_totals, {})
+    # attention: one call at (1, 9, 1024, 64)/(1, 3, 1024, 64) bf16;
+    # scaled_dot_product_attention as the library time of #7 and #9
+    kernels += _kernel_lines(FLASH_REPLACES, FLASH_SOURCE, FLASH_REPLACES,
+                             launches, max_err, fl_totals, fl_library)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -979,7 +1497,12 @@ def main() -> None:
                        "batch": BATCH, "kernels": kernels, "per_layer": rows,
                        "forward": forward, "profile": profile,
                        "matmul_per_call": mm_rows, "serve": serve_runs,
-                       "serving": serving}, f, indent=1)
+                       "serving": serving, "attention_per_call": fl_rows,
+                       "serve_flash": {k: {kk: vv for kk, vv in v.items()
+                                           if kk != "streams"}
+                                       for k, v in flash_runs.items()},
+                       "flash_vs_chunked": flash_cmp,
+                       "prefill_ms": prefill_ms}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

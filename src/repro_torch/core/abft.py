@@ -1,5 +1,5 @@
 """Algorithm-Based Fault Tolerance for the integer matmul and conv (exact
-checksums).
+checksums), and the per-row bit checksum of a float op's output.
 
 The counterpart of ``repro.core.abft`` (its storage scrub comes with the
 engine's scrubs).  The hot path is integer, so the Huang–Abraham identities
@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import backend as backend_mod
+from repro_torch.core.fault_injection import _as_bits
 
 
 class AbftResult(NamedTuple):
@@ -104,6 +105,26 @@ def abft_qmatmul(
         acc_dot = torch.where(row_ok[:, None], acc_dot, fresh)
     ok = torch.all(row_checksum(acc_dot) == want)
     return AbftResult(zp_bias_correct(acc_dot, x_zp, w_q, bias), ok, faults)
+
+
+def output_row_checksums(x: torch.Tensor) -> torch.Tensor:
+    """The exact mod-2^32 sum of ``x``'s bit patterns over its last axis
+    (bf16 as 16 bits, zero-extended), the last axis reduced away.
+
+    The verification side of the float-op output checksum: a kernel that
+    emits its own per-row bit checksum beside the output
+    (``kernels.flashattn.kernel.flash_attention_checked``) lets the
+    consumer compare bit for bit, so any single-bit flip of the emitted
+    output is detected.  The result is int64 holding the uint32 value in
+    [0, 2^32): ``torch.uint32`` lacks elementwise arithmetic (no ``+`` on
+    the CPU in torch 2.13) and its operator coverage differs between
+    versions, while int64 holds every value exactly, works everywhere, and
+    compares by value with numpy's uint32 and with itself under ``==``.
+    """
+    bits, _ = _as_bits(x)
+    width = (1 << (8 * x.element_size())) - 1
+    rows = (bits.to(torch.int64) & width).sum(dim=-1)
+    return rows & 0xFFFFFFFF
 
 
 def channel_checksum(acc: torch.Tensor) -> torch.Tensor:

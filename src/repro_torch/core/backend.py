@@ -17,7 +17,8 @@ backends are built in (``kernels/dispatch.py`` registers them):
         the kernels' plain versions, on CUDA tensors they launch or raise
 
 ``cuda`` is the global default.  The hot path is integer (int8 × int8 →
-int32, exact mod 2^32), so both backends are bit-identical.
+int32, exact mod 2^32), so both backends are bit-identical there; their
+attention is float and agrees to a tolerance.
 """
 from __future__ import annotations
 
@@ -43,11 +44,13 @@ class Backend:
                         stride, padding) -> (acc, want (N,OH,OW))
       matmul_acc(x_q i8 (M,K), w_q i8 (K,N)) -> i32 (M,N)
       matmul_acc_checksum(x_q, w_q, w_check i32 (K,)) -> (acc, want (M,))
-      attn(q, k, v, *, causal, window) / attn_checksum(...)
+      attn(q f32/bf16 (B,H,S,hd), k, v (B,KV,S,hd), *, causal, window)
+          -> out like q
+      attn_checksum(q, k, v, *, causal, window)
+          -> (out, check f32 (B,H,S), csum int64 (B,H,S) in [0, 2^32))
 
-    The attention entries are ``None`` until the slice that ports those
-    kernels; ``kernels/dispatch.py`` raises ``NotImplementedError`` naming
-    the ROADMAP item when one is called.
+    An out-of-tree backend may leave the attention entries ``None``;
+    ``dependable_attention`` then refuses it.
     """
 
     name: str

@@ -1,23 +1,25 @@
 """Dependability policy layer — ABFT / NMR / checkpoint-restart around the
-quantized matmul and conv.
+quantized matmul and conv, and around attention.
 
 The counterpart of ``Policy``, ``DependabilityStats``,
-``dependable_qmatmul``, ``dependable_matmul_acc`` and ``dependable_qconv2d``
-in ``repro.core.dependability`` (``dependable_attention`` comes with the
-attention kernels):
+``dependable_qmatmul``, ``dependable_matmul_acc``, ``dependable_attention``
+and ``dependable_qconv2d`` in ``repro.core.dependability``:
 
   NONE  — plain accumulator path.
-  ABFT  — exact integer checksum verify + recompute-recover.
+  ABFT  — exact integer checksum verify + recompute-recover (attention:
+          the two-tier float check column + exact output bit checksum).
   DMR   — dual execution + bitwise compare (detect-only).
   TMR   — triple execution + bitwise majority vote.
   CKPT  — checksum detection, recovery by rolling back to the golden
           operand checkpoint and re-executing the whole op.
 
 Every policy is written against a ``core.backend`` handle.  Where the
-reference branches on the device with ``lax.cond``, the port branches on
-the host (``bool(detected)``): one device-to-host synchronisation per
-ABFT- or CKPT-checked op — under ``ffn.*=abft`` one per W8A8 FFN matmul,
-3 per layer.  The counters stay on the device of the op's operands.
+reference branches on the device with ``lax.cond`` (the integer ops), the
+port branches on the host (``bool(detected)``): one device-to-host
+synchronisation per ABFT- or CKPT-checked integer op — under
+``ffn.*=abft`` one per W8A8 FFN matmul, 3 per layer.  Attention needs no
+branch: as in the reference it recomputes unconditionally and selects on
+the device.  The counters stay on the device of the op's operands.
 """
 from __future__ import annotations
 
@@ -210,6 +212,100 @@ def dependable_matmul_acc(
         return acc, _bump(stats, disagreed, disagreed)
 
     return run(inject), stats
+
+
+def dependable_attention(
+    policy: Policy,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *, causal=True, window=None,
+    inject=None, stats: Optional[dict] = None,
+    backend: backend_mod.BackendLike = None, tol: float = 1e-3,
+):
+    """Fused attention (B,H,S,hd) under a dependability policy — the float
+    twin of ``dependable_qmatmul``.
+
+    Float math admits no exact compute checksum, so ABFT here is two-tier:
+
+      * a float check column accumulated in the execution path beside the
+        output, verified as
+        ``|rowsum_hd(out) - check| <= tol*(|check|+1) + u*rowsum_hd(|out|)``
+        — tolerance-based, covers the softmax/accumulate compute path.  The
+        last term, with u the unit roundoff of out's dtype (2^-8 for bf16,
+        2^-24 for f32), allows for the rounding of each output element to
+        its dtype, which the check column (kept in f32) does not see; the
+        reference has no such term and, for bf16 output, flags rows whose
+        rounding alone exceeds ``tol``.  For f32 it is below 1e-7 of the
+        row's magnitude;
+      * an exact mod-2^32 bit checksum of the emitted output rows, verified
+        bit for bit — any single bit flip of the output is detected (the
+        float tier alone would miss low-mantissa flips).
+
+    ``inject`` corrupts the kernel output (replica 0's under DMR/TMR).
+    ABFT recovery replaces flagged rows with the plain ``be.attn`` output,
+    which is bit-identical to the checked entry's, so correction is
+    bit-exact.  ABFT and CKPT recompute unconditionally and select on the
+    device, as the reference does: no host synchronisation.
+    Returns (out, stats).
+    """
+    if stats is None:
+        stats = DependabilityStats.zero(q.device)
+    be = backend_mod.resolve(backend)
+    if be.attn is None or be.attn_checksum is None:
+        raise ValueError(f"backend {be.name!r} does not register attention")
+
+    def plain(inj):
+        out = be.attn(q, k, v, causal=causal, window=window)
+        if inj is not None:
+            out = inj(out)
+        return out
+
+    unit = torch.finfo(q.dtype).eps / 2
+
+    def row_ok_mask(out, check, csum):
+        bit_ok = abft_mod.output_row_checksums(out) == csum
+        o = out.to(torch.float32)
+        flt_ok = (o.sum(dim=-1) - check).abs() \
+            <= tol * (check.abs() + 1.0) + unit * o.abs().sum(dim=-1)
+        return bit_ok & flt_ok
+
+    if policy == Policy.ABFT:
+        out, check, csum = be.attn_checksum(q, k, v, causal=causal,
+                                            window=window)
+        if inject is not None:
+            out = inject(out)
+        row_ok = row_ok_mask(out, check, csum)
+        faults = torch.sum(~row_ok).to(torch.int32)
+        fresh = be.attn(q, k, v, causal=causal, window=window)
+        out = torch.where(row_ok[..., None], out, fresh)
+        ok = torch.all(row_ok_mask(out, check, csum))
+        corrected = faults * ok.to(torch.int32)
+        return out, _bump(stats, faults, corrected)
+
+    if policy == Policy.CKPT:
+        # detect via the fused two-tier check, recover by re-executing the
+        # whole op from the operands instead of selected rows
+        out, check, csum = be.attn_checksum(q, k, v, causal=causal,
+                                            window=window)
+        if inject is not None:
+            out = inject(out)
+        detected = torch.any(~row_ok_mask(out, check, csum))
+        fresh = be.attn(q, k, v, causal=causal, window=window)
+        out = torch.where(detected, fresh, out)
+        recovered = detected & torch.all(row_ok_mask(out, check, csum))
+        return out, _bump(stats, detected, False, recovered)
+
+    if policy == Policy.DMR:
+        out = plain(inject)
+        detected = ~redundancy.agree([out, plain(None)])
+        return out, _bump(stats, detected, False)
+
+    if policy == Policy.TMR:
+        r0, r1 = plain(inject), plain(None)
+        disagreed = ~redundancy.agree([r0, r1])
+        out = redundancy.vote([r0, r1, plain(None)])
+        return out, _bump(stats, disagreed, disagreed)
+
+    return plain(inject), stats
 
 
 def dependable_qconv2d(

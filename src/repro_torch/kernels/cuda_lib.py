@@ -3,10 +3,11 @@
 Each kernel family keeps one CUDA C++ source for ``sm_90a`` under its
 ``csrc/`` with plain C entry points.  ``build`` compiles a source with
 ``nvcc`` at first use into ``build/kernels/`` at the root of the checkout,
-named by a hash of the source, so a changed source builds anew and builds
-of different sources can run at the same time.  ``load`` opens the library
-with ctypes and declares its entries: every pointer and the stream as
-``c_void_p``, every size as ``c_int``, an ``int`` (the CUDA error) back.
+named by a hash of the source and its extra flags, so a changed source
+builds anew and builds of different sources can run at the same time.
+``load`` opens the library with ctypes and declares its entries: every
+pointer and the stream as ``c_void_p``, every size as ``c_int``, a scale as
+``c_float``, an ``int`` (the CUDA error) back.
 
 The wrappers in ``kernels/<family>/kernel.py`` share the checks below: one
 device for all inputs, CPU (the plain version) or CUDA (the kernel, which
@@ -20,20 +21,23 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def build(source: pathlib.Path) -> Tuple[pathlib.Path, str]:
-    """Compile ``source`` unless a library built from the same bytes
-    exists.  Returns (library path, nvcc's messages or "")."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+def build(source: pathlib.Path,
+          flags: Sequence[str] = ()) -> Tuple[pathlib.Path, str]:
+    """Compile ``source`` (with ``flags`` after the common ones) unless a
+    library built from the same bytes and flags exists.  Returns (library
+    path, nvcc's messages or "")."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     if lib.exists():
         return lib, ""
@@ -41,7 +45,8 @@ def build(source: pathlib.Path) -> Tuple[pathlib.Path, str]:
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+                           str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
@@ -50,9 +55,10 @@ def build(source: pathlib.Path) -> Tuple[pathlib.Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
-def load(source: pathlib.Path, entries: Dict[str, List]) -> ctypes.CDLL:
+def load(source: pathlib.Path, entries: Dict[str, List],
+         flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build ``source`` if needed, open it and declare ``entries``."""
-    lib = ctypes.CDLL(str(build(source)[0]))
+    lib = ctypes.CDLL(str(build(source, flags)[0]))
     for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -1,14 +1,16 @@
-"""Built-in execution backends for the quantized matmul and conv.
+"""Built-in execution backends for the quantized matmul and conv, and
+for attention.
 
 Registers ``ref`` and ``cuda`` into ``core.backend``'s registry (see that
 module for the contract and selection precedence); the registry imports
-this module lazily.  Both are bit-identical: the hot path is integer and
-every sum wraps mod 2^32.
-
-The attention entries of both backends are empty: calling them raises
-``NotImplementedError`` naming the ROADMAP item that brings them.
+this module lazily.  Their integer entries are bit-identical: the hot path
+is integer and every sum wraps mod 2^32.  Attention is float, so the two
+agree to a tolerance; within one backend the checked entry's output is
+the plain entry's bit for bit.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,10 +19,9 @@ from repro_torch.core import backend as backend_mod
 from repro_torch.kernels.qconv2d import kernel as qconv_kernel
 from repro_torch.kernels.qconv2d import ref as qconv_ref
 from repro_torch.kernels.qconv2d.ops import pad_zp, resolve_pads, weight_colsum
+from repro_torch.kernels.flashattn import kernel as flash_kernel
+from repro_torch.kernels.flashattn import ref as flash_ref
 from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
-
-_ATTN_ITEM = ("the flash-attention kernels come with ROADMAP.md queue 1, "
-              "item 10 (port slice 3)")
 
 
 def _pads(x_q, w_q, stride, padding):
@@ -85,6 +86,65 @@ def _conv_acc_checksum_cuda(x_q, x_zp, w_q, w_check, stride, padding):
 
 
 # ---------------------------------------------------------------------------
+# attention — the float hot kernel, per backend
+#
+# Attention has no integer operand identity, so the checksummed entry is
+# two-tier (core/dependability.dependable_attention): a float check column
+# verified with a tolerance plus an exact bit checksum of the emitted
+# output rows.  The cuda kernels fuse both into the epilogue; ref computes
+# them as separate passes in the execution path.
+# ---------------------------------------------------------------------------
+
+
+def _scores(q, k, *, causal, window):
+    """Masked f32 scores (B, H, S, S), the GQA heads expanded."""
+    G = q.shape[1] // k.shape[1]
+    s = torch.matmul(q.to(torch.float32),
+                     flash_ref.gqa_expand(k, G).transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    pos = torch.arange(q.shape[2], device=q.device)
+    return torch.where(flash_ref.band_mask(pos, pos, causal, window), s,
+                       flash_ref.NEG_INF)
+
+
+def _attn_check_column(q, k, v, *, causal, window):
+    """Independent rowsum_hd(out) accumulation: softmax probabilities
+    contracted with rowsum_hd(v) — never touches the (hd-wide) output
+    accumulation it checks."""
+    v1 = flash_ref.gqa_expand(v, q.shape[1] // k.shape[1]).sum(dim=-1)
+    p = torch.softmax(_scores(q, k, causal=causal, window=window), dim=-1)
+    return torch.einsum("bhqk,bhk->bhq", p, v1)
+
+
+def _attn_ref(q, k, v, *, causal=True, window=None):
+    """Independent oracle: explicit two-pass softmax (max/exp/normalize),
+    no ``torch.softmax``."""
+    s = _scores(q, k, causal=causal, window=window)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    vv = flash_ref.gqa_expand(v, q.shape[1] // k.shape[1])
+    return torch.matmul(p, vv).to(q.dtype)
+
+
+def _attn_checksum_ref(q, k, v, *, causal=True, window=None):
+    out = _attn_ref(q, k, v, causal=causal, window=window)
+    check = _attn_check_column(q, k, v, causal=causal, window=window)
+    return out, check, abft_mod.output_row_checksums(out)
+
+
+def _attn_cuda(q, k, v, *, causal=True, window=None):
+    return flash_kernel.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window)
+
+
+def _attn_checksum_cuda(q, k, v, *, causal=True, window=None):
+    return flash_kernel.flash_attention_checked(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window)
+
+
+# ---------------------------------------------------------------------------
 # registration + convenience dispatchers
 # ---------------------------------------------------------------------------
 
@@ -95,27 +155,23 @@ for _be in (
         matmul_acc_checksum=_matmul_acc_checksum_ref,
         conv_acc=_conv_acc_ref,
         conv_acc_checksum=_conv_acc_checksum_ref,
+        attn=_attn_ref,
+        attn_checksum=_attn_checksum_ref,
         description="independent plain-PyTorch oracle (exact float64 "
-                    "products, tap loop)"),
+                    "products, tap loop, two-pass softmax)"),
     backend_mod.Backend(
         name="cuda",
         matmul_acc=_matmul_acc_cuda,
         matmul_acc_checksum=_matmul_acc_checksum_cuda,
         conv_acc=_conv_acc_cuda,
         conv_acc_checksum=_conv_acc_checksum_cuda,
+        attn=_attn_cuda,
+        attn_checksum=_attn_checksum_cuda,
         description="hand-written sm_90a kernels with the fused ABFT check "
                     "channel (their plain versions on CPU tensors)"),
 ):
     backend_mod.register_backend(_be, overwrite=True)
 del _be
-
-
-def _entry(be: backend_mod.Backend, name: str, item: str):
-    fn = getattr(be, name)
-    if fn is None:
-        raise NotImplementedError(f"backend {be.name!r} has no {name} yet: "
-                                  f"{item}")
-    return fn
 
 
 def conv_acc(x_q, x_zp, w_q, stride=(1, 1), padding="SAME", *,
@@ -146,14 +202,12 @@ def matmul_acc_checksum(x_q, w_q, w_check, *,
 def attn(q, k, v, *, causal=True, window=None,
          backend: backend_mod.BackendLike = None):
     """Fused attention (B,H,S,hd layout) on the selected backend."""
-    be = backend_mod.resolve(backend)
-    return _entry(be, "attn", _ATTN_ITEM)(q, k, v, causal=causal,
-                                          window=window)
+    return backend_mod.resolve(backend).attn(q, k, v, causal=causal,
+                                             window=window)
 
 
 def attn_checksum(q, k, v, *, causal=True, window=None,
                   backend: backend_mod.BackendLike = None):
     """(out, check, csum): attention plus the two-tier ABFT check outputs."""
-    be = backend_mod.resolve(backend)
-    return _entry(be, "attn_checksum", _ATTN_ITEM)(q, k, v, causal=causal,
-                                                   window=window)
+    return backend_mod.resolve(backend).attn_checksum(q, k, v, causal=causal,
+                                                      window=window)

@@ -1,0 +1,177 @@
+"""The three flash-attention forward kernels: build, ctypes binding and
+wrappers.
+
+CUDA C++ for ``sm_90a`` in ``csrc/flashattn.cu`` (the source's header says
+which TPU kernel each replaces, what bounds it and what its design does
+about that), built with ``-fmad=false`` and bound by
+``kernels/cuda_lib.py``.  The backward kernels come with training.
+
+Layouts as in the reference: q (B, H, S, hd), k/v (B, KV, S, hd), f32 or
+bf16, H a multiple of KV, hd one of 16, 32, 64, 128; ``causal``,
+``window`` (keys at most ``window`` positions before the query),
+``block_q`` and ``block_k`` keywords.  The kernels are compiled for
+Hopper's own tile, 16 query rows per block and 32 keys per tile
+(``BLOCK_Q``, ``BLOCK_K``); a CUDA call with other block sizes raises.  On
+the CPU ``block_k`` tiles the plain version's K loop and ``block_q`` has
+no effect (rows are independent).
+
+Each wrapper checks dtypes and shapes, then:
+
+* on CUDA tensors allocates its outputs with ``torch.empty``, launches on
+  the current stream, raises if the launch reports an error, and adds one
+  to its ``launches`` count;
+* on CPU tensors runs the kernel's plain version (``ref.flash_plain``).
+
+A CUDA tensor reaches the kernel or an exception, never the plain version.
+"""
+from __future__ import annotations
+
+import functools
+import math
+import pathlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.cuda_lib import F as _F, I as _I, P as _P
+from repro_torch.kernels.flashattn import ref
+
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flashattn.cu"
+# no contraction of a*b+c behind the source's back: the three kernels'
+# out must agree bit for bit
+FLAGS = ("-fmad=false",)
+BLOCK_Q, BLOCK_K = 16, 32
+HEAD_DIMS = (16, 32, 64, 128)
+_DIMS = [_I] * 8 + [_F, _P]   # b h kv s hd causal window bf16, scale, stream
+_ENTRIES = {
+    "flash_attention_launch": [_P] * 4 + _DIMS,
+    "flash_attention_checked_launch": [_P] * 6 + _DIMS,
+    "flash_attention_fwd_lse_launch": [_P] * 5 + _DIMS,
+}
+
+
+def build() -> Tuple[pathlib.Path, str]:
+    """Compile ``csrc/flashattn.cu`` unless a library built from the same
+    source and flags exists.  Returns (library path, nvcc's messages or
+    "")."""
+    return cuda_lib.build(SOURCE, FLAGS)
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    return cuda_lib.load(SOURCE, _ENTRIES, FLAGS)
+
+
+def _dims(q, k, v, causal, window):
+    """The C entries' (b, h, kv, s, hd, causal, window, bf16, scale)."""
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"need (B,H,S,hd) q and (B,KV,S,hd) k/v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    if tuple(k.shape) != (B, KV, S, hd) or v.shape != k.shape \
+            or KV == 0 or H % KV or S == 0:
+        raise ValueError(f"need (B,H,S,hd) q and (B,KV,S,hd) k/v with H a "
+                         f"multiple of KV and S > 0, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} is not supported: the kernels are "
+                         f"built for {HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"B*H = {B * H} exceeds the grid's 65535 (b, h) "
+                         f"blocks")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be None or >= 0, got {window}")
+    return (B, H, KV, S, hd, int(bool(causal)),
+            -1 if window is None else int(window),
+            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd))
+
+
+def _on_card(block_q, block_k, *tensors) -> bool:
+    if not cuda_lib.on_card("flashattn", *tensors):
+        return False
+    if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(f"the kernels are compiled for block_q={BLOCK_Q}, "
+                         f"block_k={BLOCK_K}; got {block_q}, {block_k}")
+    return True
+
+
+def _launch(name, device, *args):
+    cuda_lib.launch(_lib(), name, device, *args)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = BLOCK_Q,
+                    block_k: int = BLOCK_K) -> torch.Tensor:
+    """Causal (or windowed) GQA attention → out (B, H, S, hd), q's dtype."""
+    dims = _dims(q, k, v, causal, window)
+    if not _on_card(block_q, block_k, q, k, v):
+        return ref.flash_plain(q, k, v, causal=causal, window=window,
+                               block_k=block_k)
+    out = torch.empty_like(q)
+    _launch("flash_attention_launch", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), *dims)
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention_checked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+    """(out, check, csum): ``out`` bit-identical to ``flash_attention``'s;
+    ``check`` (B, H, S) f32 the fused independent rowsum_hd(out) column
+    (tolerance-verified); ``csum`` (B, H, S) int64 the exact per-row
+    mod-2^32 bit checksum of ``out`` (``core.abft.output_row_checksums``,
+    bit-exact verification)."""
+    dims = _dims(q, k, v, causal, window)
+    if not _on_card(block_q, block_k, q, k, v):
+        return ref.flash_plain(q, k, v, causal=causal, window=window,
+                               block_k=block_k, emit="checked")
+    B, H, S, _ = q.shape
+    out = torch.empty_like(q)
+    check = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    csum = torch.empty((B, H, S), dtype=torch.int64, device=q.device)
+    _launch("flash_attention_checked_launch", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), check.data_ptr(),
+            csum.data_ptr(), *dims)
+    flash_attention_checked.launches += 1
+    return out, check, csum
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
+    """(out, lse): ``out`` bit-identical to ``flash_attention``'s and lse
+    (B, H, S) f32 = m + log l, the logsumexp of each row's masked scores
+    (what the backward recomputes the probabilities from)."""
+    dims = _dims(q, k, v, causal, window)
+    if not _on_card(block_q, block_k, q, k, v):
+        return ref.flash_plain(q, k, v, causal=causal, window=window,
+                               block_k=block_k, emit="lse")
+    B, H, S, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_fwd_lse_launch", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *dims)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+KERNELS = (flash_attention, flash_attention_checked, flash_attention_fwd_lse)
+for _k in KERNELS:
+    _k.launches = 0
+del _k
+
+
+def reset_launches() -> None:
+    """Set every kernel's ``launches`` count to 0."""
+    for k in KERNELS:
+        k.launches = 0

@@ -88,8 +88,8 @@ class ArchConfig:
                                             # reads vs bf16)
     attn_impl: str = "chunked"              # "chunked" (online softmax in
                                             # plain PyTorch) | "flash" (the
-                                            # attention kernels; not in the
-                                            # port yet)
+                                            # flash_attention_fwd_lse
+                                            # kernel, full-sequence passes)
     policy_map: Optional["PolicyMap"] = None   # per-site dependability
                                             # assignment (core/policy_map.py)
                                             # for the quantized hot paths:

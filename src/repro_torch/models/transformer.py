@@ -16,10 +16,15 @@ same arithmetic.  Differences:
   K/V; the values are the same, the port runs each FFN matmul once per
   layer instead of twice.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): MoE blocks and ``ShardCtx`` (item 17), ``attn_impl="flash"`` (item
-10), the int8 KV cache ``quant_kv`` and embedding inputs (item 8), and
-``loss_fn`` (item 13).
+``attn_impl="flash"`` runs full-sequence attention (``forward``,
+``prefill``) on the ``flash_attention_fwd_lse`` kernel through
+``kernels.flashattn.ops.flash_attn_model``, as the reference's
+``_attention_core``; decode attention stays ``common.decode_attention``
+under either setting, plain tensor code in both packages.
+
+Not in the port yet (each raises ``NotImplementedError`` naming its
+ROADMAP item): MoE blocks and ``ShardCtx`` (item 17), the int8 KV cache
+``quant_kv`` and embedding inputs (item 8), and ``loss_fn`` (item 13).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.kernels.flashattn.ops import flash_attn_model
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
 
@@ -36,8 +42,6 @@ _NOT_YET = {
     "moe": "MoE blocks come with ROADMAP.md queue 1, item 17",
     "ctx": "sharded execution (ShardCtx) comes with ROADMAP.md queue 1, "
            "item 17",
-    "flash": "attn_impl='flash' comes with the attention kernels, "
-             "ROADMAP.md queue 1, item 10",
     "quant_kv": "the int8 KV cache comes with ROADMAP.md queue 1, item 8",
     "embeds": "embedding inputs come with ROADMAP.md queue 1, item 8",
     "loss": "training comes with ROADMAP.md queue 1, item 13",
@@ -53,8 +57,6 @@ def _check(cfg: ArchConfig, ctx=None, embeds=None) -> None:
         _not_yet("moe")
     if ctx is not None:
         _not_yet("ctx")
-    if cfg.attn_impl == "flash":
-        _not_yet("flash")
     if cfg.quant_kv:
         _not_yet("quant_kv")
     if embeds is not None:
@@ -231,7 +233,10 @@ def _attention(cfg: ArchConfig, bp, x, positions):
     KV cache holds them."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, bp, x, positions)
-    o = common.chunked_causal_attention(q, k, v, window=cfg.swa_window)
+    if cfg.attn_impl == "flash":
+        o = flash_attn_model(q, k, v, window=cfg.swa_window)
+    else:
+        o = common.chunked_causal_attention(q, k, v, window=cfg.swa_window)
     x = x + o.reshape(B, S, -1) @ _w(cfg, bp["wo"])
     return x, k, v
 

@@ -196,9 +196,13 @@ def test_scoped_backend_reaches_dependable_ops():
 
 
 def test_unported_entries_name_their_roadmap_item():
-    """Attention is the entry still to come; the matmul entries are in."""
+    """Every registry entry is in; the one attention entry still to come is
+    the backward (training), which names its ROADMAP item."""
+    from repro_torch.kernels import flash_attn_model
     x = torch.zeros((2, 2), dtype=torch.int8)
+    q = torch.zeros((1, 4, 2, 16))
     for be in ("ref", "cuda"):
         assert tdispatch.matmul_acc(x, x, backend=be).dtype == torch.int32
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tdispatch.attn(x, x, x, backend=be)
+        assert tdispatch.attn(q, q, q, backend=be).shape == q.shape
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        flash_attn_model(q.requires_grad_(), q, q)

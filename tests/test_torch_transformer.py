@@ -243,8 +243,7 @@ def test_unported_paths_name_their_roadmap_item():
     assert tregistry.names() == ["qwen3-0.6b", "smollm-135m"]
     _, tcfg = small()
     moe = dataclasses.replace(tcfg, moe=TMoEConfig(4, 2, 16))
-    for cfg in (moe, dataclasses.replace(tcfg, attn_impl="flash"),
-                dataclasses.replace(tcfg, quant_kv=True),
+    for cfg in (moe, dataclasses.replace(tcfg, quant_kv=True),
                 dataclasses.replace(tcfg, family="rwkv")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tapi.init_params(cfg, torch.Generator(), device="cpu")
