@@ -6,8 +6,8 @@
 Phases, each of which raises on failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the qconv2d, qmatmul and flashattn kernels from their ``csrc/``
-   sources, one ``nvcc`` each, all started together;
+2. build the qconv2d, qmatmul, flashattn and flashattn backward kernels
+   from their ``csrc/`` sources, one ``nvcc`` each, all started together;
 3. hold each conv kernel ``torch.equal`` to its plain version on the card,
    at all 8 ``network_specs(194)`` layer shapes (N = 2), a ragged Cout
    tail, a stride (2, 1) case, non-zero zero points, a check channel that
@@ -46,14 +46,28 @@ Phases, each of which raises on failure:
    1024-token prefill under every policy: equal on clean input, ABFT and
    CKPT heal output bit flips, DMR detects, TMR outvotes, launch counts as
    derived;
-9. time each kernel at the main paths' shapes with CUDA events beside its
+9. hold the attention backward (two kernels, one wrapper) against its
+   plain version on the card, f32 and bf16, at the training shape
+   (8, 9, 1024, 64)/(8, 3, 1024, 64) and the attention cases of 7; two
+   launches torch.equal;
+10. slice 4: ``ft_loop.run`` trains SmolLM-135M at full width and depth
+   (f32 params, bf16 compute, AdamW, remat save_dots, attn_impl flash,
+   batch 8 × 1024) in a temporary directory: a clean run of 12 steps
+   (the loss falls), a second clean run bit-identical to it, a NaN in
+   embed[0, 0] at step 9 (one recovery, bit-identical losses), a run
+   stopped at 8 and resumed (bit-identical), a bit-flip drill (finite
+   losses); fwd_lse and bwd launches as derived from the steps executed;
+   one step's gradients, flash against chunked, beside the bf16 noise
+   floor;
+11. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
-   (``scaled_dot_product_attention`` for attention), the forward's
-   frames/s per policy, decode ms/step, tokens/s and prefill ms per map,
-   flash and chunked prefill ms at S = 64, 256, 1024; then, under
-   torch.profiler, the device busy time and idle share of the forward, of
-   decode steps and of a flash prefill, and each kernel call's device
-   time.
+   (``scaled_dot_product_attention`` for attention and its backward,
+   ``torch._int_mm`` on rows padded to M = 32 for the accumulator), the
+   forward's frames/s per policy, decode ms/step, tokens/s and prefill ms
+   per map, flash and chunked prefill ms at S = 64, 256, 1024, train step
+   ms and tokens/s; then, under torch.profiler, the device busy time and
+   idle share of the forward, of decode steps, of a flash prefill and of a
+   train step, and each kernel call's device time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -69,11 +83,14 @@ import functools
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -115,6 +132,7 @@ MAPS = {                           # engine keywords per serving cell
     "ref_backend": {"backend": "ref"},
 }
 RANDOM_MATMUL_CASES = 24
+INT_MM_MIN_M = 32                  # torch._int_mm refuses M <= 16
 DECODE_ROUNDS = 3                  # timing rounds of 20 decode steps per map
 # slice 3: the attention kernels
 BF16_FLOPS_PER_S = 989e12          # tensor cores, dense
@@ -130,6 +148,18 @@ FLASH_MAX_NEW = 16
 FLASH_MAX_LEN = 1280               # prompts up to 1000 tokens, 1024 padded
 FLASH_TIME_S = (64, 256, 1024)
 RANDOM_FLASH_CASES = 12
+# slice 4: fault-tolerant training on the backward kernels
+FLASH_BWD_SOURCE = "src/repro_torch/kernels/flashattn/csrc/flashattn_bwd.cu"
+BWD_REPLACES = {
+    "flash_attention_bwd": "src/repro/kernels/flashattn/kernel.py:571",
+}
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024   # ShapeConfig(kind="train"), 8192 tokens
+TRAIN_STEPS = 12
+TRAIN_CKPT_EVERY = 4
+TRAIN_NAN_STEP = 9
+TRAIN_RESUME_AT = 8
+TRAIN_ROUNDS = 5                   # timing rounds of one train step
+DRILL_SEED = 4                     # inject_into_pytree's generator seed
 
 
 def phase_card() -> str:
@@ -146,17 +176,18 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
-def _timed_build(mod):
+def _timed_build(build):
     t0 = time.perf_counter()
-    lib, log = mod.build()
+    lib, log = build()
     return lib, log, time.perf_counter() - t0
 
 
-def phase_build(mods) -> float:
-    """One nvcc per source, all started together; returns the wall time."""
+def phase_build(builds) -> float:
+    """One nvcc per source (each ``build`` function compiles one), all
+    started together; returns the wall time."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
-        builds = list(pool.map(_timed_build, mods))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        builds = list(pool.map(_timed_build, builds))
     for lib, log, secs in builds:
         print(f"build: {lib.name} in {secs:.2f} s")
         for line in log.splitlines():
@@ -822,7 +853,8 @@ def phase_qlinear(cfg, gen):
 def phase_time_matmul(cfg, gen, max_err):
     """CUDA-event times per call at the FFN shapes, beside the plain
     version, the bound and ``torch._int_mm`` (the library yardstick for the
-    accumulator; the port never calls it)."""
+    accumulator, on the decode rows zero-padded to M = 32; the port never
+    calls it)."""
     rows, calls = [], []
     for m, k, n in ffn_shapes(cfg):
         case = MatmulCase(gen, m, k, n)
@@ -834,29 +866,40 @@ def phase_time_matmul(cfg, gen, max_err):
             plain_ms = _time_ms(lambda: plain(*args), reps=10, warmup=1)
             lib_ms, lib_note = None, None
             if name == "qmatmul_acc":
-                try:
-                    torch._int_mm(case.x_q, case.w_q)
-                    lib_ms = _time_ms(lambda: torch._int_mm(case.x_q,
-                                                            case.w_q),
-                                      reps=100)
-                except RuntimeError as e:       # the library refuses M <= 16
-                    lib_note = str(e).splitlines()[0][:120]
+                # torch._int_mm refuses M <= 16: the decode rows are
+                # zero-padded to M = 32 outside the timing, which changes
+                # no output row
+                x_lib = case.x_q
+                if m < INT_MM_MIN_M:
+                    x_lib = torch.zeros((INT_MM_MIN_M, k), dtype=torch.int8,
+                                        device=DEVICE)
+                    x_lib[:m] = case.x_q
+                    lib_note = f"rows zero-padded to M = {INT_MM_MIN_M}"
+                if not torch.equal(torch._int_mm(x_lib, case.w_q)[:m],
+                                   kern(*args)):
+                    raise AssertionError(f"_int_mm != qmatmul_acc at "
+                                         f"{(m, k, n)}")
+                lib_ms = _time_ms(lambda: torch._int_mm(x_lib, case.w_q),
+                                  reps=100)
             bound, by = case.bound_ms(name)
             rows.append({"shape": (m, k, n), "kernel": name, "ms": ms,
                          "device_ms": None, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": by,
-                         "library_ms": lib_ms, "library_refused": lib_note})
+                         "library_ms": lib_ms, "library_note": lib_note})
             calls.append(functools.partial(kern, *args))
     return rows, calls
 
 
 def matmul_totals(cfg, rows):
     """Per kernel, the FFN matmuls of one decode step at capacity 8:
-    n_layers x (2 x (8, d, d_ff) + (8, d_ff, d))."""
+    n_layers x (2 x (8, d, d_ff) + (8, d_ff, d)); and the same sum of the
+    library times where there is one (``torch._int_mm`` on the padded
+    rows)."""
     mult = {(CAPACITY, cfg.d_model, cfg.d_ff): 2 * cfg.n_layers,
             (CAPACITY, cfg.d_ff, cfg.d_model): cfg.n_layers}
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "t_bytes": 0.0, "t_ops": 0.0} for name in MATMUL_REPLACES}
+    library = {}
     for r in rows:
         c = mult.get(tuple(r["shape"]), 0)
         tot = totals[r["kernel"]]
@@ -864,7 +907,10 @@ def matmul_totals(cfg, rows):
             tot[key] += c * r[key]
         tot["t_" + ("bytes" if r["bound_by"] == "bytes" else "ops")] += \
             c * r["bound_ms"]
-    return totals
+        if c and r["library_ms"] is not None:
+            library[r["kernel"]] = library.get(r["kernel"], 0.0) \
+                + c * r["library_ms"]
+    return totals, library
 
 
 def _decoding(cfg, params, prompts, kw):
@@ -972,6 +1018,23 @@ class FlashCase:
         rate = BF16_FLOPS_PER_S if self.dtype == torch.bfloat16 \
             else F32_FLOPS_PER_S
         t_ops = 4 * b * h * hd * pairs / rate
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), \
+            ("bytes" if t_bytes >= t_ops else "operations")
+
+    def bwd_bound_ms(self):
+        """Least time of the backward on an H100 SXM: q, k, v, out, dO and
+        lse read once, dq, dk, dv written once, over 3.35 TB/s, against
+        10·B·H·hd·S(S+1)/2 causal FLOPs (five products per visible score:
+        S, dP, dV, dK, dQ) at 989 TFLOP/s for bf16, 67 for f32."""
+        b, h, kv, s, hd = self.shape
+        esz = torch.finfo(self.dtype).bits // 8
+        nbytes = esz * hd * s * b * (3 * h + 2 * kv) + 4 * b * h * s \
+            + esz * hd * s * b * (h + 2 * kv)
+        pairs = s * (s + 1) / 2 if self.kw["causal"] else s * s
+        rate = BF16_FLOPS_PER_S if self.dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        t_ops = 10 * b * h * hd * pairs / rate
         t_bytes = nbytes / HBM_BYTES_PER_S
         return 1e3 * max(t_ops, t_bytes), \
             ("bytes" if t_bytes >= t_ops else "operations")
@@ -1264,7 +1327,7 @@ def phase_dependable_attention(fcfg, params):
     print(f"  attention tmr  bit 15: {st}")
     launches = {kk.__name__: kk.launches for kk in FK.KERNELS}
     derived = {"flash_attention": want[0], "flash_attention_checked": want[1],
-               "flash_attention_fwd_lse": 0}
+               "flash_attention_fwd_lse": 0, "flash_attention_bwd": 0}
     if launches != derived or min(want) == 0:
         raise AssertionError(f"attention launches {launches}, derived "
                              f"{derived}")
@@ -1396,6 +1459,368 @@ def flash_totals(rows):
          if r["S"] == max(FLASH_TIME_S)}
 
 
+# ---------------------------------------------------------------------------
+# slice 4: fault-tolerant training of SmolLM-135M on the backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _bwd_inputs(case, gen):
+    """q, k, v, out, lse and a seeded dO: the backward's inputs as the
+    training path hands them over (out and lse from the forward kernel)."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    out, lse = FK.flash_attention_fwd_lse(*case.args(), **case.kw)
+    do = torch.randn(out.shape, generator=gen, device=DEVICE).to(case.dtype)
+    return (*case.args(), out, lse, do)
+
+
+def _bwd_err(got, want, dtype) -> float:
+    """Max abs error of a gradient against the plain version's; raises
+    beyond the tolerance: 5e-5·(1 + |w|) for f32, where both sum the same
+    f32 products (up to G·S of them per element) in other orders, and for
+    bf16 one bf16 step of |w| on top of that, where both round an f32
+    result that may differ in its last bits."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    lim = 5e-5 * (1 + w.abs())
+    if dtype == torch.bfloat16:
+        lim = lim + _bf16_step(w)
+    if not bool((err <= lim).all()):
+        raise AssertionError(f"flash backward disagrees with its plain "
+                             f"version (max abs err {float(err.max())})")
+    return float(err.max())
+
+
+def phase_compare_flash_bwd(gen) -> dict:
+    """Row 10 against its plain version on the card, f32 and bf16, at the
+    attention compare cases and the training shape (8, 9, 1024, 64)/(8, 3,
+    1024, 64); two launches torch.equal."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    cases = [(f"train_{tag}", FlashCase(gen, TRAIN_BATCH, 9, 3, TRAIN_SEQ,
+                                        64, dt))
+             for tag, dt in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16))]
+    cases += flash_compare_cases(gen)
+    max_err = 0.0
+    for label, case in cases:
+        inputs = _bwd_inputs(case, gen)
+        got = FK.flash_attention_bwd(*inputs, **case.kw)
+        again = FK.flash_attention_bwd(*inputs, **case.kw)
+        torch.cuda.synchronize()
+        want = FR.flash_bwd_plain(*inputs, **case.kw)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{label}: {name} {g.dtype} "
+                                     f"{tuple(g.shape)}")
+            max_err = max(max_err, _bwd_err(g, w, case.dtype))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two backward launches differ")
+    print(f"compare: {len(cases)} backward cases (training shape, prefill "
+          f"shapes, hd 16-128, GQA, window, non-causal, random) within "
+          f"tolerance of the plain version (f32 5e-5, bf16 one step + 5e-5); "
+          f"two launches torch.equal; max abs err {max_err:.3e}")
+    return {"flash_attention_bwd": max_err}
+
+
+def train_setup():
+    """SmolLM-135M at full width and depth for training: f32 params, bf16
+    compute, AdamW, remat save_dots, quant none, attn_impl flash; global
+    batch 8 × 1024."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ShapeConfig
+    tcfg = dataclasses.replace(registry.get(ARCH), attn_impl="flash")
+    if (tcfg.quant, tcfg.remat, tcfg.optimizer, tcfg.param_dtype,
+            tcfg.compute_dtype) != ("none", "save_dots", "adamw", "float32",
+                                    "bfloat16"):
+        raise AssertionError(f"unexpected training config {tcfg}")
+    return tcfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+
+def _ft_run(tcfg, shape, ckpt_dir, n_steps, every=TRAIN_CKPT_EVERY,
+            hook=None):
+    from repro_torch.runtime import ft_loop
+    ft = ft_loop.FTConfig(ckpt_dir=ckpt_dir, ckpt_every=every)
+    t0 = time.perf_counter()
+    rep = ft_loop.run(tcfg, shape, ft, n_steps=n_steps, fault_hook=hook,
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def _executed(rep) -> int:
+    """Train-step calls of a run: the kept steps, the replayed ones and
+    the faulted ones (each runs forward and backward before the loss is
+    judged)."""
+    return len(rep.losses) + rep.steps_replayed + rep.recoveries
+
+
+def phase_train(tcfg, shape):
+    """The main path of slice 4, with the attention launch counts reset
+    before it and read after it: ``ft_loop.run`` in a temporary directory —
+    a clean run of 12 steps (checkpoint every 4; the loss falls), a second
+    clean run bit-identical to it, a NaN written into embed[0, 0] at step 9
+    (one recovery, losses bit-identical to the clean run), a run stopped at
+    8 and resumed to 12 (bit-identical to the clean run's steps 8-11) and
+    an inject_into_pytree drill (finishes with finite losses).  fwd_lse
+    launches = 2 × n_layers and bwd launches = n_layers per step executed:
+    the forward runs once per block and again in its recompute."""
+    from repro_torch.core import fault_injection as fi
+    from repro_torch.kernels.flashattn import kernel as FK
+    L = tcfg.n_layers
+    FK.reset_launches()
+    executed, runs = 0, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        free = shutil.disk_usage(root).free
+        print(f"train: {ARCH} {L} layers, batch {shape.global_batch} x "
+              f"{shape.seq_len}, {tcfg.optimizer}, remat {tcfg.remat}, "
+              f"attn {tcfg.attn_impl}; checkpoints under a temporary "
+              f"directory with {free / 2**30:.1f} GiB free")
+
+        def go(name, n_steps, **kw):
+            nonlocal executed
+            rep, secs = _ft_run(tcfg, shape, os.path.join(root, name),
+                                n_steps, **kw)
+            executed += _executed(rep)
+            runs.setdefault(name, []).append(
+                {"losses": rep.losses, "recoveries": rep.recoveries,
+                 "steps_replayed": rep.steps_replayed, "wall_s": secs,
+                 "ckpt_stats": rep.ckpt_stats, "events": rep.events})
+            print(f"  train {name:8s} {len(rep.losses):2d} steps kept, "
+                  f"{rep.recoveries} recoveries, {rep.steps_replayed} "
+                  f"replayed, {rep.ckpt_stats.get('saves', 0)} saves in "
+                  f"{secs:.2f} s; losses {rep.losses[0]:.6f} .. "
+                  f"{rep.losses[-1]:.6f}")
+            return rep
+
+        clean = go("clean", TRAIN_STEPS)
+        again = go("clean2", TRAIN_STEPS)
+        shutil.rmtree(os.path.join(root, "clean"))
+        shutil.rmtree(os.path.join(root, "clean2"))
+
+        fired = {"nan": False, "drill": False}
+
+        def nan_hook(step, state):
+            if step == TRAIN_NAN_STEP and not fired["nan"]:
+                fired["nan"] = True
+                embed = state.params["embed"].clone()
+                embed[0, 0] = float("nan")
+                return state._replace(params=dict(state.params, embed=embed))
+            return None
+
+        nan = go("nan", TRAIN_STEPS, hook=nan_hook)
+        shutil.rmtree(os.path.join(root, "nan"))
+        first = go("resume", TRAIN_RESUME_AT)
+        resumed = go("resume", TRAIN_STEPS)
+        shutil.rmtree(os.path.join(root, "resume"))
+
+        def drill_hook(step, state):
+            if step == 6 and not fired["drill"]:
+                fired["drill"] = True
+                return state._replace(params=fi.inject_into_pytree(
+                    state.params, torch.Generator().manual_seed(DRILL_SEED),
+                    n_flips=3))
+            return None
+
+        drill = go("drill", 10, every=3, hook=drill_hook)
+    launches = {k.__name__: k.launches for k in FK.KERNELS}
+    derived = {"flash_attention": 0, "flash_attention_checked": 0,
+               "flash_attention_fwd_lse": 2 * L * executed,
+               "flash_attention_bwd": L * executed}
+    print(f"train: {executed} train steps executed, launches {launches}, "
+          f"derived {derived}")
+
+    losses = clean.losses
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"clean run: {losses}")
+    if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if again.losses != losses:
+        raise AssertionError("two clean runs differ")
+    if nan.recoveries != 1 or nan.losses != losses:
+        raise AssertionError(f"NaN drill: {nan.recoveries} recoveries, "
+                             f"losses {nan.losses}")
+    if len(first.losses) != TRAIN_RESUME_AT \
+            or resumed.losses != losses[TRAIN_RESUME_AT:]:
+        raise AssertionError(f"resume: {resumed.losses} against "
+                             f"{losses[TRAIN_RESUME_AT:]}")
+    if len(drill.losses) != 10 or not np.all(np.isfinite(drill.losses)):
+        raise AssertionError(f"bit-flip drill: {drill.losses}")
+    drill_clean = drill.losses == losses[:10]
+    print(f"  bit identity: two clean runs, NaN recovery and resume equal "
+          f"the clean run; loss {np.mean(losses[:4]):.4f} (first 4) -> "
+          f"{np.mean(losses[-4:]):.4f} (last 4); bit-flip drill "
+          f"{drill.recoveries} recoveries, finite, "
+          f"{'equal to' if drill_clean else 'off'} the clean curve")
+    if launches != derived:
+        raise AssertionError(f"train launches {launches} != derived "
+                             f"{derived}")
+    return {"runs": runs, "steps_executed": executed,
+            "drill_equals_clean": drill_clean}, launches
+
+
+def _flat_grads(tcfg, params, batch):
+    from repro_torch import tree
+    from repro_torch.models import api
+    leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
+    live = tree.unflatten(tree.structure(params), leaves)
+    loss, _ = api.loss_fn(tcfg, live, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), torch.cat([g.float().reshape(-1) for g in grads])
+
+
+def phase_train_grads(tcfg, shape):
+    """One step's gradients (step 0's batch, seed-0 weights) under
+    attn_impl flash against chunked, both bf16, beside the bf16 noise floor
+    of the path measured in the same run: chunked in bf16 against chunked
+    in f32 compute.  Flash and chunked round in other places (chunked
+    rounds the probabilities to bf16 before PV); they must not differ by
+    more than twice what bf16 rounding does to one of them."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import api
+    params = api.init_params(tcfg, torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in TokenStream(tcfg, shape).batch_at(0).items()}
+    chunked = dataclasses.replace(tcfg, attn_impl="chunked")
+    lf, gf = _flat_grads(tcfg, params, batch)
+    lc, gc = _flat_grads(chunked, params, batch)
+    l32, g32 = _flat_grads(dataclasses.replace(chunked,
+                                               compute_dtype="float32"),
+                           params, batch)
+    if not bool(torch.isfinite(gf).all()):
+        raise AssertionError("flash gradients are not finite")
+    rel = float((gf - gc).norm() / gc.norm())
+    floor = float((gc - g32).norm() / g32.norm())
+    print(f"train grads flash vs chunked ({gf.numel()} values): rel L2 "
+          f"{rel:.5f} (bf16 noise floor, chunked bf16 vs f32: {floor:.5f}); "
+          f"loss flash {lf:.6f}, chunked {lc:.6f}, chunked f32 {l32:.6f}")
+    if not rel <= 2 * floor:
+        raise AssertionError(f"flash gradients off chunked: rel {rel}, "
+                             f"floor {floor}")
+    return {"grads_rel_l2": rel, "bf16_noise_floor_rel_l2": floor,
+            "loss_flash": lf, "loss_chunked": lc, "loss_chunked_f32": l32}
+
+
+def _train_step_fixture(tcfg, shape):
+    """A seed-0 train state, step 0's batch and the step function."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train import steps
+    state = steps.init_train_state(tcfg, torch.Generator().manual_seed(0),
+                                   device=DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in TokenStream(tcfg, shape).batch_at(0).items()}
+    step = steps.make_train_step(tcfg)
+
+    def run():
+        float(step(state, batch)[1]["loss"])     # the loop's own readback
+    return run
+
+
+def phase_train_time(tcfg, shape):
+    """Host-clock ms per train step (the step and its loss readback, as
+    the FT loop runs it), median of TRAIN_ROUNDS rounds after a warm-up;
+    tokens/s; peak device memory of a step."""
+    run = _train_step_fixture(tcfg, shape)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_ROUNDS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    tokens = shape.global_batch * shape.seq_len
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train step {ms:.3f} ms (median of {len(times)}, rounds "
+          f"{', '.join(f'{t:.1f}' for t in times)}), {tokens / (ms / 1e3):.1f} "
+          f"tokens/s, peak device memory {peak:.2f} GiB")
+    return {"ms_per_step": ms, "ms_rounds": times,
+            "tokens_per_s": tokens / (ms / 1e3), "peak_gib": peak}, run
+
+
+def phase_time_bwd(gen, max_err):
+    """CUDA-event ms per call of row 10 at (1, 9, 1024, 64) and the
+    training shape (8, 9, 1024, 64), bf16, beside its plain version, its
+    bound and SDPA's backward (the library yardstick, timed on k/v already
+    expanded to 9 heads so that the flash backend takes it; the port never
+    calls it)."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    rows, calls = [], []
+    for b in (1, TRAIN_BATCH):
+        case = FlashCase(gen, b, 9, 3, TRAIN_SEQ, 64, torch.bfloat16)
+        inputs = _bwd_inputs(case, gen)
+        for g, w in zip(FK.flash_attention_bwd(*inputs),
+                        FR.flash_bwd_plain(*inputs)):
+            max_err["flash_attention_bwd"] = max(
+                max_err["flash_attention_bwd"],
+                _bwd_err(g, w, torch.bfloat16))
+        ms = _time_ms(lambda: FK.flash_attention_bwd(*inputs), reps=20)
+        plain_ms = _time_ms(lambda: FR.flash_bwd_plain(*inputs), reps=3,
+                            warmup=1)
+        q, k, v, _, _, do = inputs
+        qs, ks, vs = (t.detach().requires_grad_() for t in
+                      (q, k.repeat_interleave(3, dim=1),
+                       v.repeat_interleave(3, dim=1)))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, (qs, ks, vs), do,
+                                       retain_graph=True)
+        lib_ms = _time_ms(sdpa_bwd, reps=20)
+        bound, by = case.bwd_bound_ms()
+        rows.append({"B": b, "kernel": "flash_attention_bwd", "ms": ms,
+                     "device_ms": None, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                     "library_device_ms": None})
+        calls.append((functools.partial(FK.flash_attention_bwd, *inputs),
+                      sdpa_bwd))
+    return rows, calls
+
+
+def phase_profile_train(run, rows, calls):
+    """One train step under torch.profiler: device busy ms, idle share,
+    device ops per step, top entries; then row 10's and SDPA backward's
+    device time per call, filled into ``rows``."""
+    w = _profile_window(run, reps=1)
+    if w is None:
+        print("profile train step: the profiler saw no device time "
+              "(not measured)")
+    else:
+        print(f"profile train step: wall {w['wall_ms']:.3f} ms, device busy "
+              f"{w['busy_ms']:.3f} ms, idle share {w['idle_share']:.3f}, "
+              f"{w['ops']:.0f} device ops/step")
+        for kname, v in w["top"]:
+            print(f"    {v:8.4f} ms  {kname}")
+    for row, (call, lib) in zip(rows, calls):
+        row["device_ms"] = _device_ms(call, reps=10, match=None)
+        row["library_device_ms"] = _device_ms(lib, reps=10, match=None)
+    print("backward per call at (B, 9, 1024, 64)/(B, 3, 1024, 64) bf16 "
+          "(CUDA events; device time from the profiler, dvec op "
+          "included):")
+    for r in rows:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        print(f"  B {r['B']} {r['kernel']:20s} {r['ms']:8.4f} ms  device "
+              f"{dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
+              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa bwd "
+              f"{r['library_ms']:.4f} ms (device "
+              f"{r['library_device_ms'] or float('nan'):.4f})")
+    return w
+
+
+def bwd_totals(rows):
+    """Row 10 per call at the training shape (the main path's)."""
+    r = next(r for r in rows if r["B"] == TRAIN_BATCH)
+    return {r["kernel"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                          "bound_ms": r["bound_ms"],
+                          "t_bytes": r["bound_ms"] * (r["bound_by"] == "bytes"),
+                          "t_ops": r["bound_ms"] * (r["bound_by"] != "bytes")}
+            }, {r["kernel"]: r["library_ms"]}
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -1424,7 +1849,7 @@ def main() -> None:
     from repro_torch.kernels.qconv2d import kernel as K
     from repro_torch.kernels.qmatmul import kernel as MK
     from repro_torch.models import shipdet
-    build_s = phase_build([K, MK, FK])
+    build_s = phase_build([K.build, MK.build, FK.build, FK.build_bwd])
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -1453,11 +1878,19 @@ def main() -> None:
     for name in ("flash_attention", "flash_attention_checked"):
         launches[name] = dep_launches[name]
 
+    max_err.update(phase_compare_flash_bwd(gen))
+    tcfg, tshape = train_setup()
+    train, train_launches = phase_train(tcfg, tshape)
+    launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
+    train_grads = phase_train_grads(tcfg, tshape)
+
     # every CUDA-event timing before the first profiler session
     rows, totals, calls = phase_time(specs, gen, max_err)
     mm_rows, mm_calls = phase_time_matmul(cfg, gen, max_err)
     fl_rows, fl_calls = phase_time_flash(gen, max_err)
     prefill_ms = phase_prefill_flash(cfg, fcfg, lm_params)
+    bwd_rows, bwd_calls = phase_time_bwd(gen, max_err)
+    train_time, train_run = phase_train_time(tcfg, tshape)
     forward = phase_forward(specs, params, frames)
     serving, engines = phase_serve_time(cfg, lm_params, prompts, serve_runs)
     profile = phase_profile(specs, params, frames, rows, calls)
@@ -1468,27 +1901,35 @@ def main() -> None:
           "and any split-K memset, from the profiler):")
     for r in mm_rows:
         dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
-        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
-               else f"refused ({r['library_refused']})"
-               if r["library_refused"] else "-")
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms"
+            + (f" ({r['library_note']})" if r["library_note"] else ""))
         print(f"  {str(r['shape']):18s} {r['kernel']:22s} {r['ms']:8.4f} ms"
               f"  device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
               f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  _int_mm {lib}")
 
     profile["flash_prefill"] = phase_profile_flash(fcfg, lm_params, fl_rows,
                                                    fl_calls)
+    profile["train_step"] = phase_profile_train(train_run, bwd_rows,
+                                                bwd_calls)
 
-    mm_totals = matmul_totals(cfg, mm_rows)
+    mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
+    bwd_tot, bwd_library = bwd_totals(bwd_rows)
     kernels = _kernel_lines(REPLACES, CONV_SOURCE, REPLACES, launches,
                             max_err, totals, {})
-    # torch._int_mm refuses M = 8 (the decode step's M): no library time
+    # torch._int_mm on the decode rows zero-padded to M = 32 as the library
+    # time of #4
     kernels += _kernel_lines(MATMUL_REPLACES, MATMUL_SOURCE, MATMUL_REPLACES,
-                             launches, max_err, mm_totals, {})
+                             launches, max_err, mm_totals, mm_library)
     # attention: one call at (1, 9, 1024, 64)/(1, 3, 1024, 64) bf16;
     # scaled_dot_product_attention as the library time of #7 and #9
     kernels += _kernel_lines(FLASH_REPLACES, FLASH_SOURCE, FLASH_REPLACES,
                              launches, max_err, fl_totals, fl_library)
+    # the backward: one call at the training shape (8, 9, 1024, 64) bf16;
+    # SDPA's backward as its library time
+    kernels += _kernel_lines(BWD_REPLACES, FLASH_BWD_SOURCE, BWD_REPLACES,
+                             launches, max_err, bwd_tot, bwd_library)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -1502,7 +1943,9 @@ def main() -> None:
                                            if kk != "streams"}
                                        for k, v in flash_runs.items()},
                        "flash_vs_chunked": flash_cmp,
-                       "prefill_ms": prefill_ms}, f, indent=1)
+                       "prefill_ms": prefill_ms, "train": train,
+                       "train_grads": train_grads, "train_time": train_time,
+                       "backward_per_call": bwd_rows}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

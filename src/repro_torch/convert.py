@@ -1,4 +1,5 @@
-"""Parameters of the reference package, as numpy arrays, into the port's.
+"""Parameters and train states of the reference package, as numpy
+arrays, into the port's.
 
 The two packages draw different random numbers from the same seed, so a
 comparison between them starts from one set of parameters: the reference's,
@@ -54,3 +55,16 @@ def transformer_params_from_numpy(tree: Dict[str, Any],
         return {k: conv(x) for k, x in v.items()} if isinstance(v, dict) \
             else _tensor(v, dev)
     return conv(tree)
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """The reference's ``TrainState`` (params, optimizer state and step,
+    numpy leaves in nested dicts) as the port's ``train.steps.TrainState``:
+    the same trees, the step a () int32 tensor."""
+    from repro_torch.train.steps import TrainState
+    dev = resolve_device(device)
+    params, opt_state, step = state
+    return TrainState(transformer_params_from_numpy(params, dev),
+                      transformer_params_from_numpy(opt_state, dev),
+                      torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                   device=dev))

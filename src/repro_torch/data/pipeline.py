@@ -1,0 +1,80 @@
+"""Deterministic token streams for training.
+
+The counterpart of the single-host part of ``repro.data.pipeline``, numpy
+only: batch ``i`` is a pure function of (seed, i, host) drawn from numpy's
+Philox with the reference's key and counter, so the port's batches are bit
+for bit the reference's and a restore from a checkpoint continues on the
+same data with no loader state to persist.  ``n_hosts``/``host_id``
+default to one host.  ``prefetch`` (which needs the threaded ``dataflow``
+driver, ROADMAP.md queue 1, item 9) and ``shard_batch`` (item 17) are not
+in the port yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+
+from repro_torch.models.config import ArchConfig, ShapeConfig
+
+
+class TokenStream:
+    """Deterministic synthetic LM token stream (zipf-flavoured marginals,
+    so losses are non-degenerate)."""
+
+    def __init__(self, cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+                 n_hosts: int = 1, host_id: int = 0):
+        self.cfg = cfg
+        self.shape = shape
+        self.seed = seed
+        self.n_hosts = n_hosts
+        self.host_id = host_id
+        if shape.global_batch % self.n_hosts:
+            raise ValueError(
+                f"global_batch {shape.global_batch} not divisible by "
+                f"{self.n_hosts} hosts")
+        self.host_batch = shape.global_batch // self.n_hosts
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Pure function of (seed, step, host): int32 ``tokens`` and
+        ``labels`` (B, S), the labels shifted by one."""
+        B, S, V = self.host_batch, self.shape.seq_len, self.cfg.vocab_size
+        rng = np.random.Generator(np.random.Philox(
+            key=self.seed, counter=[0, 0, step, self.host_id]))
+        z = rng.zipf(1.3, size=(B, S + 1))
+        tokens = np.minimum(z - 1, V - 1).astype(np.int32)
+        batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+        if self.cfg.input_mode == "embeddings":
+            batch["embeds"] = rng.standard_normal(
+                (B, S, self.cfg.d_model), dtype=np.float32)
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class MmapCorpus:
+    """Token-id corpus on disk (np.memmap of int32), deterministic strided
+    reads."""
+
+    def __init__(self, path: str, cfg: ArchConfig, shape: ShapeConfig,
+                 seed: int = 0, n_hosts: int = 1, host_id: int = 0):
+        self.data = np.memmap(path, dtype=np.int32, mode="r")
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.n_hosts, self.host_id = n_hosts, host_id
+        self.host_batch = shape.global_batch // n_hosts
+        self.n_windows = (len(self.data) - 1) // shape.seq_len
+        if self.n_windows < 1:
+            raise ValueError("corpus shorter than one sequence")
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        B, S = self.host_batch, self.shape.seq_len
+        rng = np.random.Generator(np.random.Philox(
+            key=self.seed, counter=[0, 1, step, self.host_id]))
+        idx = rng.integers(0, self.n_windows, size=B)
+        rows = np.stack([self.data[i * S:i * S + S + 1] for i in idx])
+        return {"tokens": rows[:, :-1].astype(np.int32),
+                "labels": rows[:, 1:].astype(np.int32)}

@@ -5,7 +5,8 @@
   qmatmul    int8 (M,K)·(K,N) matmul: accumulator, accumulator + ABFT
              check vector, fused requantisation
   flashattn  causal / windowed GQA attention forward: plain, with the
-             two-tier ABFT check outputs, with the logsumexp rows
+             two-tier ABFT check outputs, with the logsumexp rows; and its
+             backward (dQ, dK/dV), under ``flash_attn_diff``
 
 Each family is a (kernel.py, ops.py, ref.py) triple with its CUDA source
 under ``csrc/``, built and bound by ``cuda_lib``.
@@ -13,6 +14,7 @@ under ``csrc/``, built and bound by ``cuda_lib``.
 ``dispatch`` registers the ``ref`` and ``cuda`` backends into
 ``core.backend``; everything above the kernels selects among them by name.
 """
-from repro_torch.kernels.flashattn.ops import flash_attn, flash_attn_model
+from repro_torch.kernels.flashattn.ops import (flash_attn, flash_attn_diff,
+                                               flash_attn_model)
 
-__all__ = ["flash_attn", "flash_attn_model"]
+__all__ = ["flash_attn", "flash_attn_diff", "flash_attn_model"]

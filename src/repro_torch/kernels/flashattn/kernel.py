@@ -1,10 +1,10 @@
-"""The three flash-attention forward kernels: build, ctypes binding and
-wrappers.
+"""The flash-attention kernels: build, ctypes binding and wrappers.
 
-CUDA C++ for ``sm_90a`` in ``csrc/flashattn.cu`` (the source's header says
-which TPU kernel each replaces, what bounds it and what its design does
-about that), built with ``-fmad=false`` and bound by
-``kernels/cuda_lib.py``.  The backward kernels come with training.
+CUDA C++ for ``sm_90a``: the three forward kernels in ``csrc/flashattn.cu``
+and the backward's two (dQ, dK/dV) in ``csrc/flashattn_bwd.cu`` (each
+source's header says which TPU kernel it replaces, what bounds it and what
+its design does about that), both built with ``-fmad=false`` and bound by
+``kernels/cuda_lib.py``, one library per source.
 
 Layouts as in the reference: q (B, H, S, hd), k/v (B, KV, S, hd), f32 or
 bf16, H a multiple of KV, hd one of 16, 32, 64, 128; ``causal``,
@@ -20,7 +20,8 @@ Each wrapper checks dtypes and shapes, then:
 * on CUDA tensors allocates its outputs with ``torch.empty``, launches on
   the current stream, raises if the launch reports an error, and adds one
   to its ``launches`` count;
-* on CPU tensors runs the kernel's plain version (``ref.flash_plain``).
+* on CPU tensors runs the kernel's plain version (``ref.flash_plain``,
+  ``ref.flash_bwd_plain``).
 
 A CUDA tensor reaches the kernel or an exception, never the plain version.
 """
@@ -38,8 +39,9 @@ from repro_torch.kernels.cuda_lib import F as _F, I as _I, P as _P
 from repro_torch.kernels.flashattn import ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "flashattn.cu"
+BWD_SOURCE = SOURCE.with_name("flashattn_bwd.cu")
 # no contraction of a*b+c behind the source's back: the three kernels'
-# out must agree bit for bit
+# out must agree bit for bit, and the backward sums in the order written
 FLAGS = ("-fmad=false",)
 BLOCK_Q, BLOCK_K = 16, 32
 HEAD_DIMS = (16, 32, 64, 128)
@@ -49,6 +51,7 @@ _ENTRIES = {
     "flash_attention_checked_launch": [_P] * 6 + _DIMS,
     "flash_attention_fwd_lse_launch": [_P] * 5 + _DIMS,
 }
+_BWD_ENTRIES = {"flash_attention_bwd_launch": [_P] * 9 + _DIMS}
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -58,9 +61,19 @@ def build() -> Tuple[pathlib.Path, str]:
     return cuda_lib.build(SOURCE, FLAGS)
 
 
+def build_bwd() -> Tuple[pathlib.Path, str]:
+    """Compile ``csrc/flashattn_bwd.cu`` as ``build`` does the forward."""
+    return cuda_lib.build(BWD_SOURCE, FLAGS)
+
+
 @functools.lru_cache(maxsize=1)
 def _lib():
     return cuda_lib.load(SOURCE, _ENTRIES, FLAGS)
+
+
+@functools.lru_cache(maxsize=1)
+def _bwd_lib():
+    return cuda_lib.load(BWD_SOURCE, _BWD_ENTRIES, FLAGS)
 
 
 def _dims(q, k, v, causal, window):
@@ -102,7 +115,8 @@ def _on_card(block_q, block_k, *tensors) -> bool:
 
 
 def _launch(name, device, *args):
-    cuda_lib.launch(_lib(), name, device, *args)
+    cuda_lib.launch(_bwd_lib() if name in _BWD_ENTRIES else _lib(), name,
+                    device, *args)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -165,7 +179,36 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-KERNELS = (flash_attention, flash_attention_checked, flash_attention_fwd_lse)
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None, block_q: int = BLOCK_Q,
+                        block_k: int = BLOCK_K):
+    """(dq, dk, dv) of attention at ``out`` = attention(q, k, v) with lse
+    from ``flash_attention_fwd_lse`` and ``do`` the gradient of ``out``:
+    dq (B, H, S, hd), dk and dv (B, KV, S, hd), the inputs' dtypes.  The
+    probabilities are rebuilt from lse; dvec = rowsum(do * out) in f32 is
+    a tensor op before the two kernels, as in the reference."""
+    dims = _dims(q, k, v, causal, window)
+    B, H, S, _ = q.shape
+    for name, t in (("out", out), ("do", do)):
+        cuda_lib.expect(t, name, q.dtype, q.shape)
+    cuda_lib.expect(lse, "lse", torch.float32, (B, H, S))
+    if not _on_card(block_q, block_k, q, k, v, out, lse, do):
+        return ref.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                   window=window, block_k=block_k)
+    dvec = ref.bwd_dvec(do, out)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *dims)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+KERNELS = (flash_attention, flash_attention_checked, flash_attention_fwd_lse,
+           flash_attention_bwd)
 for _k in KERNELS:
     _k.launches = 0
 del _k

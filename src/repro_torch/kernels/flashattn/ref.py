@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the flash-attention kernels, and the oracle.
 
-Two groups, both runnable on the CPU and on the card:
+Three groups, all runnable on the CPU and on the card:
 
 * ``flash_plain`` computes what the three hand kernels in ``kernel.py``
   compute (``flash_attention``, ``flash_attention_checked``,
@@ -13,6 +13,11 @@ Two groups, both runnable on the CPU and on the card:
   identical across the three (ABFT recovery swaps rows of one for the
   other's).  The kernel wrappers run it for CPU tensors, and
   ``chip_smoke.py`` holds each kernel against it on the card.
+* ``flash_bwd_plain`` computes what the two backward kernels compute
+  (``flash_attention_bwd``): the probabilities rebuilt from the forward's
+  lse, dS = P (dP - dvec) scale with dvec = rowsum(dO * O), and dQ, dK, dV
+  from them, K tile by K tile, in f32, the GQA group summed into its kv
+  head.
 * ``attention_ref`` is the reference's ``repro.kernels.flashattn.ref``:
   materialised (S, S) scores and one softmax.
 
@@ -98,6 +103,48 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if emit == "checked":
         return out, c / l_sum, output_row_checksums(out)
     return out
+
+
+def bwd_dvec(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """dvec (B, H, S) f32 = rowsum(dO * O), the softmax backward's row term
+    (the reference's ``flash_attention_bwd``, kernel.py:583)."""
+    return (do.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_k: int = 32):
+    """(dq, dk, dv) of attention, q/out/do (B, H, S, hd), k/v (B, KV, S,
+    hd), lse (B, H, S) f32 from the forward.  Per K tile of ``block_k``
+    keys: P = exp(QKᵀ·scale - lse) where the key is visible (0 elsewhere),
+    dP = dO·Vᵀ, dS = P∘(dP - dvec)·scale; dQ += dS·K, dK = dSᵀ·Q,
+    dV = Pᵀ·dO.  f32 throughout; the gradients in the inputs' dtypes."""
+    B, H, S, hd = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = q.to(torch.float32), do.to(torch.float32)
+    kf, vf = gqa_expand(k, G), gqa_expand(v, G)
+    dvec = bwd_dvec(do, out)[..., None]
+    lse = lse[..., None]
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    pos = torch.arange(S, device=q.device)
+    for k_lo in range(0, S, block_k):
+        kb = kf[:, :, k_lo:k_lo + block_k]
+        vb = vf[:, :, k_lo:k_lo + block_k]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        mask = band_mask(pos, pos[k_lo:k_lo + block_k], causal, window)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dp = torch.matmul(dof, vb.transpose(-1, -2))
+        ds = p * (dp - dvec) * scale
+        dq += torch.matmul(ds, kb)
+        dk[:, :, k_lo:k_lo + block_k] = torch.matmul(ds.transpose(-1, -2), qf)
+        dv[:, :, k_lo:k_lo + block_k] = torch.matmul(p.transpose(-1, -2), dof)
+    dk = dk.reshape(B, KV, G, S, hd).sum(dim=2)
+    dv = dv.reshape(B, KV, G, S, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -62,6 +62,10 @@ def forward(cfg, params, tokens, ctx=None, embeds=None):
     return _mod(cfg).forward(cfg, params, tokens, ctx, embeds=embeds)
 
 
+def loss_fn(cfg, params, batch, ctx=None):
+    return _mod(cfg).loss_fn(cfg, params, batch, ctx)
+
+
 def init_cache(cfg, B, max_len, dtype=None, *, device="cuda"):
     return _mod(cfg).init_cache(cfg, B, max_len, dtype, device=device)
 

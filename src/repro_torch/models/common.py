@@ -1,5 +1,5 @@
 """Shared model building blocks: norms, RoPE, attention (chunked-causal,
-GQA, sliding-window), slot-wise cache plumbing, initializers.
+GQA, sliding-window), slot-wise cache plumbing, initializers, the loss.
 
 The counterpart of ``repro.models.common``.  Compute dtype is bf16 by
 default with f32 for norms and softmax.  Where the reference multiplies
@@ -153,3 +153,19 @@ def cache_write_slot(batch_cache, one_cache, slot: int, n: int):
             bc[:, slot, :t].copy_(oc[:, 0])
             bc[:, slot, t:].zero_()
     return batch_cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE.  logits (B, S, V) any float dtype, upcast to
+    f32; labels (B, S) int; ``mask`` (B, S) weights the tokens.  The gold
+    logit is a gather whose backward adds one term into each zeroed row,
+    so it is exact in any order."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

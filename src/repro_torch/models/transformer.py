@@ -16,15 +16,28 @@ same arithmetic.  Differences:
   K/V; the values are the same, the port runs each FFN matmul once per
   layer instead of twice.
 
+* ``cfg.remat`` ("save_dots" or "full") wraps each block of a training
+  ``forward`` in ``torch.utils.checkpoint`` (non-reentrant), which keeps
+  the block's input and recomputes the whole block in the backward.  The
+  reference's "save_dots" keeps the matmul outputs; the port recomputes
+  them too: a memory choice that changes no value, and no selective
+  policy sees the ctypes kernel launches, which the dispatcher cannot.
+  The recompute runs the flash forward kernel a second time per block;
+* the embedding lookup is ``F.embedding``, whose backward is not among
+  PyTorch's nondeterministic operations (the indexed accumulate of
+  ``params["embed"][tokens]`` is, on the CPU), so a training step replays
+  bit for bit.
+
 ``attn_impl="flash"`` runs full-sequence attention (``forward``,
-``prefill``) on the ``flash_attention_fwd_lse`` kernel through
-``kernels.flashattn.ops.flash_attn_model``, as the reference's
-``_attention_core``; decode attention stays ``common.decode_attention``
-under either setting, plain tensor code in both packages.
+``prefill``) through ``kernels.flashattn.ops.flash_attn_model``, as the
+reference's ``_attention_core``: ``flash_attention_fwd_lse`` forward and,
+when a gradient is asked for, the ``flash_attention_bwd`` kernels; decode
+attention stays ``common.decode_attention`` under either setting, plain
+tensor code in both packages.
 
 Not in the port yet (each raises ``NotImplementedError`` naming its
 ROADMAP item): MoE blocks and ``ShardCtx`` (item 17), the int8 KV cache
-``quant_kv`` and embedding inputs (item 8), and ``loss_fn`` (item 13).
+``quant_kv`` and embedding inputs (item 8).
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ from typing import Any, Dict, List, NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flashattn.ops import flash_attn_model
@@ -44,7 +58,6 @@ _NOT_YET = {
            "item 17",
     "quant_kv": "the int8 KV cache comes with ROADMAP.md queue 1, item 8",
     "embeds": "embedding inputs come with ROADMAP.md queue 1, item 8",
-    "loss": "training comes with ROADMAP.md queue 1, item 13",
 }
 
 
@@ -254,7 +267,7 @@ def _logits(cfg: ArchConfig, params, x):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return params["embed"][tokens.long()].to(_cdt(cfg))
+    return F.embedding(tokens.long(), params["embed"]).to(_cdt(cfg))
 
 
 class ForwardOut(NamedTuple):
@@ -263,12 +276,22 @@ class ForwardOut(NamedTuple):
     z_loss: torch.Tensor
 
 
-def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None):
+def _block(cfg: ArchConfig, bp, x, positions):
+    x, _, _ = _attention(cfg, bp, x, positions)
+    return _dense_ffn(cfg, bp, x)
+
+
+def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False):
     """Embed, every block, final norm and head; ``keep_kv(layer, k, v)``
-    receives each layer's K/V."""
+    receives each layer's K/V; ``remat`` recomputes each block in the
+    backward."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     for li, bp in enumerate(_layers(params["dense_blocks"])):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _block, cfg, bp, x, positions, use_reentrant=False)
+            continue
         x, k, v = _attention(cfg, bp, x, positions)
         if keep_kv is not None:
             keep_kv(li, k, v)
@@ -276,17 +299,29 @@ def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None):
     return _logits(cfg, params, x)
 
 
+def _remat(cfg: ArchConfig, params) -> bool:
+    """Recompute blocks when ``cfg.remat`` asks and a gradient will flow."""
+    return (cfg.remat != "none" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in params["dense_blocks"].values()))
+
+
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
             embeds=None) -> ForwardOut:
     """tokens: (B, S) int → logits (B, S, V)."""
     _check(cfg, ctx, embeds)
-    logits = _trunk(cfg, params, tokens)
+    logits = _trunk(cfg, params, tokens, remat=_remat(cfg, params))
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, zero, zero)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, ctx=None):
-    _not_yet("loss")
+    """(mean next-token CE, {"ce", "aux", "z"}) of ``batch`` ("tokens",
+    "labels", optional "mask"); dense, so aux and z are zero."""
+    out = forward(cfg, params, batch["tokens"], ctx,
+                  embeds=batch.get("embeds"))
+    loss = common.cross_entropy_loss(out.logits, batch["labels"],
+                                     batch.get("mask"))
+    return loss, {"ce": loss, "aux": out.aux_loss, "z": out.z_loss}
 
 
 # ---------------------------------------------------------------------------

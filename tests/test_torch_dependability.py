@@ -196,13 +196,16 @@ def test_scoped_backend_reaches_dependable_ops():
 
 
 def test_unported_entries_name_their_roadmap_item():
-    """Every registry entry is in; the one attention entry still to come is
-    the backward (training), which names its ROADMAP item."""
+    """Every registry entry is in, and so is the attention backward
+    (training): a gradient flows through ``flash_attn_model`` where it was
+    refused before."""
     from repro_torch.kernels import flash_attn_model
     x = torch.zeros((2, 2), dtype=torch.int8)
     q = torch.zeros((1, 4, 2, 16))
     for be in ("ref", "cuda"):
         assert tdispatch.matmul_acc(x, x, backend=be).dtype == torch.int32
         assert tdispatch.attn(q, q, q, backend=be).shape == q.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flash_attn_model(q.requires_grad_(), q, q)
+    qg = q.clone().requires_grad_()
+    flash_attn_model(qg, q, q).sum().backward()
+    assert qg.grad is not None and qg.grad.shape == q.shape
+    assert bool(torch.isfinite(qg.grad).all())

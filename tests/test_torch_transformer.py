@@ -247,3 +247,10 @@ def test_unported_paths_name_their_roadmap_item():
                 dataclasses.replace(tcfg, family="rwkv")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tapi.init_params(cfg, torch.Generator(), device="cpu")
+    # training came in: loss_fn, once refused, now gives a finite loss
+    tp = tapi.init_params(tcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    _, tt = tokens(tcfg, (2, 8))
+    loss, aux = tapi.loss_fn(tcfg, tp, {"tokens": tt, "labels": tt})
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    assert set(aux) == {"ce", "aux", "z"}
