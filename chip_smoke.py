@@ -46,10 +46,11 @@ Phases, each of which raises on failure:
    1024-token prefill under every policy: equal on clean input, ABFT and
    CKPT heal output bit flips, DMR detects, TMR outvotes, launch counts as
    derived;
-9. hold the attention backward (two kernels, one wrapper) against its
-   plain version on the card, f32 and bf16, at the training shape
-   (8, 9, 1024, 64)/(8, 3, 1024, 64) and the attention cases of 7; two
-   launches torch.equal;
+9. hold the attention backward (dQ and dK/dV kernels, bf16 on the tensor
+   cores, f32 on the CUDA cores, one wrapper) against its plain version on
+   the card, f32 and bf16, at the training shape (8, 9, 1024, 64)/(8, 3,
+   1024, 64) and the attention cases of 7; two launches torch.equal; the
+   worst error / limit ratio per dtype;
 10. slice 4: ``ft_loop.run`` trains SmolLM-135M at full width and depth
    (f32 params, bf16 compute, AdamW, remat save_dots, attn_impl flash,
    batch 8 × 1024) in a temporary directory: a clean run of 12 steps
@@ -67,7 +68,8 @@ Phases, each of which raises on failure:
    per map, flash and chunked prefill ms at S = 64, 256, 1024, train step
    ms and tokens/s; then, under torch.profiler, the device busy time and
    idle share of the forward, of decode steps, of a flash prefill and of a
-   train step, and each kernel call's device time.
+   train step, and each kernel call's device time (the backward's dQ and
+   dK/dV kernels apart).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -83,6 +85,7 @@ import functools
 import json
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -182,16 +185,38 @@ def _timed_build(build):
     return lib, log, time.perf_counter() - t0
 
 
+def _kernel_name(mangled: str) -> str:
+    """The unqualified name and integer template arguments of a mangled
+    kernel name: ``flash_bwd_dq_mma_kernel<64>``."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.findall(r"Li(-?\d+)E", mangled[i:]) \
+        if mangled[i:i + 1] == "I" else []
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
 def phase_build(builds) -> float:
     """One nvcc per source (each ``build`` function compiles one), all
-    started together; returns the wall time."""
+    started together; prints ptxas's registers and spills per kernel;
+    returns the wall time."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         builds = list(pool.map(_timed_build, builds))
     for lib, log, secs in builds:
         print(f"build: {lib.name} in {secs:.2f} s")
+        name, spill = "?", ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "Function properties for" in line:
+                name = _kernel_name(line.split(" for ", 1)[1].strip())
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"  {name}: {line.split(':', 1)[1].strip()}; {spill}")
+            elif "error" in line:
                 print(f"  {line.strip()}")
     return time.perf_counter() - t0
 
@@ -1473,12 +1498,12 @@ def _bwd_inputs(case, gen):
     return (*case.args(), out, lse, do)
 
 
-def _bwd_err(got, want, dtype) -> float:
-    """Max abs error of a gradient against the plain version's; raises
-    beyond the tolerance: 5e-5·(1 + |w|) for f32, where both sum the same
-    f32 products (up to G·S of them per element) in other orders, and for
-    bf16 one bf16 step of |w| on top of that, where both round an f32
-    result that may differ in its last bits."""
+def _bwd_check(got, want, dtype):
+    """(max abs error, max error / limit) of a gradient against the plain
+    version's; raises beyond the tolerance: 5e-5·(1 + |w|) for f32, where
+    both sum the same f32 products (up to G·S of them per element) in other
+    orders, and for bf16 one bf16 step of |w| on top of that, where both
+    round an f32 result that may differ in its last bits."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     lim = 5e-5 * (1 + w.abs())
@@ -1487,13 +1512,14 @@ def _bwd_err(got, want, dtype) -> float:
     if not bool((err <= lim).all()):
         raise AssertionError(f"flash backward disagrees with its plain "
                              f"version (max abs err {float(err.max())})")
-    return float(err.max())
+    return float(err.max()), float((err / lim).max())
 
 
 def phase_compare_flash_bwd(gen) -> dict:
     """Row 10 against its plain version on the card, f32 and bf16, at the
     attention compare cases and the training shape (8, 9, 1024, 64)/(8, 3,
-    1024, 64); two launches torch.equal."""
+    1024, 64); two launches torch.equal; the worst error / limit ratio per
+    dtype printed."""
     from repro_torch.kernels.flashattn import kernel as FK
     from repro_torch.kernels.flashattn import ref as FR
     cases = [(f"train_{tag}", FlashCase(gen, TRAIN_BATCH, 9, 3, TRAIN_SEQ,
@@ -1501,7 +1527,7 @@ def phase_compare_flash_bwd(gen) -> dict:
              for tag, dt in (("f32", torch.float32),
                              ("bf16", torch.bfloat16))]
     cases += flash_compare_cases(gen)
-    max_err = 0.0
+    max_err, ratio = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     for label, case in cases:
         inputs = _bwd_inputs(case, gen)
         got = FK.flash_attention_bwd(*inputs, **case.kw)
@@ -1512,13 +1538,17 @@ def phase_compare_flash_bwd(gen) -> dict:
             if g.dtype != w.dtype or g.shape != w.shape:
                 raise AssertionError(f"{label}: {name} {g.dtype} "
                                      f"{tuple(g.shape)}")
-            max_err = max(max_err, _bwd_err(g, w, case.dtype))
+            err, r = _bwd_check(g, w, case.dtype)
+            max_err = max(max_err, err)
+            ratio[case.dtype] = max(ratio[case.dtype], r)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{label}: two backward launches differ")
     print(f"compare: {len(cases)} backward cases (training shape, prefill "
           f"shapes, hd 16-128, GQA, window, non-causal, random) within "
           f"tolerance of the plain version (f32 5e-5, bf16 one step + 5e-5); "
-          f"two launches torch.equal; max abs err {max_err:.3e}")
+          f"two launches torch.equal; max abs err {max_err:.3e}; worst "
+          f"error / limit f32 {ratio[torch.float32]:.4f}, bf16 "
+          f"{ratio[torch.bfloat16]:.4f}")
     return {"flash_attention_bwd": max_err}
 
 
@@ -1756,7 +1786,7 @@ def phase_time_bwd(gen, max_err):
                         FR.flash_bwd_plain(*inputs)):
             max_err["flash_attention_bwd"] = max(
                 max_err["flash_attention_bwd"],
-                _bwd_err(g, w, torch.bfloat16))
+                _bwd_check(g, w, torch.bfloat16)[0])
         ms = _time_ms(lambda: FK.flash_attention_bwd(*inputs), reps=20)
         plain_ms = _time_ms(lambda: FR.flash_bwd_plain(*inputs), reps=3,
                             warmup=1)
@@ -1773,7 +1803,8 @@ def phase_time_bwd(gen, max_err):
         lib_ms = _time_ms(sdpa_bwd, reps=20)
         bound, by = case.bwd_bound_ms()
         rows.append({"B": b, "kernel": "flash_attention_bwd", "ms": ms,
-                     "device_ms": None, "plain_ms": plain_ms,
+                     "device_ms": None, "dq_device_ms": None,
+                     "dkv_device_ms": None, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                      "library_device_ms": None})
         calls.append((functools.partial(FK.flash_attention_bwd, *inputs),
@@ -1784,7 +1815,8 @@ def phase_time_bwd(gen, max_err):
 def phase_profile_train(run, rows, calls):
     """One train step under torch.profiler: device busy ms, idle share,
     device ops per step, top entries; then row 10's and SDPA backward's
-    device time per call, filled into ``rows``."""
+    device time per call, filled into ``rows``: row 10's whole call (the
+    dvec op included) and its dQ and dK/dV kernels apart."""
     w = _profile_window(run, reps=1)
     if w is None:
         print("profile train step: the profiler saw no device time "
@@ -1797,14 +1829,21 @@ def phase_profile_train(run, rows, calls):
             print(f"    {v:8.4f} ms  {kname}")
     for row, (call, lib) in zip(rows, calls):
         row["device_ms"] = _device_ms(call, reps=10, match=None)
+        row["dq_device_ms"] = _device_ms(call, reps=10, match="flash_bwd_dq")
+        row["dkv_device_ms"] = _device_ms(call, reps=10,
+                                          match="flash_bwd_dkv")
         row["library_device_ms"] = _device_ms(lib, reps=10, match=None)
     print("backward per call at (B, 9, 1024, 64)/(B, 3, 1024, 64) bf16 "
           "(CUDA events; device time from the profiler, dvec op "
           "included):")
+
+    def n_m(x):
+        return "n/m" if x is None else f"{x:.4f}"
     for r in rows:
-        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
         print(f"  B {r['B']} {r['kernel']:20s} {r['ms']:8.4f} ms  device "
-              f"{dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
+              f"{n_m(r['device_ms']):>7s} ms (dQ {n_m(r['dq_device_ms'])}, "
+              f"dK/dV {n_m(r['dkv_device_ms'])})  plain "
+              f"{r['plain_ms']:8.3f} ms  bound "
               f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa bwd "
               f"{r['library_ms']:.4f} ms (device "
               f"{r['library_device_ms'] or float('nan'):.4f})")

@@ -1,19 +1,31 @@
 """The flash-attention kernels: build, ctypes binding and wrappers.
 
 CUDA C++ for ``sm_90a``: the three forward kernels in ``csrc/flashattn.cu``
-and the backward's two (dQ, dK/dV) in ``csrc/flashattn_bwd.cu`` (each
+and the backward's dQ and dK/dV kernels in ``csrc/flashattn_bwd.cu`` (each
 source's header says which TPU kernel it replaces, what bounds it and what
 its design does about that), both built with ``-fmad=false`` and bound by
 ``kernels/cuda_lib.py``, one library per source.
 
+The backward has two pairs of kernels.  bf16 inputs run on the tensor
+cores (``mma.sync`` m16n8k16 fed by ``ldmatrix`` from shared memory,
+tiles copied by ``cp.async``, double-buffered): dQ blocks of 64 query rows
+over 64-key tiles, dK/dV blocks of 64 keys over the group's query tiles
+(64 rows, 32 at hd = 128).  P and dS enter the dV, dK and dQ products as
+hi + lo bf16 pairs: rounded once to bf16 they would leave the tolerance
+(``tests/test_torch_flash_bwd_split.py``).  f32 inputs keep the f32 FMA
+kernels on the CUDA cores, so they keep f32 accuracy.  No float atomics
+on either path: two launches give the same bits.
+
 Layouts as in the reference: q (B, H, S, hd), k/v (B, KV, S, hd), f32 or
 bf16, H a multiple of KV, hd one of 16, 32, 64, 128; ``causal``,
 ``window`` (keys at most ``window`` positions before the query),
-``block_q`` and ``block_k`` keywords.  The kernels are compiled for
-Hopper's own tile, 16 query rows per block and 32 keys per tile
-(``BLOCK_Q``, ``BLOCK_K``); a CUDA call with other block sizes raises.  On
-the CPU ``block_k`` tiles the plain version's K loop and ``block_q`` has
-no effect (rows are independent).
+``block_q`` and ``block_k`` keywords.  The keywords name the forward's
+tiles: its kernels are compiled for 16 query rows per block and 32 keys
+per tile (``BLOCK_Q``, ``BLOCK_K``), and a CUDA call with other block sizes
+raises.  The backward takes the same keywords, as ``flash_attn_diff``
+passes them, and its own tiles are constants of its source.  On the CPU
+``block_k`` tiles the plain version's K loop and ``block_q`` has no effect
+(rows are independent).
 
 Each wrapper checks dtypes and shapes, then:
 
@@ -197,6 +209,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_card(block_q, block_k, q, k, v, out, lse, do):
         return ref.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                    window=window, block_k=block_k)
+    if q.dtype == torch.bfloat16 \
+            and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("the bf16 backward copies 16-byte chunks: q, k, v "
+                         "and do must start at 16-byte aligned addresses")
     dvec = ref.bwd_dvec(do, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
