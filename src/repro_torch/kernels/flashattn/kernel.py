@@ -6,32 +6,36 @@ source's header says which TPU kernel it replaces, what bounds it and what
 its design does about that), both built with ``-fmad=false`` and bound by
 ``kernels/cuda_lib.py``, one library per source.
 
-The backward has two pairs of kernels.  bf16 inputs run on the tensor
-cores (``mma.sync`` m16n8k16 fed by ``ldmatrix`` from shared memory,
-tiles copied by ``cp.async``, double-buffered): dQ blocks of 64 query rows
-over 64-key tiles, dK/dV blocks of 64 keys over the group's query tiles
-(64 rows, 32 at hd = 128).  P and dS enter the dV, dK and dQ products as
-hi + lo bf16 pairs: rounded once to bf16 they would leave the tolerance
-(``tests/test_torch_flash_bwd_split.py``).  f32 inputs keep the f32 FMA
+bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16 fed by
+``ldmatrix`` from shared memory, tiles copied by ``cp.async``,
+double-buffered).  The forward: one template for the three entries, blocks
+of 64 query rows over 64-key tiles.  The backward: dQ blocks of 64 query
+rows over 64-key tiles, dK/dV blocks of 64 keys over the group's query
+tiles (64 rows, 32 at hd = 128).  P (and in the backward dS) enters its
+products as a hi + lo bf16 pair: rounded once to bf16 it would leave the
+tolerance (``tests/test_torch_flash_fwd_split.py``,
+``tests/test_torch_flash_bwd_split.py``).  f32 inputs keep the f32 FMA
 kernels on the CUDA cores, so they keep f32 accuracy.  No float atomics
-on either path: two launches give the same bits.
+on either path: two launches give the same bits, and the three forward
+entries give the same ``out``.
 
 Layouts as in the reference: q (B, H, S, hd), k/v (B, KV, S, hd), f32 or
 bf16, H a multiple of KV, hd one of 16, 32, 64, 128; ``causal``,
 ``window`` (keys at most ``window`` positions before the query),
-``block_q`` and ``block_k`` keywords.  The keywords name the forward's
-tiles: its kernels are compiled for 16 query rows per block and 32 keys
+``block_q`` and ``block_k`` keywords.  The keywords name the f32
+forward's tiles: it is compiled for 16 query rows per block and 32 keys
 per tile (``BLOCK_Q``, ``BLOCK_K``), and a CUDA call with other block sizes
-raises.  The backward takes the same keywords, as ``flash_attn_diff``
-passes them, and its own tiles are constants of its source.  On the CPU
-``block_k`` tiles the plain version's K loop and ``block_q`` has no effect
-(rows are independent).
+raises.  The bf16 kernels and the backward take the same keywords, as
+every caller passes them, and their own tiles are constants of their
+sources.  On the CPU ``block_k`` tiles the plain version's K loop and
+``block_q`` has no effect (rows are independent).
 
 Each wrapper checks dtypes and shapes, then:
 
 * on CUDA tensors allocates its outputs with ``torch.empty``, launches on
   the current stream, raises if the launch reports an error, and adds one
-  to its ``launches`` count;
+  to its ``launches`` count; the bf16 kernels copy 16-byte chunks, so a
+  bf16 input that does not start at a 16-byte boundary raises;
 * on CPU tensors runs the kernel's plain version (``ref.flash_plain``,
   ``ref.flash_bwd_plain``).
 
@@ -118,11 +122,17 @@ def _dims(q, k, v, causal, window):
 
 
 def _on_card(block_q, block_k, *tensors) -> bool:
+    """True to launch, False for the plain version; raises on block sizes
+    the kernels are not compiled for and on a bf16 tensor that does not
+    start at a 16-byte boundary."""
     if not cuda_lib.on_card("flashattn", *tensors):
         return False
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
         raise ValueError(f"the kernels are compiled for block_q={BLOCK_Q}, "
                          f"block_k={BLOCK_K}; got {block_q}, {block_k}")
+    if any(t.data_ptr() % 16 for t in tensors if t.dtype == torch.bfloat16):
+        raise ValueError("the bf16 kernels copy 16-byte chunks: their bf16 "
+                         "inputs must start at 16-byte aligned addresses")
     return True
 
 
@@ -209,10 +219,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_card(block_q, block_k, q, k, v, out, lse, do):
         return ref.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                    window=window, block_k=block_k)
-    if q.dtype == torch.bfloat16 \
-            and any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("the bf16 backward copies 16-byte chunks: q, k, v "
-                         "and do must start at 16-byte aligned addresses")
     dvec = ref.bwd_dvec(do, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
