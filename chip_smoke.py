@@ -19,9 +19,12 @@ Phases, each of which raises on failure:
    CKPT a flipped weight bit; within 4 output steps of ``float_forward``;
    every kernel's launch count above 0;
 5. hold each matmul kernel ``torch.equal`` to its plain version on the
-   card: the W8A8 FFN shapes of SmolLM-135M at M = 8 and 64, a ragged
-   case, zero points, a check vector that wraps past 2^31, odd K and N and
-   seeded random geometries;
+   card (and the check vector equal to the row sums of acc): the W8A8 FFN
+   shapes of SmolLM-135M at M = 8 and 64, a ragged case, zero points, a
+   check vector that wraps past 2^31, odd K and N, the accumulator
+   kernel's edges (M from 1 to 200 over K and N off multiples of 32, 16
+   and 4), inputs off every 16-byte boundary, the flash prefills' FFN
+   shapes at M = 256 and 1024 and seeded random geometries;
 6. slice 2: ``Engine`` over SmolLM-135M at full width (30 layers, W8A8
    FFN, bf16 compute, random weights from a seed) serves 16 seeded requests
    under no map, ``ffn.*=abft``, ``ffn.*=tmr`` and the ``ref`` backend:
@@ -64,13 +67,15 @@ Phases, each of which raises on failure:
 11. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
-   ``torch._int_mm`` on rows padded to M = 32 for the accumulator), the
+   ``torch._int_mm`` on rows padded to M = 32 for the accumulator, and a
+   decode step's 90 FFN calls over distinct, L2-cold weights), the
    forward's frames/s per policy, decode ms/step, tokens/s and prefill ms
    per map, flash and chunked prefill ms at S = 64, 256, 1024, train step
    ms and tokens/s; then, under torch.profiler, the device busy time and
    idle share of the forward, of decode steps, of a flash prefill and of a
    train step, and each kernel call's device time (the backward's dQ and
-   dK/dV kernels apart).
+   dK/dV kernels apart; each call of the accumulator kernels exactly one
+   device op, their cluster kernel, and ``torch._int_mm``'s beside them).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -136,6 +141,9 @@ MAPS = {                           # engine keywords per serving cell
     "ref_backend": {"backend": "ref"},
 }
 RANDOM_MATMUL_CASES = 24
+EDGE_ROWS = (1, 7, 8, 9, 16, 17, 63, 64, 65, 200)
+EDGE_KN = ((600, 1000), (99, 41), (1536, 70))
+COLD_LAYERS = 30                   # distinct FFN weights per cold decode step
 INT_MM_MIN_M = 32                  # torch._int_mm refuses M <= 16
 DECODE_ROUNDS = 3                  # timing rounds of 20 decode steps per map
 # slice 3: the attention kernels
@@ -473,6 +481,40 @@ def _device_ms(fn, reps, match="qconv2d_kernel") -> float | None:
     return sum(spans) / reps / 1e3 if spans else None
 
 
+def _device_ops(fn, reps):
+    """Device ms per run of ``fn``, device ops per run and the set of their
+    names, from the profiler's CUPTI trace (ms None where it sees no device
+    activity).  The trace can miss a record (it saw 48 of 50 calls in one
+    run on an H100), so the ms per run is the mean op's time times the
+    whole number of ops per run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range.end - e.time_range.start for e in ops]
+    if not spans:
+        return None, 0.0, set()
+    per_run = max(1, round(len(spans) / reps))
+    return (sum(spans) / len(spans) * per_run / 1e3, len(ops) / reps,
+            {e.name for e in ops})
+
+
+def _device_ops_seen(fn, reps, per_run, tries=5):
+    """``_device_ops`` of ``fn``, over up to ``tries`` profiler windows,
+    until one shows at least 90 % of the ``per_run`` ops expected of each
+    run: a window can lose a few records and, now and then, all of them."""
+    for _ in range(tries):
+        ms, ops, names = _device_ops(fn, reps)
+        if ops >= 0.9 * per_run:
+            break
+    return ms, ops, names
+
+
 def phase_time(specs, gen, max_err):
     """CUDA-event times per call at the main path's shapes.  Returns the
     per-layer rows, the per-kernel totals and the calls, which
@@ -621,16 +663,20 @@ class MatmulCase:
     """Random inputs of one matmul kernel call, made on the card."""
 
     def __init__(self, gen, m, k, n, x_zp=None, out_zp=None, x_fill=None,
-                 w_fill=None):
+                 w_fill=None, offset=False):
+        """``offset``: x_q, w_q and w_check are views one row (one value)
+        into larger tensors, off every 16-byte boundary where K, N are
+        odd."""
         from repro_torch.core.abft import checksum_vector
 
         def ints(lo, hi, shape, dtype):
             return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
                                  dtype=dtype)
 
+        o = int(offset)
         self.shape = (m, k, n)
-        self.x_q = ints(-128, 128, (m, k), torch.int8)
-        self.w_q = ints(-127, 128, (k, n), torch.int8)
+        self.x_q = ints(-128, 128, (m + o, k), torch.int8)[o:]
+        self.w_q = ints(-127, 128, (k + o, n), torch.int8)[o:]
         if x_fill is not None:
             self.x_q.fill_(x_fill)
         if w_fill is not None:
@@ -640,6 +686,8 @@ class MatmulCase:
             else out_zp
         self.colsum = self.w_q.to(torch.int32).sum(0).to(torch.int32)
         self.w_check = checksum_vector(self.w_q)
+        if offset:
+            self.w_check = torch.cat([self.w_check[:1], self.w_check])[1:]
         self.bias = ints(-1000, 1000, (n,), torch.int32)
         self.scale = torch.empty(n, device=DEVICE).uniform_(
             1e-4, 5e-3, generator=gen)
@@ -702,6 +750,17 @@ def phase_compare_matmul(cfg, gen) -> dict:
         ("check_wraps", MatmulCase(gen, 8, 1536, 1536, x_zp=127, out_zp=0,
                                    x_fill=-128, w_fill=127)),
     ]
+    # the accumulator kernel's edges: row groups of 8 and tiles of 64
+    # rows, K and N off multiples of 32, 16 and 4, rows off 16 bytes
+    cases += [(f"edge_{m}x{k}x{n}", MatmulCase(gen, m, k, n))
+              for m in EDGE_ROWS for k, n in EDGE_KN]
+    cases += [(f"offset_{m}x{k}x{n}", MatmulCase(gen, m, k, n, offset=True))
+              for m, k, n in ((7, 99, 41), (9, 600, 1000))]
+    # the flash prefills' FFN rows: one-rank clusters and several staged
+    # K chunks per rank
+    cases += [(f"prefill_{m}x{k}x{n}", MatmulCase(gen, m, k, n))
+              for m in FLASH_TIME_S if m > PREFILL_PAD
+              for _, k, n in ffn_shapes(cfg)[:2]]
     rng = random.Random(1)
     cases += [(f"random_{i}", MatmulCase(
         gen, rng.randint(1, 80), rng.randint(1, 1600), rng.randint(1, 700),
@@ -880,8 +939,9 @@ def phase_time_matmul(cfg, gen, max_err):
     """CUDA-event times per call at the FFN shapes, beside the plain
     version, the bound and ``torch._int_mm`` (the library yardstick for the
     accumulator, on the decode rows zero-padded to M = 32; the port never
-    calls it)."""
-    rows, calls = [], []
+    calls it).  Returns the rows, each row's call and its library call (or
+    None), which ``matmul_device_times`` times again on the device."""
+    rows, calls, lib_calls = [], [], []
     for m, k, n in ffn_shapes(cfg):
         case = MatmulCase(gen, m, k, n)
         for name, (kern, plain) in _matmul_kernels().items():
@@ -890,7 +950,7 @@ def phase_time_matmul(cfg, gen, max_err):
                                 _max_err(kern(*args), plain(*args)))
             ms = _time_ms(lambda: kern(*args), reps=100)
             plain_ms = _time_ms(lambda: plain(*args), reps=10, warmup=1)
-            lib_ms, lib_note = None, None
+            lib_ms, lib_note, lib_call = None, None, None
             if name == "qmatmul_acc":
                 # torch._int_mm refuses M <= 16: the decode rows are
                 # zero-padded to M = 32 outside the timing, which changes
@@ -905,15 +965,127 @@ def phase_time_matmul(cfg, gen, max_err):
                                    kern(*args)):
                     raise AssertionError(f"_int_mm != qmatmul_acc at "
                                          f"{(m, k, n)}")
-                lib_ms = _time_ms(lambda: torch._int_mm(x_lib, case.w_q),
-                                  reps=100)
+                lib_call = functools.partial(torch._int_mm, x_lib, case.w_q)
+                lib_ms = _time_ms(lib_call, reps=100)
             bound, by = case.bound_ms(name)
             rows.append({"shape": (m, k, n), "kernel": name, "ms": ms,
                          "device_ms": None, "plain_ms": plain_ms,
                          "bound_ms": bound, "bound_by": by,
                          "library_ms": lib_ms, "library_note": lib_note})
             calls.append(functools.partial(kern, *args))
-    return rows, calls
+            lib_calls.append(lib_call)
+    return rows, calls, lib_calls
+
+
+def _cold_decode_weights(cfg, gen):
+    """COLD_LAYERS layers of distinct FFN weights (wg, wi: (d, d_ff); wd:
+    (d_ff, d)) with their check vectors, and the decode rows of each FFN
+    input, also zero-padded to M = 32 for ``torch._int_mm``: a decode
+    step's 80 MB of FFN weights outgrow the 50 MB L2, so each call finds
+    its W cold, unlike the per-shape timings that reuse one W."""
+    from repro_torch.core.abft import checksum_vector
+    d, ff = cfg.d_model, cfg.d_ff
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
+                             dtype=torch.int8)
+
+    layers = []
+    for _ in range(COLD_LAYERS):
+        ws = (ints(-127, 128, (d, ff)), ints(-127, 128, (d, ff)),
+              ints(-127, 128, (ff, d)))
+        layers.append([(w, checksum_vector(w)) for w in ws])
+    xs = {}
+    for k in (d, ff):
+        x = ints(-128, 128, (CAPACITY, k))
+        x_pad = torch.zeros((INT_MM_MIN_M, k), dtype=torch.int8,
+                            device=DEVICE)
+        x_pad[:CAPACITY] = x
+        xs[k] = (x, x_pad)
+    return layers, xs
+
+
+def phase_time_matmul_cold(cfg, gen):
+    """CUDA-event ms per call of rows 4 and 5 and of ``torch._int_mm`` over
+    a decode step's FFN calls in their order, each layer with its own
+    weights.  Returns the per-call times and each step's function, which
+    ``matmul_device_times`` times again on the device."""
+    from repro_torch.kernels.qmatmul import kernel as MK
+    layers, xs = _cold_decode_weights(cfg, gen)
+    calls = len(layers) * 3
+
+    def step(fn):
+        def run():
+            for layer in layers:
+                for w, w_check in layer:
+                    fn(xs[w.shape[0]], w, w_check)
+        return run
+
+    steps = {
+        "qmatmul_acc": step(lambda x, w, c: MK.qmatmul_acc(x[0], w)),
+        "qmatmul_acc_checksum": step(
+            lambda x, w, c: MK.qmatmul_acc_checksum(x[0], w, c)),
+        "_int_mm": step(lambda x, w, c: torch._int_mm(x[1], w)),
+    }
+    out = {name: _time_ms(run, reps=10) / calls
+           for name, run in steps.items()}
+    print(f"matmul cold W ({COLD_LAYERS} layers x 3 distinct weights, a "
+          f"decode step's order), ms per call by CUDA events: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in out.items()))
+    return out, steps, calls
+
+
+def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
+                        cold_calls):
+    """Device time per call of each matmul row and of its library call, by
+    the profiler; each call of rows 4 and 5 must be exactly one device op,
+    their kernel, and each cold call likewise.  Fills ``rows``; returns the
+    cold device times per call."""
+    from repro_torch.kernels.qmatmul import kernel as MK
+    one_op = {MK.qmatmul_acc: "qmatmul_mma_kernel<0>",
+              MK.qmatmul_acc_checksum: "qmatmul_mma_kernel<1>"}
+    for row, call, lib_call in zip(rows, calls, lib_calls):
+        ms, ops, names = _device_ops_seen(call, reps=50, per_run=1)
+        want = one_op.get(call.func)
+        # every op the trace saw is the kernel, never more than one per
+        # call (a memset or a second pass would show), and the trace saw
+        # at least 90 % of the calls
+        if want is not None and not (0.9 <= ops <= 1.0 and len(names) == 1
+                                     and want in next(iter(names))):
+            raise AssertionError(f"{row['kernel']} {row['shape']}: {ops} "
+                                 f"device ops per call ({sorted(names)}), "
+                                 f"want one {want}")
+        row["device_ms"], row["device_ops"] = ms, ops
+        row["device_kernel"] = sorted(names)
+        row["library_device_ms"] = None if lib_call is None else \
+            _device_ops(lib_call, reps=20)[0]
+    cold_dev = {}
+    for name, run in cold_steps.items():
+        ms, ops, names = _device_ops_seen(run, reps=2, per_run=cold_calls)
+        if name != "_int_mm" and not (0.9 * cold_calls <= ops <= cold_calls
+                                      and len(names) == 1):
+            raise AssertionError(f"cold {name}: {ops} device ops per step "
+                                 f"of {cold_calls} calls ({sorted(names)})")
+        cold_dev[name] = None if ms is None else ms / cold_calls
+    print("matmul kernel times per call (CUDA events; device time from the "
+          "profiler, by kernel name; each call of rows 4 and 5 one device "
+          "op):")
+    for r in rows:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (device "
+            + ("n/m" if r["library_device_ms"] is None
+               else f"{r['library_device_ms']:.4f}") + " ms)"
+            + (f" ({r['library_note']})" if r["library_note"] else ""))
+        print(f"  {str(r['shape']):18s} {r['kernel']:22s} {r['ms']:8.4f} ms"
+              f"  device {dev:>7s} ms {r['device_kernel']}  plain "
+              f"{r['plain_ms']:8.3f} ms  bound {r['bound_ms']:8.5f} ms "
+              f"({r['bound_by']})  _int_mm {lib}")
+    print("matmul cold W, ms per call: " + ", ".join(
+        f"{k} events {cold[k]:.5f} device "
+        + ("n/m" if cold_dev[k] is None else f"{cold_dev[k]:.5f}")
+        for k in cold))
+    return cold_dev
 
 
 def matmul_totals(cfg, rows):
@@ -1946,7 +2118,8 @@ def main() -> None:
 
     # every CUDA-event timing before the first profiler session
     rows, totals, calls = phase_time(specs, gen, max_err)
-    mm_rows, mm_calls = phase_time_matmul(cfg, gen, max_err)
+    mm_rows, mm_calls, mm_lib_calls = phase_time_matmul(cfg, gen, max_err)
+    mm_cold, mm_cold_steps, mm_cold_calls = phase_time_matmul_cold(cfg, gen)
     fl_rows, fl_calls = phase_time_flash(gen, max_err)
     prefill_ms = phase_prefill_flash(cfg, fcfg, lm_params)
     bwd_rows, bwd_calls = phase_time_bwd(gen, max_err)
@@ -1955,18 +2128,8 @@ def main() -> None:
     serving, engines = phase_serve_time(cfg, lm_params, prompts, serve_runs)
     profile = phase_profile(specs, params, frames, rows, calls)
     profile["decode"] = phase_serve_profile(engines)
-    for row, call in zip(mm_rows, mm_calls):
-        row["device_ms"] = _device_ms(call, reps=20, match=None)
-    print("matmul kernel times per call (CUDA events; device time, kernel "
-          "and any split-K memset, from the profiler):")
-    for r in mm_rows:
-        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
-        lib = "-" if r["library_ms"] is None else (
-            f"{r['library_ms']:.4f} ms"
-            + (f" ({r['library_note']})" if r["library_note"] else ""))
-        print(f"  {str(r['shape']):18s} {r['kernel']:22s} {r['ms']:8.4f} ms"
-              f"  device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
-              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  _int_mm {lib}")
+    mm_cold_dev = matmul_device_times(mm_rows, mm_calls, mm_lib_calls,
+                                      mm_cold, mm_cold_steps, mm_cold_calls)
 
     profile["flash_prefill"] = phase_profile_flash(fcfg, lm_params, fl_rows,
                                                    fl_calls)
@@ -1997,7 +2160,10 @@ def main() -> None:
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "batch": BATCH, "kernels": kernels, "per_layer": rows,
                        "forward": forward, "profile": profile,
-                       "matmul_per_call": mm_rows, "serve": serve_runs,
+                       "matmul_per_call": mm_rows,
+                       "matmul_cold_w": {"events_ms": mm_cold,
+                                         "device_ms": mm_cold_dev},
+                       "serve": serve_runs,
                        "serving": serving, "attention_per_call": fl_rows,
                        "serve_flash": {k: {kk: vv for kk, vv in v.items()
                                            if kk != "streams"}

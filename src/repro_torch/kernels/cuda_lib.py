@@ -15,6 +15,7 @@ needs contiguous inputs), and a launch that raises on a CUDA error.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -89,10 +90,13 @@ def on_card(family: str, *tensors) -> bool:
 
 
 def launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
-    """Call entry ``name`` on the current stream of ``device``; raise if
-    it reports a CUDA error."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    """Call entry ``name`` on the current stream of ``device`` (made the
+    current device for the call where it is not); raise if it reports a
+    CUDA error."""
+    with (contextlib.nullcontext()
+          if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        err = getattr(lib, name)(*args,
+                                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")

@@ -4,73 +4,112 @@
 // Replaces the three Pallas TPU kernels of src/repro/kernels/qmatmul/kernel.py:
 //   qmatmul_acc           (kernel.py:138)  X (M,K) int8 . W (K,N) int8
 //                                          -> (M,N) int32 accumulator
+//                                          qmatmul_mma_kernel<kAcc>
 //   qmatmul_acc_checksum  (kernel.py:176)  the same acc plus the ABFT check
 //                                          vector want (M,) = X . w_check
+//                                          qmatmul_mma_kernel<kAccChecksum>
 //   qmatmul               (kernel.py:224)  the same acc plus the fused
 //                                          requantisation epilogue -> int8
-// X and W are row-major; out is (M, N) row-major.
+//                                          qmatmul_requant_kernel
+// X and W are row-major; the outputs are row-major.  Integer results wrap
+// mod 2^32 as the reference's do, bit for bit.
 //
 // Bound on an H100 SXM: max(bytes / 3.35 TB/s, 2*M*N*K / 1,979 TOPS int8),
 // each input read once and each output written once.  On the serving path
 // (the W8A8 FFN: M = 8 decode rows or 64 prefill rows, (K, N) = (576, 1536)
 // or (1536, 576)) the K*N = 884,736 weight bytes dominate: every call is
-// bound by bytes, 0.27-0.39 us, and the arithmetic is 100x below the int8
-// rate.  What matters is to read W once, in wide coalesced loads, from as
-// many SMs as possible.
+// bound by bytes at 0.27-0.39 us, and the arithmetic is 100x below the
+// int8 rate.  That bound is out of reach for one call: at ~1 us of memory
+// latency, Little's law wants ~3 MB in flight to draw 3.35 TB/s, and the
+// whole call moves 0.9 MB.  The floor of one call is one launch plus about
+// one memory round trip.  The design aims at that floor: one device op per
+// call, every load of a block in flight before its first wait, about one
+// wave of blocks, and few barriers after the loads.
 //
-// Design.  Blocks run in no order, so nothing carries over between them:
-// the grid is (N tiles of 64 columns, M tiles of 16 rows, K splits) and the
-// K loop of a split runs inside the block, 128 rows of W per stage, so W is
-// read exactly once.  At M = 8 there are only 9-24 (N, M) tiles, too few to
-// keep enough loads in flight, so the acc kernels split K over blocks until
-// about two blocks per SM are resident and add their partial sums into the
-// zeroed output with integer atomics (exact and order-independent mod 2^32;
-// the fused kernel needs the whole sum in one block and never splits).  A
-// stage issues all of its loads before using any: W as 32-bit words of four
-// neighbouring columns (a warp reads 64 contiguous bytes of a row), then a
-// 4x4 byte transpose with __byte_perm into k-packed words (four K steps of
-// one column), so that one __dp4a does four int8 MACs.  X is staged in its
-// natural K-packed layout.  Each thread owns 2 rows x 4 columns of int32
-// accumulators in registers; the fused kernel requantises in registers, so
-// int32 never reaches device memory.  K tails, ragged M and N, and K or N
-// not a multiple of 4 are zero-filled in the stage (the TPU kernel's K-tail
-// mask, kernel.py:66-73).  dp4a runs on the CUDA cores; int8 mma/wgmma tiles
-// with TMA are later work.
+// The accumulator kernels, qmatmul_mma_kernel<kMode>.
 //
-// Integer arithmetic.  The reference wraps mod 2^32 and signed overflow is
-// undefined in C++, so the zero-point correction and the check vector run
-// in uint32.  The check vector is computed by the N-tile-0 blocks of each K
-// split for their own rows (the TPU kernel accumulated it in n == 0 tiles,
-// relying on sequential grid order): 8 threads per row, each over its share
-// of the stage, summed with a width-8 shuffle and across splits with an
-// atomic add (addition mod 2^32 is associative, so the order does not
-// matter).  The fused epilogue gives
-// JAX's rounding bit for bit: int->float round-to-nearest, a multiply that
-// is never contracted into an FMA (__fmul_rn), rintf (half to even),
-// + out_zp, clamp to [-128, 127].
+//   Tensor cores, with A and B swapped.  The products run on
+//   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 as C^T = W^T . X^T:
+//   the mma's m = 16 rows are 16 output columns of W and its n = 8 side is
+//   8 token rows of X, so that at decode (M = 8) every lane carries a real
+//   row instead of half of a 16-row tile being zeros.  B's .col layout is
+//   K-contiguous per column, which X's rows already are.  A wants each W
+//   column's K bytes packed into words; Hopper has no 8-bit ldmatrix.trans,
+//   so each staged W chunk is byte-transposed once (__byte_perm,
+//   transpose4x4) into W^T rows padded to 4 mod 8 words, which makes every
+//   fragment load hit 32 distinct banks.  No .satfinite: the reference
+//   wraps.  mma.sync rather than wgmma: these shapes are bound by latency
+//   and bytes, 100x below the tensor-core rate, and wgmma's 64-row
+//   warpgroup tiles would only add zero rows and a descriptor layout for
+//   the transposed W.  A block is 8 warps over a tile of 32 columns by up
+//   to 64 rows: warp (jg, kp) takes the 8 rows 8 jg.. and every ksplit-th
+//   32-deep K step from kp (ksplit = 8 / row groups: 8 warps share the K
+//   steps of one group at M = 8, one warp per group at 64 rows).  C's
+//   fragment is stored transposed, as rows of X.
 //
-// Each C entry returns cudaGetLastError() after its launch (0 on success).
+//   Loads.  A block's W slice (k_rank x 32 columns; 6 KB at the decode
+//   shapes), its X rows and its w_check slice are copied with 16-byte
+//   cp.async, all issued before the first wait; past the block's K range,
+//   M or N, cp.async's src-size zero-fills.  A W row's 32 bytes land in a
+//   32-byte slot that rotates every four rows, so the transpose's reads of
+//   four rows hit four different slots.  A row off a 16-byte boundary (K or
+//   N not a multiple of 16, an offset view) is copied bytewise in the same
+//   kernel.  K ranges above k_chunk (256) run as a loop of chunks, one
+//   exposed round trip each: only large-M calls with one block per K range
+//   take it.  One warp per SM scheduler leaves no latency hidden, so the
+//   copy loops are unrolled with compile-time bounds, and the host passes
+//   the shared-memory layout and the splits as shifts: a runtime integer
+//   division is a long chain of dependent instructions.
+//
+//   Split K inside a thread block cluster.  The grid is (M tiles, ranks x N
+//   tiles) in clusters of (1, ranks, 1): the K ranges of one output tile
+//   are the ranks of one cluster (at most 8, the portable size), and M
+//   tiles on gridDim.x are not limited to 65535 (ranks x N tiles on
+//   gridDim.y is).  Each block sums its warps' partial tiles in its shared
+//   memory and pushes the sum into slot `rank` of rank 0's shared memory
+//   through DSMEM (cluster.map_shared_rank); after one cluster.sync() rank
+//   0 adds the slots in rank order and writes acc (and want) with plain
+//   stores.  Every thread arrives on the cluster barrier's first phase as
+//   the kernel starts and waits on it just before the first push, so no
+//   block writes into a rank that has not started.  No memset, no
+//   atomics: one call is one device op.  Rank 0 pulling the partials from
+//   the other ranks instead would need a round trip of remote loads and a
+//   second cluster barrier to keep their shared memory alive until read.
+//   Python's plan() (kernel.py) sizes the clusters so that a decode shape
+//   fills about one wave of 132 SMs (3 x 48 and 8 x 18 = 144 blocks).
+//
+//   The check vector stays independent of acc: want = X . w_check mod
+//   2^32, from the staged X rows and w_check in uint32 on the CUDA cores
+//   (w_check is int32).  Its rows are spread over the N tiles
+//   (check_rows each: one at M = 8), each rank of such a cluster sums its
+//   own K range with up to a warp of lanes per row, and the sums travel
+//   to rank 0 beside the partial tiles.  A check computed from acc could
+//   not catch a flip in it.
+//
+// The fused kernel, qmatmul_requant_kernel.  The first port's design, on
+// the CUDA cores: a grid of (N tiles of 64 columns, M tiles of 16 rows),
+// the whole K loop inside the block (128 rows of W per stage, every load
+// of a stage issued before use), W as 32-bit words of four neighbouring
+// columns transposed with __byte_perm into k-packed words so that one
+// __dp4a does four int8 MACs, 2 rows x 4 columns of int32 accumulators per
+// thread.  It requantises in registers, so int32 never reaches device
+// memory, and gives JAX's rounding bit for bit: int->float
+// round-to-nearest, a multiply that is never contracted into an FMA
+// (__fmul_rn), rintf (half to even), + out_zp, clamp to [-128, 127].  The
+// zero-point correction runs in uint32 (signed overflow is undefined in
+// C++).  It never splits K: the epilogue needs the whole sum.
+//
+// Each C entry returns a CUDA error code (0 on success): a plan it cannot
+// run, or cudaGetLastError() after its launch.
 
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
-
-constexpr int kBM = 16;                       // rows of X per block
-constexpr int kBN = 64;                       // columns of W per block
-constexpr int kBK = 128;                      // K per stage
-constexpr int kK4 = kBK / 4;                  // k-packed words per stage
-constexpr int kThreads = 128;
-constexpr int kColThreads = kBN / 4;          // 16 threads across columns
-constexpr int kCheckLanes = kThreads / kBM;   // 8 threads per check row
-constexpr int kSMs = 132;                     // H100 SXM
-
-enum Mode { kAcc = 0, kAccChecksum = 1, kRequant = 2 };
-
-struct Shape {
-  int m, k, n;
-};
 
 // Bytes b of the four words r0..r3 (rows k..k+3 of four neighbouring
 // columns) regrouped into one word per column: out[c] = {r0.c, r1.c, r2.c,
@@ -87,13 +126,453 @@ __device__ __forceinline__ void transpose4x4(int r0, int r1, int r2, int r3,
   out[3] = __byte_perm(t2, t3, 0x7632);
 }
 
+// ---------------------------------------------------------------------------
+// qmatmul_mma_kernel: rows 4 and 5
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;              // 8 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kTileN = 32;                    // W columns per block
+constexpr int kMaxTileM = 64;                 // X rows per block
+constexpr int kMaxKChunk = 256;               // K rows staged at once
+constexpr int kMaxCluster = 8;                // portable cluster size
+constexpr int kMaxSmem = 232448;              // 227 KB a block can take
+constexpr int kRedStride = kTileN + 4;        // words per partial-tile row
+
+enum Mode { kAcc = 0, kAccChecksum = 1 };
+
+// The launch plan from kernel.py's plan(): X rows per block, K rows per
+// cluster rank, K rows per staged chunk, ranks per cluster, blocks.
+struct Plan {
+  int tile_m, k_rank, k_chunk, cluster, grid;
+};
+
+// Byte offsets of the shared-memory regions (kernel.py's smem_bytes()
+// gives the same total).
+struct Layout {
+  int wraw, wt, wc, red, slots, want_slots, total;
+};
+
+struct Args {
+  const int8_t* x;
+  const int8_t* w;
+  const int32_t* w_check;
+  int32_t* acc;
+  int32_t* want;
+  int m, k, n;
+  int tile_m, k_rank, k_chunk;
+  int rw;                                     // words per staged X / W^T row
+  int ksplit_log;                             // log2 of the warps per row group
+  int check_rows;                             // check rows per N tile
+  int tpr_log;                                // log2 of the check's lanes per row
+  Layout L;                                   // X rows start at offset 0
+  bool x_vec, w_vec, wc_vec;                  // 16-byte cp.async allowed
+  bool acc_vec;                               // 16-byte stores allowed
+};
+
+// Words per staged row of k_chunk K bytes (a multiple of 32): 4 mod 8, so
+// that the 8 rows x 4 words of one fragment load fall in 32 banks.
+constexpr int row_words(int k_chunk) { return k_chunk / 4 + 4; }
+
+// Warps that split the K steps of one group of 8 X rows: the 8 warps
+// cover the tile_m / 8 groups (8, 4, 2, 2, 1, 1, 1, 1 for 1..8 groups).
+constexpr int k_split(int tile_m) { return kMmaWarps / (tile_m / 8); }
+
+// Each region starts where the one before it ends: X rows (at 0), then
+inline Layout layout(int tile_m, int k_chunk, int cluster) {
+  const int rw = row_words(k_chunk);
+  Layout s;
+  s.wraw = 4 * tile_m * rw;             // W rows, as copied
+  s.wt = s.wraw + kTileN * k_chunk;     // W^T rows of k-packed words
+  s.wc = s.wt + 4 * kTileN * rw;        // w_check
+  s.red = s.wc + 4 * k_chunk;           // the warps' partial tiles
+  s.slots = s.red + 4 * k_split(tile_m) * tile_m * kRedStride;  // rank 0's:
+  s.want_slots = s.slots + 4 * cluster * tile_m * kRedStride;   // the ranks'
+  s.total = s.want_slots + 4 * cluster * kMaxTileM;             // tiles, wants
+  return s;
+}
+
+constexpr int log2i(int v) { return v > 1 ? 1 + log2i(v / 2) : 0; }
+
+// Byte offset of staged W row k: four rows to a 128-byte line, row k in
+// the 32-byte slot (k + k/4) mod 4, so that rows 4i + j of four
+// consecutive i (one read of the transpose) sit in four different slots.
+__device__ __forceinline__ int wraw_offset(int k) {
+  return (k >> 2) * 128 + (((k + (k >> 2)) & 3) << 5);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes at dst (shared, 16-byte aligned): the len (0..16) bytes at src,
+// zero-filled after them.  vec: src is 16-byte aligned, one cp.async;
+// otherwise byte loads (src off a 16-byte boundary).  A src with len 0 is
+// never read.
+__device__ __forceinline__ void copy16(void* dst, const int8_t* src, int len,
+                                       bool vec) {
+  if (vec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(len)
+                 : "memory");
+    return;
+  }
+  uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (i < len) {
+      v[i / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + i)))
+                  << (8 * (i % 4));
+    }
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void mma_s8(uint32_t (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint4 add4(uint4 s, uint4 v) {
+  return make_uint4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kMmaThreads) qmatmul_mma_kernel(Args a) {
+  // Arrive on the cluster barrier's first phase at once; its wait, before
+  // the first store into rank 0's shared memory, guarantees that every
+  // rank has started.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* xs = reinterpret_cast<int*>(smem);
+  unsigned char* wraw = smem + a.L.wraw;
+  int* wt = reinterpret_cast<int*>(smem + a.L.wt);
+  int32_t* wcs = reinterpret_cast<int32_t*>(smem + a.L.wc);
+  uint32_t* red = reinterpret_cast<uint32_t*>(smem + a.L.red);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(smem + a.L.slots);
+  uint32_t* want_slots = reinterpret_cast<uint32_t*>(smem + a.L.want_slots);
+
+  // grid (M tiles, ranks x N tiles), clusters of (1, ranks, 1)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = static_cast<int>(cluster.dim_blocks().y);
+  const int rank = static_cast<int>(cluster.block_index().y);
+  int n_tile;
+  asm("mov.u32 %0, %%clusterid.y;" : "=r"(n_tile));
+  const int n0 = n_tile * kTileN;
+  const int m0 = blockIdx.x * a.tile_m;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;                     // the mma's groupID
+  const int t4 = lane % 4;                    // its threadID_in_group
+  const int rw = a.rw;
+  // the check's rows: check_rows of the tile's rows per N tile
+  const int c_lo = min(a.tile_m, n_tile * a.check_rows);
+  const int c_hi = min(a.tile_m, c_lo + a.check_rows);
+  const bool check = kMode == kAccChecksum && c_lo < c_hi;
+  const int k_begin = min(a.k, rank * a.k_rank);
+  const int k_end = min(a.k, k_begin + a.k_rank);
+  // warp (jg, kp): rows 8 jg .. 8 jg + 7, K steps kp, kp + ksplit, ...
+  const int ksplit = 1 << a.ksplit_log;
+  const int jg = warp >> a.ksplit_log;
+  const int kp = warp & (ksplit - 1);
+  // the check: tpr neighbouring lanes per row split its K words
+  const int tpr = 1 << a.tpr_log;
+  const int check_row = c_lo + (tid >> a.tpr_log);
+  const int check_part = tid & (tpr - 1);
+
+  uint32_t acc[2][4] = {};                    // [16-column half][fragment]
+  uint32_t want = 0;
+
+  for (int kb = k_begin; kb < k_end; kb += a.k_chunk) {
+    const int ke = min(k_end, kb + a.k_chunk);
+    const int steps = (ke - kb + 31) / 32;     // 32-deep mma steps
+    const int kw = 8 * steps;                   // staged words per row
+    // X: 16 threads per row, a 16-byte piece each
+#pragma unroll
+    for (int i = 0; i < kMaxTileM / (kMmaThreads / 16); ++i) {
+      const int r = tid / 16 + i * (kMmaThreads / 16);
+      const int c = tid % 16;
+      if (r < a.tile_m && c < 2 * steps) {
+        const int k = kb + 16 * c;
+        const int len = m0 + r < a.m ? max(0, min(16, ke - k)) : 0;
+        copy16(xs + r * rw + 4 * c,
+               len ? a.x + static_cast<size_t>(m0 + r) * a.k + k : a.x, len,
+               a.x_vec);
+      }
+    }
+    // W: the 32 columns of a row in two 16-byte pieces
+#pragma unroll
+    for (int i = 0; i < 2 * kMaxKChunk / kMmaThreads; ++i) {
+      const int e = tid + i * kMmaThreads;
+      const int kk = e / 2;
+      if (kk < 32 * steps) {
+        const int col = n0 + 16 * (e % 2);
+        const int len = kb + kk < ke ? max(0, min(16, a.n - col)) : 0;
+        copy16(wraw + wraw_offset(kk) + 16 * (e % 2),
+               len ? a.w + static_cast<size_t>(kb + kk) * a.n + col : a.w,
+               len, a.w_vec);
+      }
+    }
+    if (check && tid < kw) {  // w_check, 4 values a piece
+      const int k = kb + 4 * tid;
+      const int len = 4 * max(0, min(4, ke - k));
+      copy16(wcs + 4 * tid,
+             reinterpret_cast<const int8_t*>(len ? a.w_check + k
+                                                 : a.w_check),
+             len, a.wc_vec);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                     : "memory");
+    __syncthreads();
+
+    // W^T: thread (q, k4) turns rows 4 k4 .. 4 k4 + 3 of columns 4q .. 4q +
+    // 3 into one k-packed word per column
+#pragma unroll
+    for (int i = 0; i < 8 * kMaxKChunk / 4 / kMmaThreads; ++i) {
+      const int e = tid + i * kMmaThreads;
+      const int q = e % 8;
+      const int k4 = e / 8;
+      if (k4 < kw) {
+        int r[4], cols[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          r[j] = *reinterpret_cast<const int*>(wraw + wraw_offset(4 * k4 + j)
+                                               + 4 * q);
+        }
+        transpose4x4(r[0], r[1], r[2], r[3], cols);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wt[(4 * q + c) * rw + k4] = cols[c];
+      }
+    }
+    if (check && check_row < c_hi) {
+      for (int k4 = check_part; k4 < kw; k4 += tpr) {
+        const int xw = xs[check_row * rw + k4];
+        const int4 cv = *reinterpret_cast<const int4*>(wcs + 4 * k4);
+        const int c4[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int xv = static_cast<int8_t>(xw >> (8 * b));
+          want += static_cast<uint32_t>(xv) * static_cast<uint32_t>(c4[b]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // A: W^T rows 16h + g (+ 8), words t4 (+ 4) of the step; B: X row
+    // 8 jg + g, the same words
+    if (8 * jg < a.tile_m) {
+      for (int st = kp; st < steps; st += ksplit) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int* c0 = wt + (16 * h + g) * rw + 8 * st + t4;
+          const int* c8 = c0 + 8 * rw;
+          af[h][0] = c0[0];
+          af[h][1] = c8[0];
+          af[h][2] = c0[4];
+          af[h][3] = c8[4];
+        }
+        const int* xr = xs + (8 * jg + g) * rw + 8 * st + t4;
+        const uint32_t b0 = xr[0];
+        const uint32_t b1 = xr[4];
+        mma_s8(acc[0], af[0], b0, b1);
+        mma_s8(acc[1], af[1], b0, b1);
+      }
+    }
+    if (kb + a.k_chunk < k_end) __syncthreads();  // the next chunk restages
+  }
+
+  // The warp's partial C^T as 8 rows of X in slot kp (element c of half h
+  // is column 16h + g + 8(c / 2), row 2 t4 + c % 2 of the group).
+  if (8 * jg < a.tile_m) {
+    uint32_t* mine = red + (kp * a.tile_m + 8 * jg) * kRedStride;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        mine[(2 * t4 + (c & 1)) * kRedStride + 16 * h + g + 8 * (c >> 1)] =
+            acc[h][c];
+      }
+    }
+  }
+  if (check) {
+    for (int off = tpr / 2; off > 0; off /= 2) {
+      want += __shfl_xor_sync(0xffffffffu, want, off);
+    }
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (check && check_row < c_hi && check_part == 0) {
+    cluster.map_shared_rank(want_slots, 0)[rank * kMaxTileM + check_row] =
+        want;
+  }
+  __syncthreads();
+  // The block's partial tile, the sum of its K splits, pushed into slot
+  // `rank` of rank 0's shared memory through DSMEM, 4 columns at a time.
+  const int groups = a.tile_m * (kTileN / 4);
+  uint32_t* slot =
+      cluster.map_shared_rank(slots, 0) + rank * a.tile_m * kRedStride;
+  for (int e = tid; e < groups; e += kMmaThreads) {
+    const int i = (e / (kTileN / 4)) * kRedStride + 4 * (e % (kTileN / 4));
+    uint4 v[kMmaWarps];
+#pragma unroll
+    for (int q = 0; q < kMmaWarps; ++q) {
+      if (q < ksplit) {
+        v[q] = *reinterpret_cast<const uint4*>(red + q * a.tile_m * kRedStride
+                                               + i);
+      }
+    }
+    uint4 s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMmaWarps; ++q) {
+      if (q < ksplit) s = add4(s, v[q]);
+    }
+    *reinterpret_cast<uint4*>(slot + i) = s;
+  }
+  cluster.sync();  // every push has landed in rank 0
+  if (rank != 0) return;
+
+  // Rank 0 sums the slots in rank order and stores the tile and want.
+  for (int e = tid; e < groups; e += kMmaThreads) {
+    const int r = e / (kTileN / 4);
+    const int c = 4 * (e % (kTileN / 4));
+    uint4 v[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < ranks) {
+        v[q] = *reinterpret_cast<const uint4*>(
+            slots + (q * a.tile_m + r) * kRedStride + c);
+      }
+    }
+    uint4 s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) {
+      if (q < ranks) s = add4(s, v[q]);
+    }
+    if (m0 + r < a.m) {
+      int32_t* out = a.acc + static_cast<size_t>(m0 + r) * a.n + n0 + c;
+      if (a.acc_vec && n0 + c + 4 <= a.n) {
+        *reinterpret_cast<uint4*>(out) = s;
+      } else {
+        const uint32_t sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (n0 + c + i < a.n) out[i] = static_cast<int32_t>(sv[i]);
+        }
+      }
+    }
+  }
+  const int r = c_lo + tid;
+  if (check && r < c_hi && m0 + r < a.m) {
+    uint32_t v[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < ranks) v[q] = want_slots[q * kMaxTileM + r];
+    }
+    uint32_t s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) {
+      if (q < ranks) s += v[q];
+    }
+    a.want[m0 + r] = static_cast<int32_t>(s);
+  }
+}
+
+template <int kMode>
+int launch_mma(const void* x, const void* w, const void* w_check, void* acc,
+               void* want, int m, int k, int n, Plan p, void* stream) {
+  if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const long long n_tiles = (n + kTileN - 1) / kTileN;
+  const long long m_tiles = p.tile_m > 0 ? (m + p.tile_m - 1) / p.tile_m : 0;
+  if (p.tile_m < 8 || p.tile_m > kMaxTileM || p.tile_m % 8 != 0
+      || p.k_chunk < 32 || p.k_chunk > kMaxKChunk || p.k_chunk % 32 != 0
+      || p.k_rank < 32 || p.k_rank % 32 != 0 || p.cluster < 1
+      || p.cluster > kMaxCluster
+      || static_cast<long long>(p.cluster) * p.k_rank < k
+      || static_cast<long long>(p.grid) != p.cluster * n_tiles * m_tiles
+      || p.cluster * n_tiles > 65535 || m_tiles > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Layout L = layout(p.tile_m, p.k_chunk, p.cluster);
+  if (L.total > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (L.total > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_mma_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L.total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  Args a;
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.w_check = static_cast<const int32_t*>(w_check);
+  a.acc = static_cast<int32_t*>(acc);
+  a.want = static_cast<int32_t*>(want);
+  a.m = m;
+  a.k = k;
+  a.n = n;
+  a.tile_m = p.tile_m;
+  a.k_rank = p.k_rank;
+  a.k_chunk = p.k_chunk;
+  a.rw = row_words(p.k_chunk);
+  a.ksplit_log = log2i(k_split(p.tile_m));
+  // the check's rows spread over the N tiles, and over the largest power
+  // of 2 of lanes per row (at most a warp) that the block's threads cover
+  a.check_rows = static_cast<int>((p.tile_m + n_tiles - 1) / n_tiles);
+  int tpr = 32;
+  while (tpr * a.check_rows > kMmaThreads) tpr /= 2;
+  a.tpr_log = log2i(tpr);
+  a.L = L;
+  // 16-byte copies need 16-byte aligned rows
+  a.x_vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.w_vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  a.wc_vec = reinterpret_cast<uintptr_t>(w_check) % 16 == 0;
+  a.acc_vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = static_cast<unsigned>(p.cluster);
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(m_tiles),
+                     static_cast<unsigned>(p.cluster * n_tiles));
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(L.total);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, qmatmul_mma_kernel<kMode>, a);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// ---------------------------------------------------------------------------
+// qmatmul_requant_kernel: row 6
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
+constexpr int kBM = 16;                       // rows of X per block
+constexpr int kBN = 64;                       // columns of W per block
+constexpr int kBK = 128;                      // K per stage
+constexpr int kK4 = kBK / 4;                  // k-packed words per stage
+constexpr int kColThreads = kBN / 4;          // 16 threads across columns
+
+struct Shape {
+  int m, k, n;
+};
+
 __device__ __forceinline__ uint32_t byte_at(const int8_t* p, size_t i) {
   return static_cast<uint32_t>(static_cast<uint8_t>(p[i]));
 }
 
 // One stage's loads, issued together before any of them is used: 4 words
 // of X and 4 x 4 words of W per thread, zero-filled outside [0, M) x
-// [k0, k_end) x [0, N).
+// [k0, K) x [0, N).
 struct Stage {
   int x[4];
   int w[4][4];
@@ -102,7 +581,7 @@ struct Stage {
 __device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__ x,
                                            const int8_t* __restrict__ w,
                                            const Shape& s, int m0, int n0, int k0,
-                                           int k_end, bool x_words, bool w_words) {
+                                           bool x_words, bool w_words) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {  // X: kBM rows x kK4 words, as X lies in memory
@@ -110,14 +589,14 @@ __device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__
     const int m = m0 + e / kK4;
     const int k = k0 + 4 * (e % kK4);
     uint32_t v = 0;
-    if (m < s.m && k < k_end) {
+    if (m < s.m && k < s.k) {
       const size_t base = static_cast<size_t>(m) * s.k + k;
-      if (x_words && k + 4 <= k_end) {
+      if (x_words && k + 4 <= s.k) {
         v = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(x + base)));
       } else {
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          if (k + b < k_end) v |= byte_at(x, base + b) << (8 * b);
+          if (k + b < s.k) v |= byte_at(x, base + b) << (8 * b);
         }
       }
     }
@@ -131,7 +610,7 @@ __device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       uint32_t v = 0;
-      if (n < s.n && k + j < k_end) {
+      if (n < s.n && k + j < s.k) {
         const size_t base = static_cast<size_t>(k + j) * s.n + n;
         if (w_words) {
           v = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(w + base)));
@@ -147,40 +626,29 @@ __device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__
   }
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-               const int32_t* __restrict__ w_check,
-               const int32_t* __restrict__ colsum,
-               const int32_t* __restrict__ bias,
-               const float* __restrict__ scale,
-               const int32_t* __restrict__ zps,
-               int32_t* __restrict__ acc_out, int32_t* __restrict__ want_out,
-               int8_t* __restrict__ q_out, Shape s, int k_split, bool x_words,
-               bool w_words) {
+qmatmul_requant_kernel(const int8_t* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const int32_t* __restrict__ colsum,
+                       const int32_t* __restrict__ bias,
+                       const float* __restrict__ scale,
+                       const int32_t* __restrict__ zps,
+                       int8_t* __restrict__ q_out, Shape s, bool x_words,
+                       bool w_words) {
   __shared__ int x_s[kBM][kK4 + 1];
   __shared__ __align__(16) int w_s[kK4][kBN];
-  __shared__ int wc_s[kBK];
 
   const int tid = threadIdx.x;
   const int tx = tid % kColThreads;
   const int ty = tid / kColThreads;
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  // split K: block z sums K rows [k_begin, k_end) and adds into the output
-  const int k_begin = blockIdx.z * k_split;
-  const int k_end = min(s.k, k_begin + k_split);
-  const bool split = gridDim.z > 1;
-  const bool check = kMode == kAccChecksum && blockIdx.x == 0;
-  const int check_row = tid / kCheckLanes;
-  const int check_part = tid % kCheckLanes;
 
   int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-  uint32_t want = 0;
   Stage st;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    load_stage(st, x, w, s, m0, n0, k0, k_end, x_words, w_words);
+  for (int k0 = 0; k0 < s.k; k0 += kBK) {
+    load_stage(st, x, w, s, m0, n0, k0, x_words, w_words);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int e = tid + i * kThreads;
@@ -191,11 +659,6 @@ qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       transpose4x4(st.w[i][0], st.w[i][1], st.w[i][2], st.w[i][3], cols);
 #pragma unroll
       for (int c = 0; c < 4; ++c) w_s[k4][4 * q + c] = cols[c];
-    }
-    if (check) {
-      for (int e = tid; e < kBK; e += kThreads) {
-        wc_s[e] = k0 + e < k_end ? w_check[k0 + e] : 0;
-      }
     }
     __syncthreads();
 
@@ -213,38 +676,11 @@ qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       acc[1][2] = __dp4a(xb, wv.z, acc[1][2]);
       acc[1][3] = __dp4a(xb, wv.w, acc[1][3]);
     }
-    if (check) {
-      constexpr int kPer = kBK / kCheckLanes;
-      for (int kk = check_part * kPer; kk < (check_part + 1) * kPer; ++kk) {
-        const int xv = static_cast<int8_t>(
-            static_cast<uint32_t>(x_s[check_row][kk / 4]) >> (8 * (kk % 4)));
-        want += static_cast<uint32_t>(xv) * static_cast<uint32_t>(wc_s[kk]);
-      }
-    }
     __syncthreads();
   }
 
-  if (check) {
-    // the 8 lanes of one row are neighbours in one warp
-    for (int off = kCheckLanes / 2; off > 0; off /= 2) {
-      want += __shfl_down_sync(0xffffffffu, want, off, kCheckLanes);
-    }
-    const int m = m0 + check_row;
-    if (check_part == 0 && m < s.m) {
-      if (split) {
-        atomicAdd(reinterpret_cast<unsigned int*>(want_out + m), want);
-      } else {
-        want_out[m] = static_cast<int>(want);
-      }
-    }
-  }
-
-  uint32_t x_zp = 0;
-  float out_zp = 0.0f;
-  if (kMode == kRequant) {
-    x_zp = static_cast<uint32_t>(zps[0]);
-    out_zp = static_cast<float>(zps[1]);
-  }
+  const uint32_t x_zp = static_cast<uint32_t>(zps[0]);
+  const float out_zp = static_cast<float>(zps[1]);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int m = m0 + 2 * ty + i;
@@ -254,64 +690,15 @@ qmatmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + 4 * tx + j;
       if (n >= s.n) continue;
-      if (kMode == kRequant) {
-        const uint32_t a = static_cast<uint32_t>(acc[i][j])
-                           - x_zp * static_cast<uint32_t>(colsum[n])
-                           + static_cast<uint32_t>(bias[n]);
-        float y = __fmul_rn(__int2float_rn(static_cast<int>(a)), scale[n]);
-        y = __fadd_rn(rintf(y), out_zp);
-        y = fminf(fmaxf(y, -128.0f), 127.0f);
-        q_out[row + n] = static_cast<int8_t>(y);
-      } else if (split) {
-        atomicAdd(reinterpret_cast<unsigned int*>(acc_out + row + n),
-                  static_cast<unsigned int>(acc[i][j]));
-      } else {
-        acc_out[row + n] = acc[i][j];
-      }
+      const uint32_t a = static_cast<uint32_t>(acc[i][j])
+                         - x_zp * static_cast<uint32_t>(colsum[n])
+                         + static_cast<uint32_t>(bias[n]);
+      float y = __fmul_rn(__int2float_rn(static_cast<int>(a)), scale[n]);
+      y = __fadd_rn(rintf(y), out_zp);
+      y = fminf(fmaxf(y, -128.0f), 127.0f);
+      q_out[row + n] = static_cast<int8_t>(y);
     }
   }
-}
-
-template <int kMode>
-int launch(const void* x, const void* w, const void* w_check,
-           const void* colsum, const void* bias, const void* scale,
-           const void* zps, void* acc_out, void* want_out, void* q_out,
-           Shape s, void* stream) {
-  if (s.m == 0 || s.n == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (s.n + kBN - 1) / kBN;
-  const int m_tiles = (s.m + kBM - 1) / kBM;
-  // Split K over blocks until about two blocks per SM are in flight; each
-  // split is whole stages.  The requantising kernel needs the full sum in
-  // one block, so it never splits.
-  const int stages = std::max(1, (s.k + kBK - 1) / kBK);
-  int splits = 1;
-  if (kMode != kRequant) {
-    const int tiles = n_tiles * m_tiles;
-    splits = std::min(stages, std::max(1, (2 * kSMs + tiles - 1) / tiles));
-  }
-  const int k_split = ((stages + splits - 1) / splits) * kBK;
-  splits = std::max(1, (s.k + k_split - 1) / k_split);
-  if (splits > 1) {  // the blocks add into zeroed outputs
-    cudaError_t err = cudaMemsetAsync(acc_out, 0, sizeof(int32_t) * s.m * s.n, st);
-    if (err == cudaSuccess && kMode == kAccChecksum) {
-      err = cudaMemsetAsync(want_out, 0, sizeof(int32_t) * s.m, st);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned>(n_tiles), static_cast<unsigned>(m_tiles),
-                  static_cast<unsigned>(splits));
-  // 32-bit loads need 4-byte aligned rows
-  const bool x_words = s.k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  const bool w_words = s.n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  qmatmul_kernel<kMode><<<grid, kThreads, 0, st>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(w_check), static_cast<const int32_t*>(colsum),
-      static_cast<const int32_t*>(bias), static_cast<const float*>(scale),
-      static_cast<const int32_t*>(zps), static_cast<int32_t*>(acc_out),
-      static_cast<int32_t*>(want_out), static_cast<int8_t*>(q_out), s, k_split,
-      x_words, w_words);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -319,24 +706,39 @@ int launch(const void* x, const void* w, const void* w_check,
 extern "C" {
 
 int qmatmul_acc_launch(const void* x, const void* w, void* out, int m, int k,
-                       int n, void* stream) {
-  return launch<kAcc>(x, w, nullptr, nullptr, nullptr, nullptr, nullptr, out,
-                      nullptr, nullptr, Shape{m, k, n}, stream);
+                       int n, int tile_m, int k_rank, int k_chunk,
+                       int cluster, int grid, void* stream) {
+  return launch_mma<kAcc>(x, w, nullptr, out, nullptr, m, k, n,
+                          Plan{tile_m, k_rank, k_chunk, cluster, grid},
+                          stream);
 }
 
 int qmatmul_acc_checksum_launch(const void* x, const void* w,
                                 const void* w_check, void* out, void* want,
-                                int m, int k, int n, void* stream) {
-  return launch<kAccChecksum>(x, w, w_check, nullptr, nullptr, nullptr,
-                              nullptr, out, want, nullptr, Shape{m, k, n},
-                              stream);
+                                int m, int k, int n, int tile_m, int k_rank,
+                                int k_chunk, int cluster, int grid,
+                                void* stream) {
+  return launch_mma<kAccChecksum>(x, w, w_check, out, want, m, k, n,
+                                  Plan{tile_m, k_rank, k_chunk, cluster, grid},
+                                  stream);
 }
 
 int qmatmul_launch(const void* x, const void* w, const void* colsum,
                    const void* bias, const void* scale, const void* zps,
                    void* out, int m, int k, int n, void* stream) {
-  return launch<kRequant>(x, w, nullptr, colsum, bias, scale, zps, nullptr,
-                          nullptr, out, Shape{m, k, n}, stream);
+  if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
+                  static_cast<unsigned>((m + kBM - 1) / kBM));
+  // 32-bit loads need 4-byte aligned rows
+  const bool x_words = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const bool w_words = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  qmatmul_requant_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const int32_t*>(colsum), static_cast<const int32_t*>(bias),
+      static_cast<const float*>(scale), static_cast<const int32_t*>(zps),
+      static_cast<int8_t*>(out), Shape{m, k, n}, x_words, w_words);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

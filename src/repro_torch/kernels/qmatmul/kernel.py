@@ -2,7 +2,9 @@
 
 CUDA C++ for ``sm_90a`` in ``csrc/qmatmul.cu`` (the source's header says
 which TPU kernel each replaces, what bounds it and what its design does
-about that), built and bound by ``kernels/cuda_lib.py``.
+about that), built and bound by ``kernels/cuda_lib.py``.  The two
+accumulator kernels run on one tensor-core template launched as thread
+block clusters; ``plan`` picks its tiles, K split and grid per shape.
 
 Each wrapper checks dtypes, shapes and contiguity, then:
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import functools
 import pathlib
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,12 +28,76 @@ from repro_torch.kernels.cuda_lib import I as _I, P as _P
 from repro_torch.kernels.qmatmul import ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "qmatmul.cu"
-_SHAPE = [_I] * 3 + [_P]          # m k n, stream
+_SHAPE = [_I] * 3                 # m k n
+_PLAN = [_I] * 5                  # tile_m k_rank k_chunk cluster grid
 _ENTRIES = {
-    "qmatmul_acc_launch": [_P] * 3 + _SHAPE,
-    "qmatmul_acc_checksum_launch": [_P] * 5 + _SHAPE,
-    "qmatmul_launch": [_P] * 7 + _SHAPE,
+    "qmatmul_acc_launch": [_P] * 3 + _SHAPE + _PLAN + [_P],
+    "qmatmul_acc_checksum_launch": [_P] * 5 + _SHAPE + _PLAN + [_P],
+    "qmatmul_launch": [_P] * 7 + _SHAPE + [_P],
 }
+# The accumulator kernel's constants (qmatmul.cu) and the card's.
+TILE_N = 32                       # W columns per block
+MAX_TILE_M = 64                   # X rows per block
+K_STEP = 32                       # K of one mma
+MAX_K_CHUNK = 256                 # K rows staged at once
+MAX_CLUSTER = 8                   # portable cluster size
+MAX_SLOT_ROWS = 384               # partial-tile rows rank 0 sums (6 ranks
+                                  # at 64 rows; sweep.py times every
+                                  # cluster size)
+MAX_SMEM = 232448                 # 227 KB a block can take
+SMS = 132                         # H100 SXM
+_WARPS = 8
+
+
+class Plan(NamedTuple):
+    """The accumulator kernel's launch: X rows per block tile, K rows per
+    cluster rank, K rows per staged chunk, ranks per cluster, blocks."""
+
+    tile_m: int
+    k_rank: int
+    k_chunk: int
+    cluster: int
+    grid: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(tile_m: int, k_chunk: int, cluster: int) -> int:
+    """Dynamic shared memory of one block (``layout`` in qmatmul.cu): X
+    rows and W^T rows padded to k_chunk/4 + 4 words, W rows as copied,
+    w_check, the warps' partial tiles (32 + 4 words a row), and the
+    cluster's partial tiles and wants that rank 0 sums."""
+    row = 4 * (k_chunk // 4 + 4)
+    k_split = _WARPS // (tile_m // 8)
+    return ((tile_m + TILE_N) * row + TILE_N * k_chunk + 4 * k_chunk
+            + 4 * (k_split + cluster) * tile_m * (TILE_N + 4)
+            + 4 * cluster * MAX_TILE_M)
+
+
+def _tile_m(m: int) -> int:
+    return min(MAX_TILE_M, max(8, 8 * _cdiv(m, 8)))
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int, ranks: int | None = None) -> Plan:
+    """Tiles of 32 columns by up to 64 rows; each tile's K split, in whole
+    32-deep steps, over the ranks of one cluster: ``ranks`` of them, or by
+    default as many as fill about one wave of the card's SMs (at most 8,
+    and at most 384 partial rows for rank 0 to sum); fewer where a rank
+    would have no step."""
+    tile_m = _tile_m(m)
+    tiles = _cdiv(n, TILE_N) * _cdiv(m, tile_m)
+    if ranks is None:
+        ranks = min(MAX_CLUSTER, MAX_SLOT_ROWS // tile_m,
+                    _cdiv(SMS, max(1, tiles)))
+    steps = max(1, _cdiv(k, K_STEP))
+    per_rank = _cdiv(steps, min(ranks, steps))
+    cluster = _cdiv(steps, per_rank)
+    k_rank = K_STEP * per_rank
+    return Plan(tile_m, k_rank, min(k_rank, MAX_K_CHUNK), cluster,
+                cluster * tiles)
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -70,7 +136,7 @@ def qmatmul_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
         return ref.qmatmul_acc_plain(x_q, w_q)
     out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
     _launch("qmatmul_acc_launch", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
-            out.data_ptr(), m, k, n)
+            out.data_ptr(), m, k, n, *plan(m, k, n))
     qmatmul_acc.launches += 1
     return out
 
@@ -89,7 +155,7 @@ def qmatmul_acc_checksum(x_q: torch.Tensor, w_q: torch.Tensor,
     want = torch.empty((m,), dtype=torch.int32, device=x_q.device)
     _launch("qmatmul_acc_checksum_launch", x_q.device, x_q.data_ptr(),
             w_q.data_ptr(), w_check.data_ptr(), out.data_ptr(),
-            want.data_ptr(), m, k, n)
+            want.data_ptr(), m, k, n, *plan(m, k, n))
     qmatmul_acc_checksum.launches += 1
     return out, want
 
