@@ -8,10 +8,14 @@ Phases, each of which raises on failure:
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the qconv2d, qmatmul, flashattn and flashattn backward kernels
    from their ``csrc/`` sources, one ``nvcc`` each, all started together;
-3. hold each conv kernel ``torch.equal`` to its plain version on the card,
-   at all 8 ``network_specs(194)`` layer shapes (N = 2), a ragged Cout
-   tail, a stride (2, 1) case, non-zero zero points, a check channel that
-   wraps mod 2^32 and 48 seeded random geometries;
+3. hold each conv kernel ``torch.equal`` to its plain version on the card
+   (and the check channel equal to the Cout-sum of acc), at all 8
+   ``network_specs(194)`` layer shapes (N = 2), a ragged Cout tail, a
+   stride (2, 1) case, non-zero zero points, a check channel that wraps mod
+   2^32, the accumulator kernels' edges (Cin 1, 3, 5; x_p off a 16-byte
+   boundary by 1, 4 and 8 bytes; Cout 6 and 100; a 5x5x600 conv, which the
+   fused kernel refuses at launch; 1 to 200 pixels at 24 and 48 channels)
+   and 48 seeded random geometries;
 4. slice 1: ``shipdet.forward`` at ``network_specs(194)`` on 4 frames
    under the fused NONE path and, on the ``cuda`` backend, NONE, ABFT, CKPT
    (deploy checks + golden weights), DMR and TMR; all bit-identical to each
@@ -67,15 +71,18 @@ Phases, each of which raises on failure:
 11. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
-   ``torch._int_mm`` on rows padded to M = 32 for the accumulator, and a
-   decode step's 90 FFN calls over distinct, L2-cold weights), the
+   ``torch._int_mm`` on rows padded to M = 32 for the matmul accumulator,
+   an f32 ``F.conv2d`` with TF32 off on the same integer values for the
+   conv accumulators, and a decode step's 90 FFN calls over distinct,
+   L2-cold weights), the
    forward's frames/s per policy, decode ms/step, tokens/s and prefill ms
    per map, flash and chunked prefill ms at S = 64, 256, 1024, train step
    ms and tokens/s; then, under torch.profiler, the device busy time and
    idle share of the forward, of decode steps, of a flash prefill and of a
    train step, and each kernel call's device time (the backward's dQ and
-   dK/dV kernels apart; each call of the accumulator kernels exactly one
-   device op, their cluster kernel, and ``torch._int_mm``'s beside them).
+   dK/dV kernels apart; each call of the conv kernels and of the matmul
+   accumulator kernels exactly one device op, the row's kernel;
+   ``torch._int_mm``'s and cuDNN's beside them).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -119,6 +126,11 @@ REPLACES = {
     "qconv2d_acc": "src/repro/kernels/qconv2d/kernel.py:128",
     "qconv2d_acc_checksum": "src/repro/kernels/qconv2d/kernel.py:163",
     "qconv2d": "src/repro/kernels/qconv2d/kernel.py:211",
+}
+CONV_OPS = {                       # each row's device op, by name
+    "qconv2d_acc": "qconv2d_mma_kernel<0",
+    "qconv2d_acc_checksum": "qconv2d_mma_kernel<1",
+    "qconv2d": "qconv2d_requant_kernel",
 }
 MATMUL_REPLACES = {
     "qmatmul_acc": "src/repro/kernels/qmatmul/kernel.py:138",
@@ -343,24 +355,81 @@ def _random_case(gen, seed) -> Case:
                 out_zp=rng.randint(-128, 127))
 
 
+def _offset_view(t, offset):
+    """A contiguous copy of the int8 ``t`` that starts ``offset`` bytes past
+    a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=torch.int8, device=t.device)
+    v = buf[offset:offset + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def conv_edge_cases(gen):
+    """Geometries the accumulator kernels' design must survive: Cin of 1, 3
+    and 5 (runs of x cut into words from any address), x_p off a 16-byte
+    boundary by 1, 4 and 8 bytes (words cut, 4- and 8-byte loads at Cin =
+    48), Cout 6 and 100 (a part-empty n tile, a 4-channel Cout tile),
+    5x5x600 convs whose B (K = 15,040 bytes) does not fit a block's shared
+    memory whole and is staged in pieces (rows 1 and 2 of PR 18's tree
+    refused them at launch): one of a single pixel tile, and one of more
+    pixel tiles than the card holds blocks at once, so that every block
+    restages B's pieces between its barriers for several tiles; and pixel
+    counts off every tile multiple (1 to 200 pixels at 24 and 48 channels).
+    Each with the kernels it runs: the fused kernel (row 3) stages K whole
+    and refuses the 5x5x600 convs at launch."""
+    from repro_torch.kernels.qconv2d import kernel as CK
+    acc_rows = ("qconv2d_acc", "qconv2d_acc_checksum")
+    # at most this many blocks of the plan's shared memory per SM of an
+    # H100 (228 KB an SM, 1 KB of it kept per block)
+    p = CK.plan(2, 200, 200, 600, 5, 5, 24)
+    per_sm = 233472 // (CK.smem_bytes(p.bt_k) + 1024)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if not (p.bt_k < CK.k_padded(5, 5, 600) and p.tiles > per_sm * sms):
+        raise AssertionError(f"k_5x5x600_tiles: plan {p} does not walk more "
+                             f"tiles than {per_sm} x {sms} blocks")
+    cases = [(f"cin_{c}", Case(gen, 2, 15, 13, c, 24, 3, 3, (1, 1), "SAME"),
+              tuple(REPLACES)) for c in (1, 3, 5)]
+    for off in (1, 4, 8):
+        case = Case(gen, 2, 11, 12, 48, 48, 3, 3, (1, 1), "SAME")
+        case.x_p = _offset_view(case.x_p, off)
+        cases.append((f"x_offset_{off}", case, tuple(REPLACES)))
+    cases += [(f"cout_{c}", Case(gen, 2, 13, 13, 96, c, 1, 1, (1, 1),
+                                 "SAME"), tuple(REPLACES)) for c in (6, 100)]
+    cases.append(("k_5x5x600", Case(gen, 1, 9, 10, 600, 40, 5, 5, (1, 1),
+                                    "SAME"), acc_rows))
+    cases.append(("k_5x5x600_tiles", Case(gen, 2, 200, 200, 600, 24, 5, 5,
+                                          (1, 1), "SAME"), acc_rows))
+    cases += [(f"pixels_{p}_cout_{c}", Case(gen, 1, 1, p, 24, c, 1, 1,
+                                            (1, 1), "VALID"), tuple(REPLACES))
+              for p in (1, 63, 65, 127, 129, 200) for c in (24, 48)]
+    return cases
+
+
 def phase_compare(specs, gen) -> dict:
     from repro_torch.core.abft import channel_checksum
+    every = tuple(REPLACES)
     cases = [(s.name, Case(gen, 2, h, h, s.cin, s.cout, s.kh, s.kw,
-                           (s.stride, s.stride), "SAME"))
+                           (s.stride, s.stride), "SAME"), every)
              for s, h in zip(specs, main_path_sides(specs)[0])]
     cases += [
-        ("ragged_cout", Case(gen, 2, 13, 11, 10, 70, 3, 3, (1, 1), "SAME")),
-        ("stride_2x1", Case(gen, 2, 17, 19, 8, 16, 5, 3, (2, 1), "VALID")),
+        ("ragged_cout", Case(gen, 2, 13, 11, 10, 70, 3, 3, (1, 1), "SAME"),
+         every),
+        ("stride_2x1", Case(gen, 2, 17, 19, 8, 16, 5, 3, (2, 1), "VALID"),
+         every),
         ("zero_points", Case(gen, 1, 21, 21, 24, 40, 3, 3, (2, 2), "SAME",
-                             x_zp=-77, out_zp=53)),
+                             x_zp=-77, out_zp=53), every),
         ("check_wraps", Case(gen, 1, 6, 6, 96, 96, 3, 3, (1, 1), "VALID",
-                             x_zp=127, out_zp=0, x_fill=-128, w_fill=127)),
+                             x_zp=127, out_zp=0, x_fill=-128, w_fill=127),
+         every),
     ]
-    cases += [(f"random_{i}", _random_case(gen, i))
+    cases += conv_edge_cases(gen)
+    cases += [(f"random_{i}", _random_case(gen, i), every)
               for i in range(RANDOM_CASES)]
     max_err = {name: 0 for name in REPLACES}
-    for label, case in cases:
+    for label, case, names in cases:
         for name, (kern, plain) in _kernels().items():
+            if name not in names:
+                continue
             got = kern(*case.args(name), stride=case.stride)
             torch.cuda.synchronize()
             want = plain(*case.args(name), stride=case.stride)
@@ -368,8 +437,10 @@ def phase_compare(specs, gen) -> dict:
             if name == "qconv2d_acc_checksum" and not torch.equal(
                     channel_checksum(got[0]), got[1]):
                 raise AssertionError(f"{label}: check channel != Cout-sum")
-    print(f"compare: {len(cases)} cases x 3 kernels torch.equal to the "
-          f"plain versions on the card")
+    fused = sum("qconv2d" in names for _, _, names in cases)
+    print(f"compare: {len(cases)} cases of rows 1 and 2 ({fused} "
+          f"of row 3) torch.equal to the plain versions on the card, want "
+          f"== the Cout-sum of acc")
     return max_err
 
 
@@ -462,7 +533,7 @@ def _time_ms(fn, reps, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps, match="qconv2d_kernel") -> float | None:
+def _device_ms(fn, reps, match) -> float | None:
     """Mean device time of the kernels ``fn`` launches whose name holds
     ``match`` (every device op where ``match`` is None), from the
     profiler's CUPTI trace (None where the profiler sees no device
@@ -515,17 +586,44 @@ def _device_ops_seen(fn, reps, per_run, tries=5):
     return ms, ops, names
 
 
+def cudnn_yardstick(case):
+    """One ``F.conv2d`` in f32 on the case's integer values (NHWC in memory,
+    TF32 off): the library yardstick of rows 1 and 2.  It is not the same
+    function (no zero-point term, f32 out); summed directly it would be
+    exact here (K <= 1024 products of at most 128 * 128 stay below 2^24),
+    but cuDNN picks its own algorithm, so ``phase_time`` reports how far it
+    is off.  The port never calls it."""
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    x = case.x_p.permute(0, 3, 1, 2).float().contiguous(
+        memory_format=torch.channels_last)
+    w = case.w_q.permute(3, 2, 0, 1).float().contiguous(
+        memory_format=torch.channels_last)
+    return functools.partial(F.conv2d, x, w, stride=case.stride)
+
+
 def phase_time(specs, gen, max_err):
-    """CUDA-event times per call at the main path's shapes.  Returns the
-    per-layer rows, the per-kernel totals and the calls, which
-    ``phase_profile`` times again on the device after every event timing
-    is done (a profiler session slows what runs after it)."""
+    """CUDA-event times per call at the main path's shapes, and the cuDNN
+    yardstick's beside rows 1 and 2 with its largest difference from row
+    1's acc (its f32 sums minus zp * colsum, mod 2^32).  Returns the
+    per-layer rows, the per-kernel totals, the calls (with their cuDNN
+    call or None), which ``phase_profile`` times again on the device after
+    every event timing is done (a profiler window slows what runs after
+    it), and the cuDNN yardstick's ms per forward for rows 1 and 2."""
+    from repro_torch.core.abft import wrap_int32
     rows, calls = [], []
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "t_bytes": 0.0, "t_ops": 0.0} for name in REPLACES}
+    library = {"qconv2d_acc": 0.0, "qconv2d_acc_checksum": 0.0}
     for s, h in zip(specs, main_path_sides(specs)[0]):
         case = Case(gen, BATCH, h, h, s.cin, s.cout, s.kh, s.kw,
                     (s.stride, s.stride), "SAME")
+        lib = cudnn_yardstick(case)
+        lib_acc = wrap_int32(lib().permute(0, 2, 3, 1).to(torch.int64)
+                             - case.zp.to(torch.int64) * case.colsum)
+        lib_err = int((lib_acc.to(torch.int64) - _kernels()["qconv2d_acc"][0](
+            *case.args("qconv2d_acc"), stride=case.stride)).abs().max())
+        lib_ms = _time_ms(lib, reps=50)
         for name, (kern, plain) in _kernels().items():
             args, st = case.args(name), case.stride
             max_err[name] = max(max_err[name], _max_err(
@@ -534,16 +632,23 @@ def phase_time(specs, gen, max_err):
             plain_ms = _time_ms(lambda: plain(*args, stride=st), reps=3,
                                 warmup=1)
             bound, by = case.bound_ms(name)
+            yard = name in library
             rows.append({"layer": s.name, "kernel": name, "ms": ms,
                          "device_ms": None, "plain_ms": plain_ms,
-                         "bound_ms": bound, "bound_by": by})
-            calls.append(functools.partial(kern, *args, stride=st))
+                         "bound_ms": bound, "bound_by": by,
+                         "library_ms": lib_ms if yard else None,
+                         "library_device_ms": None,
+                         "library_max_abs_err": lib_err if yard else None})
+            calls.append((functools.partial(kern, *args, stride=st),
+                          lib if yard else None))
             tot = totals[name]
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += bound
             tot["t_" + ("bytes" if by == "bytes" else "ops")] += bound
-    return rows, totals, calls
+            if yard:
+                library[name] += lib_ms
+    return rows, totals, calls, library
 
 
 def phase_forward(specs, params, frames):
@@ -642,15 +747,38 @@ def phase_profile(specs, params, frames, rows, calls, reps=5):
         for k, v in w["top"]:
             print(f"    {v:8.4f} ms  {k}")
 
-    for row, call in zip(rows, calls):
-        row["device_ms"] = _device_ms(call, reps=10)
+    for row, (call, lib) in zip(rows, calls):
+        op = CONV_OPS[row["kernel"]]
+        ms, ops, names = _device_ops_seen(call, reps=20, per_run=1)
+        # every op the trace saw is the row's kernel, never more than one
+        # per call (a memset or a second pass would show), and the trace saw
+        # at least 90 % of the calls (a row none of whose windows saw a
+        # record fails)
+        if not (0.9 <= ops <= 1.0 and len(names) == 1
+                and op in next(iter(names))):
+            raise AssertionError(f"{row['kernel']} {row['layer']}: {ops} "
+                                 f"device ops per call ({sorted(names)}), "
+                                 f"want one {op}")
+        row["device_ms"], row["device_kernel"] = ms, sorted(names)
+        if lib is not None:
+            row["library_device_ms"] = _device_ms(lib, reps=20, match=None)
     print(f"kernel times per layer, N = {BATCH} (CUDA events per call; "
-          f"device time from the profiler):")
+          f"device time from the profiler; each call one device op, the "
+          f"row's kernel; cuDNN f32 yardstick beside rows 1 and 2):")
     for r in rows:
         dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        lib = "" if r["library_ms"] is None else (
+            f"  cudnn {r['library_ms']:.4f} ms (device "
+            + ("n/m" if r["library_device_ms"] is None
+               else f"{r['library_device_ms']:.4f}")
+            + f", max abs err {r['library_max_abs_err']})")
         print(f"  {r['layer']:16s} {r['kernel']:22s} {r['ms']:9.4f} ms  "
               f"device {dev:>7s} ms  plain {r['plain_ms']:9.3f} ms  "
-              f"bound {r['bound_ms']:8.5f} ms ({r['bound_by']})")
+              f"bound {r['bound_ms']:8.5f} ms ({r['bound_by']}){lib}")
+    for name in REPLACES:
+        dev = [r["device_ms"] for r in rows if r["kernel"] == name]
+        if None not in dev:
+            print(f"  {name}: {sum(dev):.4f} ms of device time per forward")
     return out
 
 
@@ -2117,7 +2245,7 @@ def main() -> None:
     train_grads = phase_train_grads(tcfg, tshape)
 
     # every CUDA-event timing before the first profiler session
-    rows, totals, calls = phase_time(specs, gen, max_err)
+    rows, totals, calls, conv_library = phase_time(specs, gen, max_err)
     mm_rows, mm_calls, mm_lib_calls = phase_time_matmul(cfg, gen, max_err)
     mm_cold, mm_cold_steps, mm_cold_calls = phase_time_matmul_cold(cfg, gen)
     fl_rows, fl_calls = phase_time_flash(gen, max_err)
@@ -2139,8 +2267,10 @@ def main() -> None:
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
     bwd_tot, bwd_library = bwd_totals(bwd_rows)
+    # the cuDNN f32 conv (not the same function, exact here) as the library
+    # time of #1 and #2, per forward
     kernels = _kernel_lines(REPLACES, CONV_SOURCE, REPLACES, launches,
-                            max_err, totals, {})
+                            max_err, totals, conv_library)
     # torch._int_mm on the decode rows zero-padded to M = 32 as the library
     # time of #4
     kernels += _kernel_lines(MATMUL_REPLACES, MATMUL_SOURCE, MATMUL_REPLACES,

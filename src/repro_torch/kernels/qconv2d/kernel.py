@@ -2,7 +2,10 @@
 
 CUDA C++ for ``sm_90a`` in ``csrc/qconv2d.cu`` (the source's header says
 which TPU kernel each replaces, what bounds it and what its design does
-about that), built and bound by ``kernels/cuda_lib.py``.
+about that), built and bound by ``kernels/cuda_lib.py``.  The two
+accumulator kernels run on one int8 tensor-core template; ``plan`` picks
+its tiles and how much of B it stages at once, and the C entry launches
+that plan after checking it.
 
 Each wrapper checks dtypes, shapes and contiguity, then:
 
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import pathlib
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,12 +29,70 @@ from repro_torch.kernels.cuda_lib import P as _P, I as _I
 from repro_torch.kernels.qconv2d import ref
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "qconv2d.cu"
-_GEOMETRY = [_I] * 11 + [_P]      # n hp wp cin kh kw cout oh ow sh sw, stream
+_GEOMETRY = [_I] * 11             # n hp wp cin kh kw cout oh ow sh sw
+_PLAN = [_I] * 3                  # tiles grid_y bt_k
 _ENTRIES = {
-    "qconv2d_acc_launch": [_P] * 5 + _GEOMETRY,
-    "qconv2d_acc_checksum_launch": [_P] * 7 + _GEOMETRY,
-    "qconv2d_launch": [_P] * 7 + _GEOMETRY,
+    "qconv2d_acc_launch": [_P] * 5 + _GEOMETRY + _PLAN + [_P],
+    "qconv2d_acc_checksum_launch": [_P] * 7 + _GEOMETRY + _PLAN + [_P],
+    "qconv2d_launch": [_P] * 7 + _GEOMETRY + [_P],
 }
+# The accumulator kernel's constants (qconv2d.cu) and the card's.
+TILE_M, TILE_N = 128, 24          # pixels, channels per block
+WARPS = 8
+MACRO = 64                        # K bytes of two mma steps
+MAX_BT_K = 2048                   # K bytes of B staged at once where all of
+                                  # K does not fit
+MAX_SMEM = 232448                 # 227 KB a block can take
+
+
+class Plan(NamedTuple):
+    """The accumulator kernel's launch: pixel tiles, Cout tiles
+    (gridDim.y), and the K bytes of B staged at once (all of K rounded up
+    to 64 where that fits, else ``MAX_BT_K``).  The C entry refuses a plan
+    that leaves a pixel or channel out or does not fit, and launches one
+    wave of blocks over the pixel tiles (gridDim.x, from the occupancy
+    query, each block walking every gridDim.x-th tile)."""
+
+    tiles: int
+    grid_y: int
+    bt_k: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k_padded(kh: int, kw: int, cin: int) -> int:
+    """K as the kernel walks it: for each ky, the kw * cin bytes that lie
+    together in x ((kx, ci) order), padded to 16."""
+    return kh * 16 * _cdiv(kw * cin, 16)
+
+
+def row_words(bt_k: int) -> int:
+    """Words per staged B row (``row_words`` in qconv2d.cu): 16 mod 32."""
+    return bt_k // 4 + (48 - bt_k // 4 % 32) % 32
+
+
+def smem_bytes(bt_k: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in qconv2d.cu):
+    B's rows, the tile's channels and the check's 8, over ``bt_k`` bytes of
+    K; the K walk's table (8 bytes per 16 of K); the per-warp sums of
+    w_check."""
+    return (4 * (TILE_N + 8) * row_words(bt_k) + 8 * (bt_k // 16)
+            + 4 * WARPS)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n: int, oh: int, ow: int, cin: int, kh: int, kw: int,
+         cout: int) -> Plan:
+    """Tiles of 128 pixels by 24 channels, Cout split into tiles of 24 on
+    gridDim.y (64 x 48 tiles were slower per forward of the ship detector,
+    PERF.md).  B is staged over all of K where it fits in shared memory,
+    else in pieces of ``MAX_BT_K``.  The stride does not enter the plan;
+    the output size does."""
+    kpad = max(MACRO, MACRO * _cdiv(k_padded(kh, kw, cin), MACRO))
+    bt_k = kpad if smem_bytes(kpad) <= MAX_SMEM else MAX_BT_K
+    return Plan(_cdiv(n * oh * ow, TILE_M), _cdiv(cout, TILE_N), bt_k)
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -79,14 +140,15 @@ def qconv2d_acc(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     """conv(x_p - zp, w) as conv(x_p, w) - zp·colsum → int32 (N,OH,OW,Cout).
     ``x_p`` is already padded with the zero point; zp is (1,) int32."""
     geo = _geometry(x_p, w_q, stride)
-    n, _, _, _, _, _, cout, oh, ow, _, _ = geo
+    n, _, _, cin, kh, kw, cout, oh, ow, _, _ = geo
     _expect(colsum, "colsum", torch.int32, (cout,))
     _expect(zp, "zp", torch.int32, (1,))
     if not _on_card(x_p, w_q, colsum, zp):
         return ref.qconv2d_acc_plain(x_p, w_q, colsum, zp, stride=stride)
+    p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
     _launch("qconv2d_acc_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
-            colsum.data_ptr(), zp.data_ptr(), out.data_ptr(), *geo)
+            colsum.data_ptr(), zp.data_ptr(), out.data_ptr(), *geo, *p)
     qconv2d_acc.launches += 1
     return out
 
@@ -105,11 +167,12 @@ def qconv2d_acc_checksum(x_p: torch.Tensor, w_q: torch.Tensor,
     if not _on_card(x_p, w_q, colsum, w_check, zp):
         return ref.qconv2d_acc_checksum_plain(x_p, w_q, colsum, w_check, zp,
                                               stride=stride)
+    p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
     want = torch.empty((n, oh, ow), dtype=torch.int32, device=x_p.device)
     _launch("qconv2d_acc_checksum_launch", x_p.device, x_p.data_ptr(),
             w_q.data_ptr(), colsum.data_ptr(), w_check.data_ptr(),
-            zp.data_ptr(), out.data_ptr(), want.data_ptr(), *geo)
+            zp.data_ptr(), out.data_ptr(), want.data_ptr(), *geo, *p)
     qconv2d_acc_checksum.launches += 1
     return out, want
 
