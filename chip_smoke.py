@@ -12,10 +12,11 @@ Phases, each of which raises on failure:
    (and the check channel equal to the Cout-sum of acc), at all 8
    ``network_specs(194)`` layer shapes (N = 2), a ragged Cout tail, a
    stride (2, 1) case, non-zero zero points, a check channel that wraps mod
-   2^32, the accumulator kernels' edges (Cin 1, 3, 5; x_p off a 16-byte
-   boundary by 1, 4 and 8 bytes; Cout 6 and 100; a 5x5x600 conv, which the
-   fused kernel refuses at launch; 1 to 200 pixels at 24 and 48 channels)
-   and 48 seeded random geometries;
+   2^32, the template's edges (Cin 1, 3, 5; x_p off a 16-byte boundary by
+   1, 4 and 8 bytes; Cout 6 and 100; two 5x5x600 convs; 1 to 200 pixels at
+   24 and 48 channels), 48 seeded random geometries, and the fused kernel's
+   rounding (sums on .5 ties, clamps at both ends); the fused kernel equal
+   across two launches;
 4. slice 1: ``shipdet.forward`` at ``network_specs(194)`` on 4 frames
    under the fused NONE path and, on the ``cuda`` backend, NONE, ABFT, CKPT
    (deploy checks + golden weights), DMR and TMR; all bit-identical to each
@@ -28,7 +29,9 @@ Phases, each of which raises on failure:
    check vector that wraps past 2^31, odd K and N, the accumulator
    kernel's edges (M from 1 to 200 over K and N off multiples of 32, 16
    and 4), inputs off every 16-byte boundary, the flash prefills' FFN
-   shapes at M = 256 and 1024 and seeded random geometries;
+   shapes at M = 256 and 1024, seeded random geometries, and the fused
+   kernel's rounding (.5 ties, clamps at both ends); the fused kernel equal
+   across two launches;
 6. slice 2: ``Engine`` over SmolLM-135M at full width (30 layers, W8A8
    FFN, bf16 compute, random weights from a seed) serves 16 seeded requests
    under no map, ``ffn.*=abft``, ``ffn.*=tmr`` and the ``ref`` backend:
@@ -80,8 +83,8 @@ Phases, each of which raises on failure:
    ms and tokens/s; then, under torch.profiler, the device busy time and
    idle share of the forward, of decode steps, of a flash prefill and of a
    train step, and each kernel call's device time (the backward's dQ and
-   dK/dV kernels apart; each call of the conv kernels and of the matmul
-   accumulator kernels exactly one device op, the row's kernel;
+   dK/dV kernels apart; each call of the conv and matmul kernels exactly
+   one device op, the row's kernel;
    ``torch._int_mm``'s and cuDNN's beside them).
 
 The line before the last is ``{"kernels": [...]}``; the last is
@@ -130,12 +133,17 @@ REPLACES = {
 CONV_OPS = {                       # each row's device op, by name
     "qconv2d_acc": "qconv2d_mma_kernel<0",
     "qconv2d_acc_checksum": "qconv2d_mma_kernel<1",
-    "qconv2d": "qconv2d_requant_kernel",
+    "qconv2d": "qconv2d_mma_kernel<2",
 }
 MATMUL_REPLACES = {
     "qmatmul_acc": "src/repro/kernels/qmatmul/kernel.py:138",
     "qmatmul_acc_checksum": "src/repro/kernels/qmatmul/kernel.py:176",
     "qmatmul": "src/repro/kernels/qmatmul/kernel.py:224",
+}
+MATMUL_OPS = {                     # each row's device op, by name
+    "qmatmul_acc": "qmatmul_mma_kernel<0>",
+    "qmatmul_acc_checksum": "qmatmul_mma_kernel<1>",
+    "qmatmul": "qmatmul_mma_kernel<2>",
 }
 # slice 2: the serving path
 ARCH = "smollm-135m"
@@ -246,7 +254,11 @@ class Case:
     """Random inputs of one kernel call, made on the card from a seed."""
 
     def __init__(self, gen, n, h, w, cin, cout, kh, kw, stride, padding,
-                 x_zp=None, out_zp=None, x_fill=None, w_fill=None):
+                 x_zp=None, out_zp=None, x_fill=None, w_fill=None,
+                 ties=False):
+        """``ties``: x in [-4, 4), w in [-1, 1] and scale 0.5, so that the
+        fused kernel's odd sums land on .5 and the larger ones clamp at
+        both ends."""
         from repro_torch.core.abft import conv_checksum_weight
         from repro_torch.kernels.qconv2d import ops
         dev = DEVICE
@@ -256,8 +268,10 @@ class Case:
                                  dtype=dtype)
 
         self.stride = stride
-        x_q = ints(-128, 128, (n, h, w, cin), torch.int8)
-        w_q = ints(-127, 128, (kh, kw, cin, cout), torch.int8)
+        x_q = ints(-4, 4, (n, h, w, cin), torch.int8) if ties \
+            else ints(-128, 128, (n, h, w, cin), torch.int8)
+        w_q = ints(-1, 2, (kh, kw, cin, cout), torch.int8) if ties \
+            else ints(-127, 128, (kh, kw, cin, cout), torch.int8)
         if x_fill is not None:
             x_q.fill_(x_fill)
         if w_fill is not None:
@@ -275,6 +289,8 @@ class Case:
         self.bias = ints(-1000, 1000, (cout,), torch.int32)
         self.scale = torch.empty(cout, device=dev).uniform_(
             1e-4, 5e-3, generator=gen)
+        if ties:
+            self.scale.fill_(0.5)
         self.zps = torch.tensor([x_zp, out_zp], dtype=torch.int32, device=dev)
 
     def args(self, name):
@@ -370,15 +386,12 @@ def conv_edge_cases(gen):
     boundary by 1, 4 and 8 bytes (words cut, 4- and 8-byte loads at Cin =
     48), Cout 6 and 100 (a part-empty n tile, a 4-channel Cout tile),
     5x5x600 convs whose B (K = 15,040 bytes) does not fit a block's shared
-    memory whole and is staged in pieces (rows 1 and 2 of PR 18's tree
-    refused them at launch): one of a single pixel tile, and one of more
-    pixel tiles than the card holds blocks at once, so that every block
-    restages B's pieces between its barriers for several tiles; and pixel
-    counts off every tile multiple (1 to 200 pixels at 24 and 48 channels).
-    Each with the kernels it runs: the fused kernel (row 3) stages K whole
-    and refuses the 5x5x600 convs at launch."""
+    memory whole and is staged in pieces: one of a single pixel tile, and
+    one of more pixel tiles than the card holds blocks at once, so that
+    every block restages B's pieces between its barriers for several
+    tiles; and pixel counts off every tile multiple (1 to 200 pixels at 24
+    and 48 channels).  All three kernels run each."""
     from repro_torch.kernels.qconv2d import kernel as CK
-    acc_rows = ("qconv2d_acc", "qconv2d_acc_checksum")
     # at most this many blocks of the plan's shared memory per SM of an
     # H100 (228 KB an SM, 1 KB of it kept per block)
     p = CK.plan(2, 200, 200, 600, 5, 5, 24)
@@ -396,9 +409,9 @@ def conv_edge_cases(gen):
     cases += [(f"cout_{c}", Case(gen, 2, 13, 13, 96, c, 1, 1, (1, 1),
                                  "SAME"), tuple(REPLACES)) for c in (6, 100)]
     cases.append(("k_5x5x600", Case(gen, 1, 9, 10, 600, 40, 5, 5, (1, 1),
-                                    "SAME"), acc_rows))
+                                    "SAME"), tuple(REPLACES)))
     cases.append(("k_5x5x600_tiles", Case(gen, 2, 200, 200, 600, 24, 5, 5,
-                                          (1, 1), "SAME"), acc_rows))
+                                          (1, 1), "SAME"), tuple(REPLACES)))
     cases += [(f"pixels_{p}_cout_{c}", Case(gen, 1, 1, p, 24, c, 1, 1,
                                             (1, 1), "VALID"), tuple(REPLACES))
               for p in (1, 63, 65, 127, 129, 200) for c in (24, 48)]
@@ -425,6 +438,11 @@ def phase_compare(specs, gen) -> dict:
     cases += conv_edge_cases(gen)
     cases += [(f"random_{i}", _random_case(gen, i), every)
               for i in range(RANDOM_CASES)]
+    # the fused kernel's rounding: .5 ties and clamps at both ends
+    cases += [("ties_cout_24", Case(gen, 2, 9, 8, 24, 24, 3, 3, (1, 1),
+                                    "SAME", ties=True), ("qconv2d",)),
+              ("ties_cout_70", Case(gen, 1, 7, 9, 40, 70, 3, 3, (2, 2),
+                                    "SAME", ties=True), ("qconv2d",))]
     max_err = {name: 0 for name in REPLACES}
     for label, case, names in cases:
         for name, (kern, plain) in _kernels().items():
@@ -437,11 +455,31 @@ def phase_compare(specs, gen) -> dict:
             if name == "qconv2d_acc_checksum" and not torch.equal(
                     channel_checksum(got[0]), got[1]):
                 raise AssertionError(f"{label}: check channel != Cout-sum")
+            if name == "qconv2d" and not torch.equal(
+                    got, kern(*case.args(name), stride=case.stride)):
+                raise AssertionError(f"{label}: row 3 differs across two "
+                                     f"launches")
+            if name == "qconv2d" and label.startswith("ties"):
+                acc = _kernels()["qconv2d_acc"][1](
+                    *case.args("qconv2d_acc"), stride=case.stride)
+                _ties_seen(label, got, acc.to(torch.int64) + case.bias)
+    acc = sum("qconv2d_acc" in names for _, _, names in cases)
     fused = sum("qconv2d" in names for _, _, names in cases)
-    print(f"compare: {len(cases)} cases of rows 1 and 2 ({fused} "
-          f"of row 3) torch.equal to the plain versions on the card, want "
-          f"== the Cout-sum of acc")
+    print(f"compare: {len(cases)} cases ({acc} of rows 1 and 2, {fused} of "
+          f"row 3) torch.equal to the plain versions on the card, want == "
+          f"the Cout-sum of acc, row 3 equal across two launches")
     return max_err
+
+
+def _ties_seen(label, out, v):
+    """A tie case's int8 output reaches both clamps, and some of its sums
+    ``v`` (int64, before requantisation) land on .5 unclamped: odd sums at
+    scale 0.5."""
+    ties = int(((v % 2 != 0) & (v.abs() < 250)).sum())
+    lo, hi = bool((out == -128).any()), bool((out == 127).any())
+    if not (ties and lo and hi):
+        raise AssertionError(f"{label}: {ties} ties, clamps at -128 {lo}, "
+                             f"at 127 {hi}")
 
 
 def phase_slice(specs, params, frames):
@@ -791,10 +829,12 @@ class MatmulCase:
     """Random inputs of one matmul kernel call, made on the card."""
 
     def __init__(self, gen, m, k, n, x_zp=None, out_zp=None, x_fill=None,
-                 w_fill=None, offset=False):
+                 w_fill=None, offset=False, ties=False):
         """``offset``: x_q, w_q and w_check are views one row (one value)
         into larger tensors, off every 16-byte boundary where K, N are
-        odd."""
+        odd.  ``ties``: x in [-4, 4), w in [-1, 1] and scale 0.5, so that
+        the fused kernel's odd sums land on .5 and the larger ones clamp
+        at both ends."""
         from repro_torch.core.abft import checksum_vector
 
         def ints(lo, hi, shape, dtype):
@@ -803,8 +843,10 @@ class MatmulCase:
 
         o = int(offset)
         self.shape = (m, k, n)
-        self.x_q = ints(-128, 128, (m + o, k), torch.int8)[o:]
-        self.w_q = ints(-127, 128, (k + o, n), torch.int8)[o:]
+        self.x_q = ints(*((-4, 4) if ties else (-128, 128)), (m + o, k),
+                        torch.int8)[o:]
+        self.w_q = ints(*((-1, 2) if ties else (-127, 128)), (k + o, n),
+                        torch.int8)[o:]
         if x_fill is not None:
             self.x_q.fill_(x_fill)
         if w_fill is not None:
@@ -819,6 +861,8 @@ class MatmulCase:
         self.bias = ints(-1000, 1000, (n,), torch.int32)
         self.scale = torch.empty(n, device=DEVICE).uniform_(
             1e-4, 5e-3, generator=gen)
+        if ties:
+            self.scale.fill_(0.5)
         self.zps = torch.tensor([x_zp, out_zp], dtype=torch.int32,
                                 device=DEVICE)
 
@@ -894,6 +938,9 @@ def phase_compare_matmul(cfg, gen) -> dict:
         gen, rng.randint(1, 80), rng.randint(1, 1600), rng.randint(1, 700),
         x_zp=rng.randint(-128, 127), out_zp=rng.randint(-128, 127)))
         for i in range(RANDOM_MATMUL_CASES)]
+    # the fused kernel's rounding: .5 ties and clamps at both ends
+    cases += [(f"ties_{m}x{k}x{n}", MatmulCase(gen, m, k, n, ties=True))
+              for m, k, n in ((8, 576, 96), (33, 130, 70))]
     max_err = {name: 0 for name in MATMUL_REPLACES}
     for label, case in cases:
         for name, (kern, plain) in _matmul_kernels().items():
@@ -904,8 +951,17 @@ def phase_compare_matmul(cfg, gen) -> dict:
             if name == "qmatmul_acc_checksum" and not torch.equal(
                     row_checksum(got[0]), got[1]):
                 raise AssertionError(f"{label}: want != row sum of acc")
+            if name == "qmatmul" and not torch.equal(
+                    got, kern(*case.args(name))):
+                raise AssertionError(f"{label}: row 6 differs across two "
+                                     f"launches")
+            if name == "qmatmul" and label.startswith("ties"):
+                acc = _matmul_kernels()["qmatmul_acc"][1](case.x_q, case.w_q)
+                _ties_seen(label, got, acc.to(torch.int64)
+                           - case.zps[0] * case.colsum + case.bias)
     print(f"compare: {len(cases)} cases x 3 matmul kernels torch.equal to "
-          f"the plain versions on the card")
+          f"the plain versions on the card, row 6 equal across two "
+          f"launches")
     return max_err
 
 
@@ -1045,7 +1101,11 @@ def phase_qlinear(cfg, gen):
     MK.reset_launches()
     outs = [ops.qlinear_act(*c[:6]) for c in cases]
     torch.cuda.synchronize()
-    launches = MK.qmatmul.launches
+    counts = {k.__name__: k.launches for k in MK.KERNELS}
+    # one fused matmul per qlinear_act call, and no other matmul kernel
+    derived = {"qmatmul_acc": 0, "qmatmul_acc_checksum": 0,
+               "qmatmul": len(cases)}
+    launches = counts["qmatmul"]
     for (m, k, n), c, y in zip(ffn_shapes(cfg), cases, outs):
         cpu = ops.qlinear_act(*(t.cpu() if isinstance(t, torch.Tensor)
                                 else type(t)(*(u.cpu() for u in t))
@@ -1057,9 +1117,9 @@ def phase_qlinear(cfg, gen):
         if not rel < 0.02:
             raise AssertionError(f"qlinear_act ({m}, {k}, {n}) rel err {rel}")
     print(f"qlinear_act: {len(cases)} calls at the FFN shapes, launches "
-          f"qmatmul {launches}, equal to the CPU runs")
-    if launches != len(cases):
-        raise AssertionError(f"qmatmul launched {launches} times")
+          f"{counts} = derived, equal to the CPU runs")
+    if counts != derived:
+        raise AssertionError(f"launches {counts}, derived {derived}")
     return launches
 
 
@@ -1166,20 +1226,17 @@ def phase_time_matmul_cold(cfg, gen):
 def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
                         cold_calls):
     """Device time per call of each matmul row and of its library call, by
-    the profiler; each call of rows 4 and 5 must be exactly one device op,
-    their kernel, and each cold call likewise.  Fills ``rows``; returns the
-    cold device times per call."""
-    from repro_torch.kernels.qmatmul import kernel as MK
-    one_op = {MK.qmatmul_acc: "qmatmul_mma_kernel<0>",
-              MK.qmatmul_acc_checksum: "qmatmul_mma_kernel<1>"}
+    the profiler; each call of rows 4, 5 and 6 must be exactly one device
+    op, its kernel, and each cold call likewise.  Fills ``rows``; returns
+    the cold device times per call."""
     for row, call, lib_call in zip(rows, calls, lib_calls):
         ms, ops, names = _device_ops_seen(call, reps=50, per_run=1)
-        want = one_op.get(call.func)
+        want = MATMUL_OPS[row["kernel"]]
         # every op the trace saw is the kernel, never more than one per
         # call (a memset or a second pass would show), and the trace saw
         # at least 90 % of the calls
-        if want is not None and not (0.9 <= ops <= 1.0 and len(names) == 1
-                                     and want in next(iter(names))):
+        if not (0.9 <= ops <= 1.0 and len(names) == 1
+                and want in next(iter(names))):
             raise AssertionError(f"{row['kernel']} {row['shape']}: {ops} "
                                  f"device ops per call ({sorted(names)}), "
                                  f"want one {want}")
@@ -1196,8 +1253,8 @@ def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
                                  f"of {cold_calls} calls ({sorted(names)})")
         cold_dev[name] = None if ms is None else ms / cold_calls
     print("matmul kernel times per call (CUDA events; device time from the "
-          "profiler, by kernel name; each call of rows 4 and 5 one device "
-          "op):")
+          "profiler, by kernel name; each call one device op, the row's "
+          "kernel):")
     for r in rows:
         dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
         lib = "-" if r["library_ms"] is None else (

@@ -1,7 +1,8 @@
 // Int8 NHWC convolution kernels for Hopper (sm_90a), plain C entry points
 // bound from Python with ctypes (kernels/qconv2d/kernel.py).
 //
-// Replaces the three Pallas TPU kernels of src/repro/kernels/qconv2d/kernel.py:
+// Replaces the three Pallas TPU kernels of src/repro/kernels/qconv2d/kernel.py,
+// all three on one template, qconv2d_mma_kernel<kMode>:
 //   qconv2d_acc           (kernel.py:128)  conv(x_p, w) - zp*colsum -> int32 acc
 //                                          qconv2d_mma_kernel<kAcc>
 //   qconv2d_acc_checksum  (kernel.py:163)  the same acc plus the ABFT check
@@ -9,7 +10,7 @@
 //                                          qconv2d_mma_kernel<kAccChecksum>
 //   qconv2d               (kernel.py:211)  the same acc plus the fused
 //                                          requantisation epilogue -> int8
-//                                          qconv2d_requant_kernel<aligned>
+//                                          qconv2d_mma_kernel<kRequant>
 // x_p is the input already padded with the zero point (N, Hp, Wp, Cin) int8,
 // w is (KH, KW, Cin, Cout) int8, outputs are NHWC.  Integer results wrap mod
 // 2^32 as the reference's do, bit for bit.
@@ -18,9 +19,10 @@
 // each input read once and each output written once.  The two accumulator
 // kernels write 4 bytes per output for KH*KW*Cin MACs, so every layer of the
 // ship detector is bound by the int32 it writes (0.23-14.45 MB a layer at
-// batch 4), far below the tensor cores' rate.
+// batch 4), far below the tensor cores' rate; the fused kernel writes one
+// byte per output, and is bound by bytes too.
 //
-// The accumulator kernels, qconv2d_mma_kernel<kMode>.
+// The template.
 //
 //   An implicit GEMM on the tensor cores: output pixels (the flattened
 //   N*OH*OW) are the rows, Cout the columns, and K runs, for each ky, over
@@ -83,22 +85,20 @@
 //   reads x and w_check only, never acc: a check computed from acc could not
 //   catch a flip in it.
 //
-//   The epilogue subtracts zp * colsum in uint32 (signed overflow is
-//   undefined in C++) and stores each lane's two columns of its two pixels
-//   as 8-byte stores straight from the fragments: each store instruction
-//   fills eight whole 32-byte sectors.  One device op per call: no memset,
-//   no atomics.
+//   The epilogue adds each column's constant, -zp * colsum (and + bias in
+//   the fused kernel), in uint32 (signed overflow is undefined in C++); a
+//   lane holds the constants of its 2 x kNT columns in registers, loaded
+//   once per block.  The accumulator kernels store each lane's two columns
+//   of its two pixels as 8-byte stores straight from the fragments: each
+//   store instruction fills eight whole 32-byte sectors.  One device op per
+//   call: no memset, no atomics.
 //
-// The fused kernel, qconv2d_requant_kernel<kAligned> (row 3): the first
-// port's design.  The grid is (output-pixel tiles of 32, Cout tiles of 32).
-// A block stages its 32-channel weight tile in shared memory once, packed
-// four input channels to a word (Cin zero-padded to a multiple of 4 inside
-// the kernel), so that one __dp4a does four int8 MACs; each thread owns one
-// output pixel and 8 channels.  The epilogue gives JAX's rounding bit for
-// bit: int->float round-to-nearest, a multiply that is never contracted
-// into an FMA (__fmul_rn), rintf (half to even), + out_zp, clamp to
-// [-128, 127].  Its shared memory grows with K (taps * ceil(Cin/4) * 32
-// words), so K is limited by the 227 KB a block can take.
+//   The fused kernel (row 3) requantises in registers, so int32 never
+//   reaches device memory, and gives JAX's rounding bit for bit:
+//   int->float round-to-nearest, a multiply that is never contracted into
+//   an FMA (__fmul_rn: this file is built without -fmad=false), rintf (half
+//   to even), + out_zp (__fadd_rn), clamp to [-128, 127].  Each lane stores
+//   its two int8 columns of a pixel and n tile as one 2-byte store.
 //
 // Each C entry returns a CUDA error code (0 on success): a plan it cannot
 // run, or cudaGetLastError() after its launch.
@@ -149,7 +149,7 @@ __host__ __device__ inline Pixel split_pixel(long long pix, const Geometry& g) {
 }
 
 // ---------------------------------------------------------------------------
-// qconv2d_mma_kernel: rows 1 and 2
+// qconv2d_mma_kernel: rows 1, 2 and 3
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 256;              // 8 warps
@@ -163,7 +163,7 @@ constexpr int kMaxDevices = 64;
 constexpr int kTileM = 16 * kWarps;
 constexpr int kTileN = 8 * kNT;
 
-enum Mode { kAcc = 0, kAccChecksum = 1 };
+enum Mode { kAcc = 0, kAccChecksum = 1, kRequant = 2 };
 
 // Words per B row over bt_k bytes of K: 16 mod 32, so that the eight rows x
 // 16 bytes of one quarter-warp's 16-byte loads fall in 32 banks.
@@ -186,10 +186,13 @@ struct MmaArgs {
   const int8_t* x;
   const int8_t* w;
   const int32_t* colsum;
-  const int32_t* w_check;
-  const int32_t* zp;
-  int32_t* acc;
-  int32_t* want;
+  const int32_t* w_check;                     // kAccChecksum
+  const int32_t* bias;                        // kRequant
+  const float* scale;                         // kRequant
+  const int32_t* zp;                          // zp, or [x_zp, out_zp] (kRequant)
+  int32_t* acc;                               // kAcc, kAccChecksum
+  int32_t* want;                              // kAccChecksum
+  int8_t* q;                                  // kRequant
   Geometry g;
   int row16;                                  // Kw * Cin padded to a multiple of 16
   int kpad;                                   // Kh * row16
@@ -200,7 +203,7 @@ struct MmaArgs {
   int xv;                                     // bytes per x load: 16, 8, 4,
                                               // or 1 (words from any address)
   bool w_words;                               // W rows 4-byte aligned
-  bool out_pairs;                             // 8-byte stores allowed
+  bool out_pairs;                             // two-column stores allowed
   Pixel step8;                                // 8 pixels on
   Pixel step_grid;                            // a grid of tiles on
 };
@@ -249,6 +252,15 @@ __device__ __forceinline__ void mma_s8(uint32_t (&d)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// JAX's requantisation of one wrapped int32 sum v, bit for bit: v to f32
+// rounded to nearest, times scale (never contracted into an FMA), rounded
+// half to even, + out_zp, clamped to int8.
+__device__ __forceinline__ int8_t requant(uint32_t v, float scale, float out_zp) {
+  float y = __fmul_rn(__int2float_rn(static_cast<int>(v)), scale);
+  y = __fadd_rn(rintf(y), out_zp);
+  return static_cast<int8_t>(fminf(fmaxf(y, -128.0f), 127.0f));
 }
 
 // Bytes b of the four words r0..r3 (rows k..k+3 of four neighbouring
@@ -352,7 +364,8 @@ __device__ __forceinline__ void stage_b(const MmaArgs& a, int* bt, int rw,
 template <int kMode, int kXV>
 __device__ __forceinline__ void conv_tiles(const MmaArgs& a, int* bt, int rw,
                                            int2* table, uint32_t zsum,
-                                           const uint32_t (&cs)[kNT][2]) {
+                                           const uint32_t (&cs)[kNT][2],
+                                           const float (&sc)[kNT][2]) {
   const Geometry& g = a.g;
   const int warp = threadIdx.x / 32;          // the 16-pixel group
   const int lane = threadIdx.x % 32;
@@ -364,7 +377,7 @@ __device__ __forceinline__ void conv_tiles(const MmaArgs& a, int* bt, int rw,
   const bool resident = a.bt_k >= a.kpad64;
   // n tiles that hold a channel below Cout (at least one)
   const int nt_live = min(kNT, (g.cout - n0 + 7) / 8);
-  const uint32_t zp = static_cast<uint32_t>(__ldg(a.zp));
+  const float out_zp = kMode == kRequant ? static_cast<float>(__ldg(a.zp + 1)) : 0.0f;
 
   // rows gq and gq + 8 of the warp's first tile, moved a grid of tiles on
   // per tile
@@ -415,23 +428,36 @@ __device__ __forceinline__ void conv_tiles(const MmaArgs& a, int* bt, int rw,
       }
     }
 
-    // acc - zp * colsum, straight from the fragments: a lane holds columns
-    // 2 t4, 2 t4 + 1 of each n tile for rows gq and gq + 8
+    // acc + each column's constant, straight from the fragments: a lane
+    // holds columns 2 t4, 2 t4 + 1 of each n tile for rows gq and gq + 8
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const long long pix = p0 + 8 * h;
       if (pix >= npix) continue;
-      int32_t* out = a.acc + pix * g.cout;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int col = n0 + 8 * j + 2 * t4;
-        const uint32_t v0 = acc[j][2 * h] - zp * cs[j][0];
-        const uint32_t v1 = acc[j][2 * h + 1] - zp * cs[j][1];
-        if (a.out_pairs && col + 1 < g.cout) {
-          *reinterpret_cast<uint2*>(out + col) = make_uint2(v0, v1);
+        const uint32_t v0 = acc[j][2 * h] + cs[j][0];
+        const uint32_t v1 = acc[j][2 * h + 1] + cs[j][1];
+        const bool pair = a.out_pairs && col + 1 < g.cout;
+        if constexpr (kMode == kRequant) {
+          int8_t* out = a.q + pix * g.cout;
+          const int8_t y0 = requant(v0, sc[j][0], out_zp);
+          const int8_t y1 = requant(v1, sc[j][1], out_zp);
+          if (pair) {
+            *reinterpret_cast<char2*>(out + col) = make_char2(y0, y1);
+          } else {
+            if (col < g.cout) out[col] = y0;
+            if (col + 1 < g.cout) out[col + 1] = y1;
+          }
         } else {
-          if (col < g.cout) out[col] = static_cast<int32_t>(v0);
-          if (col + 1 < g.cout) out[col + 1] = static_cast<int32_t>(v1);
+          int32_t* out = a.acc + pix * g.cout;
+          if (pair) {
+            *reinterpret_cast<uint2*>(out + col) = make_uint2(v0, v1);
+          } else {
+            if (col < g.cout) out[col] = static_cast<int32_t>(v0);
+            if (col + 1 < g.cout) out[col + 1] = static_cast<int32_t>(v1);
+          }
         }
       }
     }
@@ -469,15 +495,25 @@ qconv2d_mma_kernel(MmaArgs a) {
   const int n0 = blockIdx.y * kTileN;
   const bool check = kMode == kAccChecksum && blockIdx.y == 0;
 
-  // the epilogue's constants: colsum of the lane's columns, and zp *
-  // sum(w_check) in the check blocks
+  // the epilogue's constants: for each of the lane's columns, bias -
+  // zp * colsum (bias in the fused kernel only) and the fused kernel's
+  // scale; zp * sum(w_check) in the check blocks
+  const uint32_t zp = static_cast<uint32_t>(__ldg(a.zp));
   uint32_t cs[kNT][2];
+  float sc[kNT][2];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = n0 + 8 * j + 2 * t4 + h;
-      cs[j][h] = col < g.cout ? static_cast<uint32_t>(__ldg(a.colsum + col)) : 0u;
+      if (col >= g.cout) {
+        cs[j][h] = 0u;
+        sc[j][h] = 0.0f;
+        continue;
+      }
+      const uint32_t b = kMode == kRequant ? static_cast<uint32_t>(__ldg(a.bias + col)) : 0u;
+      cs[j][h] = b - zp * static_cast<uint32_t>(__ldg(a.colsum + col));
+      sc[j][h] = kMode == kRequant ? __ldg(a.scale + col) : 0.0f;
     }
   }
   uint32_t zsum = 0;
@@ -497,13 +533,13 @@ qconv2d_mma_kernel(MmaArgs a) {
   if (check) {
 #pragma unroll
     for (int q = 0; q < kWarps; ++q) zsum += sum_s[q];
-    zsum *= static_cast<uint32_t>(__ldg(a.zp));
+    zsum *= zp;
   }
   switch (a.xv) {
-    case 16: conv_tiles<kMode, 16>(a, bt, rw, table, zsum, cs); break;
-    case 8: conv_tiles<kMode, 8>(a, bt, rw, table, zsum, cs); break;
-    case 4: conv_tiles<kMode, 4>(a, bt, rw, table, zsum, cs); break;
-    default: conv_tiles<kMode, 1>(a, bt, rw, table, zsum, cs); break;
+    case 16: conv_tiles<kMode, 16>(a, bt, rw, table, zsum, cs, sc); break;
+    case 8: conv_tiles<kMode, 8>(a, bt, rw, table, zsum, cs, sc); break;
+    case 4: conv_tiles<kMode, 4>(a, bt, rw, table, zsum, cs, sc); break;
+    default: conv_tiles<kMode, 1>(a, bt, rw, table, zsum, cs, sc); break;
   }
 }
 
@@ -548,11 +584,11 @@ cudaError_t resident_blocks(int smem, int* blocks) {
 }
 
 // The plan (kernel.py's plan()) checked, then launched as one wave of blocks,
-// each walking every gridDim.x-th pixel tile.
+// each walking every gridDim.x-th pixel tile.  `a` holds the entry's
+// pointers and geometry; the rest is filled in here.
 template <int kMode>
-int launch_mma(const void* x, const void* w, const void* colsum,
-               const void* w_check, const void* zp, void* acc, void* want,
-               Geometry g, int tiles, int grid_y, int bt_k, void* stream) {
+int launch_mma(MmaArgs a, int tiles, int grid_y, int bt_k, void* stream) {
+  const Geometry& g = a.g;
   const long long npix = static_cast<long long>(g.n) * g.oh * g.ow;
   if (npix == 0 || g.cout == 0) return static_cast<int>(cudaSuccess);
   const long long row16 = (static_cast<long long>(g.kw) * g.cin + 15) / 16 * 16;
@@ -566,15 +602,6 @@ int launch_mma(const void* x, const void* w, const void* colsum,
       || smem_bytes(bt_k) > kMaxSmem || kpad > INT_MAX / 2 || reach > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  MmaArgs a;
-  a.x = static_cast<const int8_t*>(x);
-  a.w = static_cast<const int8_t*>(w);
-  a.colsum = static_cast<const int32_t*>(colsum);
-  a.w_check = static_cast<const int32_t*>(w_check);
-  a.zp = static_cast<const int32_t*>(zp);
-  a.acc = static_cast<int32_t*>(acc);
-  a.want = static_cast<int32_t*>(want);
-  a.g = g;
   a.row16 = static_cast<int>(row16);
   a.kpad = static_cast<int>(kpad);
   a.kpad64 = static_cast<int>((kpad + kMacro - 1) / kMacro * kMacro);
@@ -584,13 +611,16 @@ int launch_mma(const void* x, const void* w, const void* colsum,
   // and x's address
   a.xv = 1;
   for (int v = 16; v >= 4; v /= 2) {
-    if (g.cin % v == 0 && reinterpret_cast<uintptr_t>(x) % v == 0) {
+    if (g.cin % v == 0 && reinterpret_cast<uintptr_t>(a.x) % v == 0) {
       a.xv = v;
       break;
     }
   }
-  a.w_words = g.cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  a.out_pairs = g.cout % 2 == 0 && reinterpret_cast<uintptr_t>(acc) % 8 == 0;
+  a.w_words = g.cout % 4 == 0 && reinterpret_cast<uintptr_t>(a.w) % 4 == 0;
+  // two columns of int32 (8 bytes) or of int8 (2 bytes) at once
+  const uintptr_t out = kMode == kRequant ? reinterpret_cast<uintptr_t>(a.q)
+                                          : reinterpret_cast<uintptr_t>(a.acc);
+  a.out_pairs = g.cout % 2 == 0 && out % (kMode == kRequant ? 2 : 8) == 0;
   a.step8 = split_pixel(8, g);
   const int smem = smem_bytes(bt_k);
   int blocks = 0;
@@ -604,131 +634,6 @@ int launch_mma(const void* x, const void* w, const void* colsum,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// qconv2d_requant_kernel: row 3
-// ---------------------------------------------------------------------------
-
-constexpr int kTilePix = 32;                  // output pixels per block
-constexpr int kTileCout = 32;                 // output channels per block
-constexpr int kGroups = 4;                    // warps per block
-constexpr int kChanPerThread = kTileCout / kGroups;
-constexpr int kThreads = kTilePix * kGroups;
-constexpr size_t kDefaultSmem = 48 * 1024;
-
-// Input channels 4*group .. 4*group+3 of one pixel packed little-endian into
-// one word; channels at or past cin read as 0.
-template <bool kAligned>
-__device__ __forceinline__ int load_x4(const int8_t* row, int group, int cin) {
-  if (kAligned) return __ldg(reinterpret_cast<const int*>(row) + group);
-  uint32_t v = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int c = 4 * group + b;
-    if (c < cin) v |= static_cast<uint32_t>(static_cast<uint8_t>(row[c])) << (8 * b);
-  }
-  return static_cast<int>(v);
-}
-
-template <bool kAligned>
-__global__ void __launch_bounds__(kThreads)
-qconv2d_requant_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                       const int32_t* __restrict__ colsum,
-                       const int32_t* __restrict__ bias,
-                       const float* __restrict__ scale,
-                       const int32_t* __restrict__ zps,
-                       int8_t* __restrict__ q_out, Geometry g) {
-  extern __shared__ int smem_w[];
-  const int cin4 = (g.cin + 3) / 4;
-  const int taps = g.kh * g.kw;
-  int* w_s = smem_w;                              // [taps][cin4][kTileCout]
-  const int c0 = blockIdx.y * kTileCout;
-
-  for (int e = threadIdx.x; e < taps * cin4 * kTileCout; e += kThreads) {
-    const int c = e % kTileCout;
-    const int group = (e / kTileCout) % cin4;
-    const int tap = e / (kTileCout * cin4);
-    uint32_t v = 0;
-    if (c0 + c < g.cout) {
-      for (int b = 0; b < 4; ++b) {
-        const int ci = 4 * group + b;
-        if (ci < g.cin) {
-          const int8_t wv = w[(static_cast<size_t>(tap) * g.cin + ci) * g.cout + c0 + c];
-          v |= static_cast<uint32_t>(static_cast<uint8_t>(wv)) << (8 * b);
-        }
-      }
-    }
-    w_s[e] = static_cast<int>(v);
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x % kTilePix;
-  const int grp = threadIdx.x / kTilePix;
-  const long long plane = static_cast<long long>(g.oh) * g.ow;
-  const long long pix = static_cast<long long>(blockIdx.x) * kTilePix + lane;
-  if (pix >= g.n * plane) return;
-  const int img = static_cast<int>(pix / plane);
-  const int rem = static_cast<int>(pix % plane);
-  const int oy = rem / g.ow;
-  const int ox = rem % g.ow;
-
-  int acc[kChanPerThread];
-#pragma unroll
-  for (int k = 0; k < kChanPerThread; ++k) acc[k] = 0;
-
-  for (int i = 0; i < g.kh; ++i) {
-    for (int j = 0; j < g.kw; ++j) {
-      const int8_t* row = x + ((static_cast<size_t>(img) * g.hp + oy * g.sh + i) * g.wp
-                               + ox * g.sw + j) * g.cin;
-      const int* w_tap = w_s + (i * g.kw + j) * cin4 * kTileCout + grp * kChanPerThread;
-      for (int group = 0; group < cin4; ++group) {
-        const int xv = load_x4<kAligned>(row, group, g.cin);
-        const int* w_grp = w_tap + group * kTileCout;
-#pragma unroll
-        for (int k = 0; k < kChanPerThread; ++k) acc[k] = __dp4a(xv, w_grp[k], acc[k]);
-      }
-    }
-  }
-
-  const size_t out_base = static_cast<size_t>(pix) * g.cout;
-  const uint32_t zp_u = static_cast<uint32_t>(zps[0]);
-#pragma unroll
-  for (int k = 0; k < kChanPerThread; ++k) {
-    const int c = c0 + grp * kChanPerThread + k;
-    if (c >= g.cout) break;
-    uint32_t a = static_cast<uint32_t>(acc[k]) - zp_u * static_cast<uint32_t>(colsum[c]);
-    a += static_cast<uint32_t>(bias[c]);
-    float y = __fmul_rn(__int2float_rn(static_cast<int>(a)), scale[c]);
-    y = __fadd_rn(rintf(y), static_cast<float>(zps[1]));
-    y = fminf(fmaxf(y, -128.0f), 127.0f);
-    q_out[out_base + c] = static_cast<int8_t>(y);
-  }
-}
-
-int launch_requant(const void* x, const void* w, const void* colsum,
-                   const void* bias, const void* scale, const void* zps,
-                   void* q_out, Geometry g, void* stream) {
-  const long long npix = static_cast<long long>(g.n) * g.oh * g.ow;
-  if (npix == 0 || g.cout == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(static_cast<unsigned>((npix + kTilePix - 1) / kTilePix),
-                  static_cast<unsigned>((g.cout + kTileCout - 1) / kTileCout));
-  const int cin4 = (g.cin + 3) / 4;
-  const size_t smem = sizeof(int) * g.kh * g.kw * cin4 * kTileCout;
-  const bool aligned = g.cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  auto kernel = aligned ? &qconv2d_requant_kernel<true>
-                        : &qconv2d_requant_kernel<false>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(colsum), static_cast<const int32_t*>(bias),
-      static_cast<const float*>(scale), static_cast<const int32_t*>(zps),
-      static_cast<int8_t*>(q_out), g);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -738,9 +643,14 @@ int qconv2d_acc_launch(const void* x, const void* w, const void* colsum,
                        int cin, int kh, int kw, int cout, int oh, int ow,
                        int sh, int sw, int tiles, int grid_y, int bt_k,
                        void* stream) {
-  const Geometry g{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
-  return launch_mma<kAcc>(x, w, colsum, nullptr, zp, out, nullptr, g, tiles,
-                          grid_y, bt_k, stream);
+  MmaArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.colsum = static_cast<const int32_t*>(colsum);
+  a.zp = static_cast<const int32_t*>(zp);
+  a.acc = static_cast<int32_t*>(out);
+  a.g = Geometry{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
+  return launch_mma<kAcc>(a, tiles, grid_y, bt_k, stream);
 }
 
 int qconv2d_acc_checksum_launch(const void* x, const void* w,
@@ -750,17 +660,33 @@ int qconv2d_acc_checksum_launch(const void* x, const void* w,
                                 int cout, int oh, int ow, int sh, int sw,
                                 int tiles, int grid_y, int bt_k,
                                 void* stream) {
-  const Geometry g{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
-  return launch_mma<kAccChecksum>(x, w, colsum, w_check, zp, out, want, g,
-                                  tiles, grid_y, bt_k, stream);
+  MmaArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.colsum = static_cast<const int32_t*>(colsum);
+  a.w_check = static_cast<const int32_t*>(w_check);
+  a.zp = static_cast<const int32_t*>(zp);
+  a.acc = static_cast<int32_t*>(out);
+  a.want = static_cast<int32_t*>(want);
+  a.g = Geometry{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
+  return launch_mma<kAccChecksum>(a, tiles, grid_y, bt_k, stream);
 }
 
 int qconv2d_launch(const void* x, const void* w, const void* colsum,
                    const void* bias, const void* scale, const void* zps,
                    void* out, int n, int hp, int wp, int cin, int kh, int kw,
-                   int cout, int oh, int ow, int sh, int sw, void* stream) {
-  const Geometry g{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
-  return launch_requant(x, w, colsum, bias, scale, zps, out, g, stream);
+                   int cout, int oh, int ow, int sh, int sw, int tiles,
+                   int grid_y, int bt_k, void* stream) {
+  MmaArgs a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.colsum = static_cast<const int32_t*>(colsum);
+  a.bias = static_cast<const int32_t*>(bias);
+  a.scale = static_cast<const float*>(scale);
+  a.zp = static_cast<const int32_t*>(zps);
+  a.q = static_cast<int8_t*>(out);
+  a.g = Geometry{n, hp, wp, cin, kh, kw, cout, oh, ow, sh, sw};
+  return launch_mma<kRequant>(a, tiles, grid_y, bt_k, stream);
 }
 
 }  // extern "C"

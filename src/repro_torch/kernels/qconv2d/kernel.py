@@ -2,10 +2,10 @@
 
 CUDA C++ for ``sm_90a`` in ``csrc/qconv2d.cu`` (the source's header says
 which TPU kernel each replaces, what bounds it and what its design does
-about that), built and bound by ``kernels/cuda_lib.py``.  The two
-accumulator kernels run on one int8 tensor-core template; ``plan`` picks
-its tiles and how much of B it stages at once, and the C entry launches
-that plan after checking it.
+about that), built and bound by ``kernels/cuda_lib.py``.  The three
+kernels run on one int8 tensor-core template; ``plan`` picks its tiles and
+how much of B it stages at once, and each C entry launches that plan after
+checking it.
 
 Each wrapper checks dtypes, shapes and contiguity, then:
 
@@ -34,9 +34,9 @@ _PLAN = [_I] * 3                  # tiles grid_y bt_k
 _ENTRIES = {
     "qconv2d_acc_launch": [_P] * 5 + _GEOMETRY + _PLAN + [_P],
     "qconv2d_acc_checksum_launch": [_P] * 7 + _GEOMETRY + _PLAN + [_P],
-    "qconv2d_launch": [_P] * 7 + _GEOMETRY + [_P],
+    "qconv2d_launch": [_P] * 7 + _GEOMETRY + _PLAN + [_P],
 }
-# The accumulator kernel's constants (qconv2d.cu) and the card's.
+# The template's constants (qconv2d.cu) and the card's.
 TILE_M, TILE_N = 128, 24          # pixels, channels per block
 WARPS = 8
 MACRO = 64                        # K bytes of two mma steps
@@ -46,7 +46,7 @@ MAX_SMEM = 232448                 # 227 KB a block can take
 
 
 class Plan(NamedTuple):
-    """The accumulator kernel's launch: pixel tiles, Cout tiles
+    """The template's launch: pixel tiles, Cout tiles
     (gridDim.y), and the K bytes of B staged at once (all of K rounded up
     to 64 where that fits, else ``MAX_BT_K``).  The C entry refuses a plan
     that leaves a pixel or channel out or does not fit, and launches one
@@ -184,7 +184,7 @@ def qconv2d(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     acc - x_zp·colsum + bias, ×scale in f32, round half to even, + out_zp,
     clip.  zps is (2,) int32 = [x_zp, out_zp]."""
     geo = _geometry(x_p, w_q, stride)
-    n, _, _, _, _, _, cout, oh, ow, _, _ = geo
+    n, _, _, cin, kh, kw, cout, oh, ow, _, _ = geo
     _expect(colsum, "colsum", torch.int32, (cout,))
     _expect(bias, "bias", torch.int32, (cout,))
     _expect(scale, "scale", torch.float32, (cout,))
@@ -192,10 +192,11 @@ def qconv2d(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     if not _on_card(x_p, w_q, colsum, bias, scale, zps):
         return ref.qconv2d_plain(x_p, w_q, colsum, bias, scale, zps,
                                  stride=stride)
+    p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int8, device=x_p.device)
     _launch("qconv2d_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
             colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-            zps.data_ptr(), out.data_ptr(), *geo)
+            zps.data_ptr(), out.data_ptr(), *geo, *p)
     qconv2d.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 // Int8 matmul kernels for Hopper (sm_90a), plain C entry points bound from
 // Python with ctypes (kernels/qmatmul/kernel.py).
 //
-// Replaces the three Pallas TPU kernels of src/repro/kernels/qmatmul/kernel.py:
+// Replaces the three Pallas TPU kernels of src/repro/kernels/qmatmul/kernel.py,
+// all three on one template, qmatmul_mma_kernel<kMode>:
 //   qmatmul_acc           (kernel.py:138)  X (M,K) int8 . W (K,N) int8
 //                                          -> (M,N) int32 accumulator
 //                                          qmatmul_mma_kernel<kAcc>
@@ -10,7 +11,7 @@
 //                                          qmatmul_mma_kernel<kAccChecksum>
 //   qmatmul               (kernel.py:224)  the same acc plus the fused
 //                                          requantisation epilogue -> int8
-//                                          qmatmul_requant_kernel
+//                                          qmatmul_mma_kernel<kRequant>
 // X and W are row-major; the outputs are row-major.  Integer results wrap
 // mod 2^32 as the reference's do, bit for bit.
 //
@@ -26,7 +27,7 @@
 // call, every load of a block in flight before its first wait, about one
 // wave of blocks, and few barriers after the loads.
 //
-// The accumulator kernels, qmatmul_mma_kernel<kMode>.
+// The template.
 //
 //   Tensor cores, with A and B swapped.  The products run on
 //   mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 as C^T = W^T . X^T:
@@ -69,8 +70,9 @@
 //   memory and pushes the sum into slot `rank` of rank 0's shared memory
 //   through DSMEM (cluster.map_shared_rank); after one cluster.sync() rank
 //   0 adds the slots in rank order and writes acc (and want) with plain
-//   stores.  Every thread arrives on the cluster barrier's first phase as
-//   the kernel starts and waits on it just before the first push, so no
+//   stores, or requantises them (below).  Every thread arrives on the
+//   cluster barrier's first phase as the kernel starts and waits on it
+//   just before the first push, so no
 //   block writes into a rank that has not started.  No memset, no
 //   atomics: one call is one device op.  Rank 0 pulling the partials from
 //   the other ranks instead would need a round trip of remote loads and a
@@ -86,18 +88,17 @@
 //   to rank 0 beside the partial tiles.  A check computed from acc could
 //   not catch a flip in it.
 //
-// The fused kernel, qmatmul_requant_kernel.  The first port's design, on
-// the CUDA cores: a grid of (N tiles of 64 columns, M tiles of 16 rows),
-// the whole K loop inside the block (128 rows of W per stage, every load
-// of a stage issued before use), W as 32-bit words of four neighbouring
-// columns transposed with __byte_perm into k-packed words so that one
-// __dp4a does four int8 MACs, 2 rows x 4 columns of int32 accumulators per
-// thread.  It requantises in registers, so int32 never reaches device
-// memory, and gives JAX's rounding bit for bit: int->float
-// round-to-nearest, a multiply that is never contracted into an FMA
-// (__fmul_rn), rintf (half to even), + out_zp, clamp to [-128, 127].  The
-// zero-point correction runs in uint32 (signed overflow is undefined in
-// C++).  It never splits K: the epilogue needs the whole sum.
+//   The fused kernel (row 6) is the same kernel up to rank 0's sum, which
+//   is the whole int32 sum of each output, exact mod 2^32 in any order.
+//   Rank 0 requantises it there, so int32 never reaches device memory, and
+//   gives JAX's rounding bit for bit: the zero-point and bias terms in
+//   uint32 (signed overflow is undefined in C++), int->float
+//   round-to-nearest, a multiply that is never contracted into an FMA
+//   (__fmul_rn), rintf (half to even), + out_zp (__fadd_rn), clamp to
+//   [-128, 127].  A thread sums the same 4 columns of every row it takes, so
+//   it loads their constants (bias - x_zp * colsum, scale) once, before the
+//   cluster barrier, and stores each row's 4 int8 as one 4-byte store: a
+//   block writes 32 contiguous bytes per row of X.
 //
 // Each C entry returns a CUDA error code (0 on success): a plan it cannot
 // run, or cudaGetLastError() after its launch.
@@ -139,7 +140,7 @@ constexpr int kMaxCluster = 8;                // portable cluster size
 constexpr int kMaxSmem = 232448;              // 227 KB a block can take
 constexpr int kRedStride = kTileN + 4;        // words per partial-tile row
 
-enum Mode { kAcc = 0, kAccChecksum = 1 };
+enum Mode { kAcc = 0, kAccChecksum = 1, kRequant = 2 };
 
 // The launch plan from kernel.py's plan(): X rows per block, K rows per
 // cluster rank, K rows per staged chunk, ranks per cluster, blocks.
@@ -156,9 +157,14 @@ struct Layout {
 struct Args {
   const int8_t* x;
   const int8_t* w;
-  const int32_t* w_check;
-  int32_t* acc;
-  int32_t* want;
+  const int32_t* w_check;                     // kAccChecksum
+  const int32_t* colsum;                      // kRequant
+  const int32_t* bias;                        // kRequant
+  const float* scale;                         // kRequant
+  const int32_t* zps;                         // kRequant: [x_zp, out_zp]
+  int32_t* acc;                               // kAcc, kAccChecksum
+  int32_t* want;                              // kAccChecksum
+  int8_t* q;                                  // kRequant
   int m, k, n;
   int tile_m, k_rank, k_chunk;
   int rw;                                     // words per staged X / W^T row
@@ -167,7 +173,7 @@ struct Args {
   int tpr_log;                                // log2 of the check's lanes per row
   Layout L;                                   // X rows start at offset 0
   bool x_vec, w_vec, wc_vec;                  // 16-byte cp.async allowed
-  bool acc_vec;                               // 16-byte stores allowed
+  bool out_vec;                               // 4-column stores allowed
 };
 
 // Words per staged row of k_chunk K bytes (a multiple of 32): 4 mod 8, so
@@ -240,6 +246,15 @@ __device__ __forceinline__ void mma_s8(uint32_t (&d)[4], const uint32_t (&a)[4],
 
 __device__ __forceinline__ uint4 add4(uint4 s, uint4 v) {
   return make_uint4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+}
+
+// JAX's requantisation of one wrapped int32 sum v, bit for bit: v to f32
+// rounded to nearest, times scale (never contracted into an FMA), rounded
+// half to even, + out_zp, clamped to int8.
+__device__ __forceinline__ int8_t requant(uint32_t v, float scale, float out_zp) {
+  float y = __fmul_rn(__int2float_rn(static_cast<int>(v)), scale);
+  y = __fadd_rn(rintf(y), out_zp);
+  return static_cast<int8_t>(fminf(fmaxf(y, -128.0f), 127.0f));
 }
 
 template <int kMode>
@@ -434,13 +449,32 @@ __global__ void __launch_bounds__(kMmaThreads) qmatmul_mma_kernel(Args a) {
     }
     *reinterpret_cast<uint4*>(slot + i) = s;
   }
+  // the fused kernel's constants of this thread's 4 columns (the same in
+  // every row it takes below), loaded while the cluster meets
+  const int c = 4 * (tid % (kTileN / 4));
+  uint32_t off[4] = {};
+  float sc[4] = {};
+  float out_zp = 0.0f;
+  if (kMode == kRequant && rank == 0) {
+    const uint32_t x_zp = static_cast<uint32_t>(__ldg(a.zps));
+    out_zp = static_cast<float>(__ldg(a.zps + 1));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (n0 + c + i < a.n) {
+        off[i] = static_cast<uint32_t>(__ldg(a.bias + n0 + c + i))
+                 - x_zp * static_cast<uint32_t>(__ldg(a.colsum + n0 + c + i));
+        sc[i] = __ldg(a.scale + n0 + c + i);
+      }
+    }
+  }
   cluster.sync();  // every push has landed in rank 0
   if (rank != 0) return;
 
-  // Rank 0 sums the slots in rank order and stores the tile and want.
+  // Rank 0 sums the slots in rank order and stores the tile and want, or
+  // the requantised tile.
+  static_assert(kMmaThreads % (kTileN / 4) == 0, "a thread keeps its columns");
   for (int e = tid; e < groups; e += kMmaThreads) {
     const int r = e / (kTileN / 4);
-    const int c = 4 * (e % (kTileN / 4));
     uint4 v[kMaxCluster];
 #pragma unroll
     for (int q = 0; q < kMaxCluster; ++q) {
@@ -454,16 +488,28 @@ __global__ void __launch_bounds__(kMmaThreads) qmatmul_mma_kernel(Args a) {
     for (int q = 1; q < kMaxCluster; ++q) {
       if (q < ranks) s = add4(s, v[q]);
     }
-    if (m0 + r < a.m) {
-      int32_t* out = a.acc + static_cast<size_t>(m0 + r) * a.n + n0 + c;
-      if (a.acc_vec && n0 + c + 4 <= a.n) {
-        *reinterpret_cast<uint4*>(out) = s;
+    if (m0 + r >= a.m) continue;
+    const size_t at = static_cast<size_t>(m0 + r) * a.n + n0 + c;
+    const bool vec = a.out_vec && n0 + c + 4 <= a.n;
+    const uint32_t sv[4] = {s.x, s.y, s.z, s.w};
+    if constexpr (kMode == kRequant) {
+      int8_t y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = requant(sv[i] + off[i], sc[i], out_zp);
+      if (vec) {
+        *reinterpret_cast<char4*>(a.q + at) = make_char4(y[0], y[1], y[2], y[3]);
       } else {
-        const uint32_t sv[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          if (n0 + c + i < a.n) out[i] = static_cast<int32_t>(sv[i]);
+          if (n0 + c + i < a.n) a.q[at + i] = y[i];
         }
+      }
+    } else if (vec) {
+      *reinterpret_cast<uint4*>(a.acc + at) = s;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (n0 + c + i < a.n) a.acc[at + i] = static_cast<int32_t>(sv[i]);
       }
     }
   }
@@ -483,9 +529,12 @@ __global__ void __launch_bounds__(kMmaThreads) qmatmul_mma_kernel(Args a) {
   }
 }
 
+// The plan (kernel.py's plan()) checked, then launched as clusters of
+// (1, ranks, 1).  `a` holds the entry's pointers and shape; the rest is
+// filled in here.
 template <int kMode>
-int launch_mma(const void* x, const void* w, const void* w_check, void* acc,
-               void* want, int m, int k, int n, Plan p, void* stream) {
+int launch_mma(Args a, Plan p, void* stream) {
+  const int m = a.m, k = a.k, n = a.n;
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
   const long long n_tiles = (n + kTileN - 1) / kTileN;
   const long long m_tiles = p.tile_m > 0 ? (m + p.tile_m - 1) / p.tile_m : 0;
@@ -506,15 +555,6 @@ int launch_mma(const void* x, const void* w, const void* w_check, void* acc,
         L.total);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  Args a;
-  a.x = static_cast<const int8_t*>(x);
-  a.w = static_cast<const int8_t*>(w);
-  a.w_check = static_cast<const int32_t*>(w_check);
-  a.acc = static_cast<int32_t*>(acc);
-  a.want = static_cast<int32_t*>(want);
-  a.m = m;
-  a.k = k;
-  a.n = n;
   a.tile_m = p.tile_m;
   a.k_rank = p.k_rank;
   a.k_chunk = p.k_chunk;
@@ -528,10 +568,13 @@ int launch_mma(const void* x, const void* w, const void* w_check, void* acc,
   a.tpr_log = log2i(tpr);
   a.L = L;
   // 16-byte copies need 16-byte aligned rows
-  a.x_vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  a.w_vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  a.wc_vec = reinterpret_cast<uintptr_t>(w_check) % 16 == 0;
-  a.acc_vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  a.x_vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  a.w_vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
+  a.wc_vec = reinterpret_cast<uintptr_t>(a.w_check) % 16 == 0;
+  // 4 columns of int32 (16 bytes) or of int8 (4 bytes) at once
+  a.out_vec = n % 4 == 0
+              && (kMode == kRequant ? reinterpret_cast<uintptr_t>(a.q) % 4 == 0
+                                    : reinterpret_cast<uintptr_t>(a.acc) % 16 == 0);
 
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -551,156 +594,6 @@ int launch_mma(const void* x, const void* w, const void* w_check, void* acc,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// ---------------------------------------------------------------------------
-// qmatmul_requant_kernel: row 6
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;
-constexpr int kBM = 16;                       // rows of X per block
-constexpr int kBN = 64;                       // columns of W per block
-constexpr int kBK = 128;                      // K per stage
-constexpr int kK4 = kBK / 4;                  // k-packed words per stage
-constexpr int kColThreads = kBN / 4;          // 16 threads across columns
-
-struct Shape {
-  int m, k, n;
-};
-
-__device__ __forceinline__ uint32_t byte_at(const int8_t* p, size_t i) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(p[i]));
-}
-
-// One stage's loads, issued together before any of them is used: 4 words
-// of X and 4 x 4 words of W per thread, zero-filled outside [0, M) x
-// [k0, K) x [0, N).
-struct Stage {
-  int x[4];
-  int w[4][4];
-};
-
-__device__ __forceinline__ void load_stage(Stage& st, const int8_t* __restrict__ x,
-                                           const int8_t* __restrict__ w,
-                                           const Shape& s, int m0, int n0, int k0,
-                                           bool x_words, bool w_words) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // X: kBM rows x kK4 words, as X lies in memory
-    const int e = tid + i * kThreads;
-    const int m = m0 + e / kK4;
-    const int k = k0 + 4 * (e % kK4);
-    uint32_t v = 0;
-    if (m < s.m && k < s.k) {
-      const size_t base = static_cast<size_t>(m) * s.k + k;
-      if (x_words && k + 4 <= s.k) {
-        v = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(x + base)));
-      } else {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (k + b < s.k) v |= byte_at(x, base + b) << (8 * b);
-        }
-      }
-    }
-    st.x[i] = static_cast<int>(v);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // W: 4 K rows x 4 neighbouring columns
-    const int e = tid + i * kThreads;
-    const int n = n0 + 4 * (e % kColThreads);
-    const int k = k0 + 4 * (e / kColThreads);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t v = 0;
-      if (n < s.n && k + j < s.k) {
-        const size_t base = static_cast<size_t>(k + j) * s.n + n;
-        if (w_words) {
-          v = static_cast<uint32_t>(__ldg(reinterpret_cast<const int*>(w + base)));
-        } else {
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            if (n + b < s.n) v |= byte_at(w, base + b) << (8 * b);
-          }
-        }
-      }
-      st.w[i][j] = static_cast<int>(v);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-qmatmul_requant_kernel(const int8_t* __restrict__ x,
-                       const int8_t* __restrict__ w,
-                       const int32_t* __restrict__ colsum,
-                       const int32_t* __restrict__ bias,
-                       const float* __restrict__ scale,
-                       const int32_t* __restrict__ zps,
-                       int8_t* __restrict__ q_out, Shape s, bool x_words,
-                       bool w_words) {
-  __shared__ int x_s[kBM][kK4 + 1];
-  __shared__ __align__(16) int w_s[kK4][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kColThreads;
-  const int ty = tid / kColThreads;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-
-  int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-  Stage st;
-
-  for (int k0 = 0; k0 < s.k; k0 += kBK) {
-    load_stage(st, x, w, s, m0, n0, k0, x_words, w_words);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = tid + i * kThreads;
-      x_s[e / kK4][e % kK4] = st.x[i];
-      const int q = e % kColThreads;
-      const int k4 = e / kColThreads;
-      int cols[4];
-      transpose4x4(st.w[i][0], st.w[i][1], st.w[i][2], st.w[i][3], cols);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w_s[k4][4 * q + c] = cols[c];
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int k4 = 0; k4 < kK4; ++k4) {
-      const int4 wv = *reinterpret_cast<const int4*>(&w_s[k4][4 * tx]);
-      const int xa = x_s[2 * ty][k4];
-      const int xb = x_s[2 * ty + 1][k4];
-      acc[0][0] = __dp4a(xa, wv.x, acc[0][0]);
-      acc[0][1] = __dp4a(xa, wv.y, acc[0][1]);
-      acc[0][2] = __dp4a(xa, wv.z, acc[0][2]);
-      acc[0][3] = __dp4a(xa, wv.w, acc[0][3]);
-      acc[1][0] = __dp4a(xb, wv.x, acc[1][0]);
-      acc[1][1] = __dp4a(xb, wv.y, acc[1][1]);
-      acc[1][2] = __dp4a(xb, wv.z, acc[1][2]);
-      acc[1][3] = __dp4a(xb, wv.w, acc[1][3]);
-    }
-    __syncthreads();
-  }
-
-  const uint32_t x_zp = static_cast<uint32_t>(zps[0]);
-  const float out_zp = static_cast<float>(zps[1]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int m = m0 + 2 * ty + i;
-    if (m >= s.m) continue;
-    const size_t row = static_cast<size_t>(m) * s.n;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n >= s.n) continue;
-      const uint32_t a = static_cast<uint32_t>(acc[i][j])
-                         - x_zp * static_cast<uint32_t>(colsum[n])
-                         + static_cast<uint32_t>(bias[n]);
-      float y = __fmul_rn(__int2float_rn(static_cast<int>(a)), scale[n]);
-      y = __fadd_rn(rintf(y), out_zp);
-      y = fminf(fmaxf(y, -128.0f), 127.0f);
-      q_out[row + n] = static_cast<int8_t>(y);
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -708,9 +601,12 @@ extern "C" {
 int qmatmul_acc_launch(const void* x, const void* w, void* out, int m, int k,
                        int n, int tile_m, int k_rank, int k_chunk,
                        int cluster, int grid, void* stream) {
-  return launch_mma<kAcc>(x, w, nullptr, out, nullptr, m, k, n,
-                          Plan{tile_m, k_rank, k_chunk, cluster, grid},
-                          stream);
+  Args a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.acc = static_cast<int32_t*>(out);
+  a.m = m, a.k = k, a.n = n;
+  return launch_mma<kAcc>(a, Plan{tile_m, k_rank, k_chunk, cluster, grid}, stream);
 }
 
 int qmatmul_acc_checksum_launch(const void* x, const void* w,
@@ -718,27 +614,30 @@ int qmatmul_acc_checksum_launch(const void* x, const void* w,
                                 int m, int k, int n, int tile_m, int k_rank,
                                 int k_chunk, int cluster, int grid,
                                 void* stream) {
-  return launch_mma<kAccChecksum>(x, w, w_check, out, want, m, k, n,
-                                  Plan{tile_m, k_rank, k_chunk, cluster, grid},
-                                  stream);
+  Args a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.w_check = static_cast<const int32_t*>(w_check);
+  a.acc = static_cast<int32_t*>(out);
+  a.want = static_cast<int32_t*>(want);
+  a.m = m, a.k = k, a.n = n;
+  return launch_mma<kAccChecksum>(a, Plan{tile_m, k_rank, k_chunk, cluster, grid}, stream);
 }
 
 int qmatmul_launch(const void* x, const void* w, const void* colsum,
                    const void* bias, const void* scale, const void* zps,
-                   void* out, int m, int k, int n, void* stream) {
-  if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(static_cast<unsigned>((n + kBN - 1) / kBN),
-                  static_cast<unsigned>((m + kBM - 1) / kBM));
-  // 32-bit loads need 4-byte aligned rows
-  const bool x_words = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  const bool w_words = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
-  qmatmul_requant_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int32_t*>(colsum), static_cast<const int32_t*>(bias),
-      static_cast<const float*>(scale), static_cast<const int32_t*>(zps),
-      static_cast<int8_t*>(out), Shape{m, k, n}, x_words, w_words);
-  return static_cast<int>(cudaGetLastError());
+                   void* out, int m, int k, int n, int tile_m, int k_rank,
+                   int k_chunk, int cluster, int grid, void* stream) {
+  Args a{};
+  a.x = static_cast<const int8_t*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.colsum = static_cast<const int32_t*>(colsum);
+  a.bias = static_cast<const int32_t*>(bias);
+  a.scale = static_cast<const float*>(scale);
+  a.zps = static_cast<const int32_t*>(zps);
+  a.q = static_cast<int8_t*>(out);
+  a.m = m, a.k = k, a.n = n;
+  return launch_mma<kRequant>(a, Plan{tile_m, k_rank, k_chunk, cluster, grid}, stream);
 }
 
 }  // extern "C"

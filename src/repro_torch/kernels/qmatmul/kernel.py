@@ -2,9 +2,10 @@
 
 CUDA C++ for ``sm_90a`` in ``csrc/qmatmul.cu`` (the source's header says
 which TPU kernel each replaces, what bounds it and what its design does
-about that), built and bound by ``kernels/cuda_lib.py``.  The two
-accumulator kernels run on one tensor-core template launched as thread
-block clusters; ``plan`` picks its tiles, K split and grid per shape.
+about that), built and bound by ``kernels/cuda_lib.py``.  The three
+kernels run on one tensor-core template launched as thread block
+clusters; ``plan`` picks its tiles, K split and grid per shape, and each C
+entry launches that plan after checking it.
 
 Each wrapper checks dtypes, shapes and contiguity, then:
 
@@ -33,9 +34,9 @@ _PLAN = [_I] * 5                  # tile_m k_rank k_chunk cluster grid
 _ENTRIES = {
     "qmatmul_acc_launch": [_P] * 3 + _SHAPE + _PLAN + [_P],
     "qmatmul_acc_checksum_launch": [_P] * 5 + _SHAPE + _PLAN + [_P],
-    "qmatmul_launch": [_P] * 7 + _SHAPE + [_P],
+    "qmatmul_launch": [_P] * 7 + _SHAPE + _PLAN + [_P],
 }
-# The accumulator kernel's constants (qmatmul.cu) and the card's.
+# The template's constants (qmatmul.cu) and the card's.
 TILE_N = 32                       # W columns per block
 MAX_TILE_M = 64                   # X rows per block
 K_STEP = 32                       # K of one mma
@@ -50,7 +51,7 @@ _WARPS = 8
 
 
 class Plan(NamedTuple):
-    """The accumulator kernel's launch: X rows per block tile, K rows per
+    """The template's launch: X rows per block tile, K rows per
     cluster rank, K rows per staged chunk, ranks per cluster, blocks."""
 
     tile_m: int
@@ -176,7 +177,7 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
     _launch("qmatmul_launch", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
             colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-            zps.data_ptr(), out.data_ptr(), m, k, n)
+            zps.data_ptr(), out.data_ptr(), m, k, n, *plan(m, k, n))
     qmatmul.launches += 1
     return out
 

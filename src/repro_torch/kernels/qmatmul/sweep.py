@@ -5,8 +5,9 @@
   one ``plan`` picks: the measurement behind ``plan``'s limits.
 * With ``--parent DIR`` (a checkout of another commit), row 6
   (``qmatmul``) built from that checkout's ``qmatmul.cu`` and from this
-  one's, on the same inputs, timed in the order parent, this, this,
-  parent, and checked bit-identical.
+  one's, at the FFN shapes and the flash prefills' (M = 256, 1024), on
+  the same inputs, timed in the order parent, this, this, parent, and
+  checked bit-identical.
 
 Device time per call is the mean of the kernel ops that the profiler saw
 over 50 calls; each call must be one op of the expected kernel.  Needs a
@@ -31,9 +32,11 @@ from repro_torch.kernels.cuda_lib import I as _I, P as _P
 from repro_torch.kernels.qmatmul import kernel as MK
 
 ROWS = (8, 64)                    # decode capacity, prefill padding
+PREFILL_ROWS = (256, 1024)        # flash prefills' FFN rows
 D_MODEL, D_FF = 576, 1536         # SmolLM-135M
 REPS = 50
-_REQUANT = {"qmatmul_launch": [_P] * 7 + [_I] * 3 + [_P]}
+# the parent's row 6 (the dp4a kernel) takes no plan
+_PARENT = {"qmatmul_launch": [_P] * 7 + [_I] * 3 + [_P]}
 
 
 def device_ms(fn, kernel: str, reps: int = REPS, tries: int = 5) -> float:
@@ -98,10 +101,9 @@ def sweep(gen) -> list:
 def requant_ab(gen, parent: pathlib.Path) -> list:
     """Row 6 of ``parent``'s source against this one's, parent first."""
     src = parent / MK.SOURCE.relative_to(MK.SOURCE.parents[5])
-    libs = {"parent": cuda_lib.load(src, _REQUANT),
-            "this": cuda_lib.load(MK.SOURCE, _REQUANT)}
+    lib = cuda_lib.load(src, _PARENT)
     out = []
-    for m in ROWS:
+    for m in ROWS + PREFILL_ROWS:
         for k, n in ((D_MODEL, D_FF), (D_FF, D_MODEL)):
             x, w, _ = _inputs(gen, m, k, n)
             colsum = w.to(torch.int32).sum(0).to(torch.int32)
@@ -110,26 +112,28 @@ def requant_ab(gen, parent: pathlib.Path) -> list:
             scale = torch.empty(n, device="cuda").uniform_(1e-4, 5e-3,
                                                            generator=gen)
             zps = torch.tensor([-3, 5], dtype=torch.int32, device="cuda")
-            res = {}
+            y = torch.empty((m, n), dtype=torch.int8, device="cuda")
 
-            def call(lib, y):
+            def parent_fn():
                 cuda_lib.launch(lib, "qmatmul_launch", x.device,
                                 *(t.data_ptr() for t in
                                   (x, w, colsum, bias, scale, zps, y)),
                                 m, k, n)
 
-            for who in ("parent", "this"):
-                res[who] = torch.empty((m, n), dtype=torch.int8,
-                                       device="cuda")
-                call(libs[who], res[who])
-            if not torch.equal(res["parent"], res["this"]):
+            def this_fn():
+                return MK.qmatmul(x, w, colsum, bias, scale, zps)
+
+            parent_fn()
+            if not torch.equal(y, this_fn()):
                 raise AssertionError(f"row 6 differs from the parent's at "
                                      f"{(m, k, n)}")
             ms = {"parent": [], "this": []}
             for who in ("parent", "this", "this", "parent"):
                 ms[who].append(device_ms(
-                    lambda: call(libs[who], res[who]), "qmatmul"))
-            out.append({"shape": (m, k, n), **ms})
+                    this_fn if who == "this" else parent_fn,
+                    "qmatmul_mma_kernel<2>" if who == "this"
+                    else "qmatmul_requant_kernel"))
+            out.append({"shape": (m, k, n), "plan": MK.plan(m, k, n), **ms})
             print(f"  {str((m, k, n)):18s} row 6 parent "
                   + " / ".join(f"{v:.4f}" for v in ms["parent"])
                   + " ms  this " + " / ".join(f"{v:.4f}" for v in ms["this"])

@@ -359,3 +359,137 @@ def test_emulated_plan_matches_pallas_and_plain(case):
     if label == "k_5x5x600":
         assert tkernel.plan(n, *acc.shape[1:3], cin, kh, kw, cout).bt_k \
             < tkernel.k_padded(kh, kw, cin)
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel (row 3): the same template and K walk, then the requant
+# epilogue
+# ---------------------------------------------------------------------------
+
+
+def requant_np(v, scale, out_zp):
+    """The kernel's epilogue on wrapped int32 sums ``v``: to float32 rounded
+    to nearest, a float32 multiply, round half to even, + out_zp in
+    float32, clip to int8."""
+    y = v.astype(np.int32).astype(np.float32) * scale.astype(np.float32)
+    y = np.rint(y) + np.float32(out_zp)
+    return np.clip(y, -128, 127).astype(np.int8)
+
+
+def emulate_requant(x_p, w_q, colsum, bias, scale, zps, stride):
+    """Row 3 as the plan has the card compute it: the accumulator's K walk
+    and pieces (``emulate``), + (bias - x_zp * colsum) mod 2^32, then the
+    epilogue.  Returns the int8 output and the wrapped sums."""
+    acc, _ = emulate(x_p, w_q, colsum, conv_checksum_weight(w_q), zps[:1],
+                     stride)
+    v = wrap_int32(acc.to(torch.int64) + bias.to(torch.int64)).numpy()
+    return requant_np(v, scale.numpy(), int(zps[1])), v
+
+
+def _requant_case(seed, n, h, w, cin, kh, kw, cout, stride, padding,
+                  ties=False, wraps=False):
+    """Row 3's inputs.  ``ties``: x in [-4, 4), w in [-1, 1], scale 0.5, so
+    that every odd sum lands on .5 and the larger ones clamp at both ends;
+    ``wraps``: biases within 1000 of ±2^31 and scales near 2^-25, so that
+    the wrapped sums, not the exact ones, set the output."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-4, 4) if ties else (-128, 128)
+    x = rng.integers(lo, hi, (n, h, w, cin)).astype(np.int8)
+    wq = rng.integers(-1, 2, (kh, kw, cin, cout)) if ties else \
+        rng.integers(-127, 128, (kh, kw, cin, cout))
+    wq = wq.astype(np.int8)
+    zps = rng.integers(-10, 11, 2)
+    if wraps:
+        bias = np.where(np.arange(cout) % 2 == 0,
+                        2 ** 31 - 1 - rng.integers(0, 1000, cout),
+                        -2 ** 31 + rng.integers(0, 1000, cout))
+        scale = rng.uniform(2e-8, 4e-8, cout)
+    else:
+        bias = rng.integers(-1000, 1000, cout)
+        scale = np.full(cout, 0.5) if ties else rng.uniform(1e-4, 5e-3, cout)
+    t_x, t_w = torch.from_numpy(x), torch.from_numpy(wq)
+    t_zps = torch.from_numpy(zps.astype(np.int32))
+    pads = tops.resolve_pads(h, w, kh, kw, stride, padding)
+    x_p = tops.pad_zp(t_x, t_zps[0], pads)
+    return (x_p, t_w, tops.weight_colsum(t_w),
+            torch.from_numpy(bias.astype(np.int32)),
+            torch.from_numpy(scale.astype(np.float32)), t_zps)
+
+
+# (label, n, h, w, cin, kh, kw, cout, stride, padding, extra)
+REQUANT_CASES = [(f"reduced_{s.name}", 1, s.h, s.w, s.cin, s.kh, s.kw,
+                  s.cout, (s.stride, s.stride), "SAME", {})
+                 for s in shipdet.reduced_specs()]
+REQUANT_CASES += [
+    ("stem_cin3", 2, 20, 18, 3, 3, 3, 24, (2, 2), "SAME", {}),
+    ("ragged", 2, 13, 11, 10, 3, 3, 70, (1, 1), "SAME", {}),
+    ("cin_5_cout_6", 1, 9, 9, 5, 3, 3, 6, (1, 1), "SAME", {}),
+    ("stride_2x1", 2, 17, 19, 8, 5, 3, 16, (2, 1), "VALID", {}),
+    ("ties_and_clamps", 2, 9, 8, 24, 3, 3, 24, (1, 1), "SAME",
+     {"ties": True}),
+    ("ties_cout_70", 1, 7, 9, 40, 3, 3, 70, (2, 2), "SAME", {"ties": True}),
+    ("wraps", 1, 7, 6, 16, 3, 3, 20, (1, 1), "SAME", {"wraps": True}),
+    ("k_5x5x600", 1, 5, 6, 600, 5, 5, 26, (1, 1), "SAME", {}),
+]
+
+
+@pytest.mark.parametrize("case", REQUANT_CASES,
+                         ids=[c[0] for c in REQUANT_CASES])
+def test_emulated_requant_matches_pallas_and_plain(case):
+    label, n, h, w, cin, kh, kw, cout, stride, padding, extra = case
+    args = _requant_case(n * 1000 + cin * 10 + cout + 7, n, h, w, cin, kh,
+                         kw, cout, stride, padding, **extra)
+    got, v = emulate_requant(*args, stride)
+    j_out = jkernel.qconv2d(*(jnp.asarray(t.numpy()) for t in args),
+                            stride=stride, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(j_out))
+    plain = tkernel.qconv2d(*args, stride=stride)
+    np.testing.assert_array_equal(got, plain.numpy())
+    if extra.get("ties"):
+        ties = (v % 2 != 0) & (np.abs(v) < 250)
+        assert ties.sum() > 100
+        assert (got == 127).any() and (got == -128).any()
+        # half to even: a tie rounds to the even neighbour, which half away
+        # from zero would miss on every other tie
+        away = np.clip(np.trunc(v * 0.5 + np.sign(v) * 0.5)
+                       + int(args[5][1]), -128, 127)
+        assert (got[ties] != away[ties]).any()
+    if extra.get("wraps"):
+        exact = emulate(args[0], args[1], args[2],
+                        conv_checksum_weight(args[1]), args[5][:1],
+                        stride)[0].to(torch.int64) + args[3].to(torch.int64)
+        assert (exact.abs() >= 2 ** 31).any()
+        assert (np.abs(got.astype(np.int64)) < 127).mean() > 0.5
+    if label == "k_5x5x600":
+        assert tkernel.plan(n, *got.shape[1:3], cin, kh, kw, cout).bt_k \
+            < tkernel.k_padded(kh, kw, cin)
+
+
+@pytest.mark.parametrize("name", ["qconv2d_acc", "qconv2d_acc_checksum",
+                                  "qconv2d"])
+@pytest.mark.parametrize("geometry", [(2, 15, 13, 3, 3, 3, 24),
+                                      (1, 9, 10, 600, 5, 5, 40),
+                                      (4, 49, 49, 96, 1, 1, 6)])
+def test_wrappers_pass_the_plan_to_their_entry(monkeypatch, name, geometry):
+    """Each wrapper on a card tensor hands its entry the geometry and
+    ``plan()``'s launch, as many arguments as the entry declares."""
+    n, h, w, cin, kh, kw, cout = geometry
+    case = _requant_case(3, n, h, w, cin, kh, kw, cout, (1, 1), "VALID")
+    x_p, w_q, colsum, bias, scale, zps = case
+    args = {"qconv2d_acc": (x_p, w_q, colsum, zps[:1]),
+            "qconv2d_acc_checksum": (x_p, w_q, colsum,
+                                     conv_checksum_weight(w_q), zps[:1]),
+            "qconv2d": case}[name]
+    seen = []
+    monkeypatch.setattr(tkernel, "_on_card", lambda *t: True)
+    monkeypatch.setattr(tkernel, "_launch",
+                        lambda entry, device, *a: seen.append((entry, a)))
+    before = getattr(tkernel, name).launches
+    getattr(tkernel, name)(*args, stride=(1, 1))
+    (entry, passed), = seen
+    oh, ow = h - kh + 1, w - kw + 1
+    assert entry == f"{name}_launch"
+    assert len(passed) + 1 == len(tkernel._ENTRIES[entry])    # + the stream
+    assert passed[-14:] == (n, h, w, cin, kh, kw, cout, oh, ow, 1, 1,
+                            *tkernel.plan(n, oh, ow, cin, kh, kw, cout))
+    assert getattr(tkernel, name).launches == before + 1

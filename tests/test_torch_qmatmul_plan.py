@@ -186,3 +186,106 @@ def test_emulated_plan_matches_pallas_and_plain(m, k, n, fill):
     if fill is not None:
         exact = x.astype(np.int64) @ t_check.numpy().astype(np.int64)
         assert np.abs(exact).max() > 2 ** 31
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel (row 6): the same split-K sums, then rank 0's requant
+# epilogue
+# ---------------------------------------------------------------------------
+
+
+def requant_np(v, scale, out_zp):
+    """The kernel's epilogue on wrapped int32 sums ``v``: to float32 rounded
+    to nearest, a float32 multiply, round half to even, + out_zp in
+    float32, clip to int8."""
+    y = v.astype(np.int32).astype(np.float32) * scale.astype(np.float32)
+    y = np.rint(y) + np.float32(out_zp)
+    return np.clip(y, -128, 127).astype(np.int8)
+
+
+def _requant_inputs(seed, m, k, n, ties=False, wraps=False):
+    """Row 6's inputs.  ``ties``: x in [-4, 4), w in [-1, 1], scale 0.5, so
+    that every odd sum lands on .5 and the larger ones clamp at both ends;
+    ``wraps``: biases within 1000 of ±2^31 and scales near 2^-25, so that
+    the wrapped sums, not the exact ones, set the output."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-4, 4) if ties else (-128, 128)
+    x = rng.integers(lo, hi, (m, k)).astype(np.int8)
+    w = (rng.integers(-1, 2, (k, n)) if ties
+         else rng.integers(-127, 128, (k, n))).astype(np.int8)
+    zps = rng.integers(-10, 11, 2).astype(np.int32)
+    if wraps:
+        bias = np.where(np.arange(n) % 2 == 0,
+                        2 ** 31 - 1 - rng.integers(0, 1000, n),
+                        -2 ** 31 + rng.integers(0, 1000, n))
+        scale = rng.uniform(2e-8, 4e-8, n)
+    else:
+        bias = rng.integers(-1000, 1000, n)
+        scale = np.full(n, 0.5) if ties else rng.uniform(1e-4, 5e-3, n)
+    colsum = w.astype(np.int64).sum(0).astype(np.int32)
+    return (x, w, colsum, bias.astype(np.int32), scale.astype(np.float32),
+            zps)
+
+
+@pytest.mark.parametrize("m,k,n,extra", [
+    (8, 576, 1536, {}), (8, 1536, 576, {}), (64, 576, 1536, {}),
+    (64, 1536, 576, {}),                       # the FFN shapes
+    (9, 600, 70, {}), (17, 99, 41, {}), (1, 4096, 40, {}),
+    (8, 576, 96, {"ties": True}), (33, 130, 70, {"ties": True}),
+    (8, 1536, 64, {"wraps": True}),
+    (256, 576, 1536, {}),                      # one rank, three chunks
+])
+def test_emulated_requant_matches_pallas_and_plain(m, k, n, extra):
+    x, w, colsum, bias, scale, zps = _requant_inputs(
+        m * 131 + k + n + 6, m, k, n, **extra)
+    t_x, t_w = torch.from_numpy(x), torch.from_numpy(w)
+    # rank 0's whole sum, then + (bias - x_zp * colsum) mod 2^32
+    acc, _ = _emulate(t_x, t_w, tabft.checksum_vector(t_w),
+                      tkernel.plan(m, k, n))
+    v = wrap_int32(acc - int(zps[0]) * torch.from_numpy(colsum).long()
+                   + torch.from_numpy(bias).long()).numpy()
+    got = requant_np(v, scale, int(zps[1]))
+    j_out = jkernel.qmatmul(*(jnp.asarray(a) for a in
+                              (x, w, colsum, bias, scale, zps)),
+                            interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(j_out))
+    plain = tkernel.qmatmul(t_x, t_w, *(torch.from_numpy(a) for a in
+                                        (colsum, bias, scale, zps)))
+    np.testing.assert_array_equal(got, plain.numpy())
+    if extra.get("ties"):
+        ties = (v % 2 != 0) & (np.abs(v) < 250)
+        assert ties.sum() > 50
+        assert (got == 127).any() and (got == -128).any()
+        away = np.clip(np.trunc(v * 0.5 + np.sign(v) * 0.5) + int(zps[1]),
+                       -128, 127)
+        assert (got[ties] != away[ties]).any()
+    if extra.get("wraps"):
+        exact = x.astype(np.int64) @ w.astype(np.int64) \
+            - int(zps[0]) * colsum.astype(np.int64) + bias.astype(np.int64)
+        assert (np.abs(exact) >= 2 ** 31).any()
+        assert (np.abs(got.astype(np.int64)) < 127).mean() > 0.5
+
+
+@pytest.mark.parametrize("name", ["qmatmul_acc", "qmatmul_acc_checksum",
+                                  "qmatmul"])
+@pytest.mark.parametrize("m,k,n", FFN_SHAPES + [(1024, 1536, 576),
+                                                (5, 100, 37)])
+def test_wrappers_pass_the_plan_to_their_entry(monkeypatch, name, m, k, n):
+    """Each wrapper on a card tensor hands its entry the shape and
+    ``plan()``'s launch, as many arguments as the entry declares."""
+    x, w, colsum, bias, scale, zps = (torch.from_numpy(a) for a in
+                                      _requant_inputs(5, m, k, n))
+    args = {"qmatmul_acc": (x, w),
+            "qmatmul_acc_checksum": (x, w, tabft.checksum_vector(w)),
+            "qmatmul": (x, w, colsum, bias, scale, zps)}[name]
+    seen = []
+    monkeypatch.setattr(tkernel, "_on_card", lambda *t: True)
+    monkeypatch.setattr(tkernel, "_launch",
+                        lambda entry, device, *a: seen.append((entry, a)))
+    before = getattr(tkernel, name).launches
+    getattr(tkernel, name)(*args)
+    (entry, passed), = seen
+    assert entry == f"{name}_launch"
+    assert len(passed) + 1 == len(tkernel._ENTRIES[entry])    # + the stream
+    assert passed[-8:] == (m, k, n, *tkernel.plan(m, k, n))
+    assert getattr(tkernel, name).launches == before + 1
