@@ -71,7 +71,27 @@ Phases, each of which raises on failure:
    losses); fwd_lse and bwd launches as derived from the steps executed;
    one step's gradients, flash against chunked, beside the bf16 noise
    floor;
-11. time each kernel at the main paths' shapes with CUDA events beside its
+11. slice 10: the port's SEU campaign through ``run_campaign`` and
+   ``run_bit_sweep`` on the ``cuda`` backend at full width
+   (``CAMPAIGN_CASES``: qmatmul at SmolLM-135M's decode FFN shapes 8x576x1536
+   and 8x1536x576; qconv2d at the two Table-1 bit-sweep geometries and
+   conv_24x3x3x24 at its 194x194 input; flashattn at (1, 9, 1024, 64) f32;
+   the reduced ship detector and transformer), asserting the reference's
+   verdicts: qmatmul ABFT/accumulator detection 1.000 and SDC 0, NONE
+   SDC > 0, TMR SDC 0 at every site and under ``mbu_burst``, DMR detected
+   exactly when the output differs and nothing corrected, CKPT SDC 0 and
+   nothing uncorrected at the weights site; qconv2d and shipdet ABFT and
+   CKPT SDC 0 at the accumulator; the ship detector's weights site covered
+   (SDC 0, faults detected) under ABFT and CKPT; flashattn ABFT detects
+   every output bit flip, NONE SDC > 0; the transformer's TMR SDC 0, DMR
+   as above, NONE SDC > 0; the bit sweep (qmatmul and both Table-1 convs)
+   ABFT SDC 0 at all 32 accumulator bits and NONE SDC at every bit-31
+   trial; ``run_trials`` on the same seeds equal under ``ref``,
+   ``torch`` and ``cuda`` (qmatmul, qconv2d, shipdet); rows 1, 2, 4, 5,
+   7, 8 launched under ``cuda`` and no kernel under ``ref`` or ``torch``;
+   trials/s per workload and policy; the phase within
+   ``CAMPAIGN_BUDGET_S``;
+12. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
    ``torch._int_mm`` on rows padded to M = 32 for the matmul accumulator,
@@ -2238,6 +2258,226 @@ def bwd_totals(rows):
             }, {r["kernel"]: r["library_ms"]}
 
 
+CAMPAIGN_BUDGET_S = 120            # the campaign phase's share of the limit
+BIT_TRIALS = 16                    # bit-sweep trials per bit and policy
+# the campaign's geometries at full width: SmolLM-135M's two decode FFN
+# shapes, the two Table-1 bit-sweep convs of benchmarks/table1_conv.py and
+# the ship detector's conv_24x3x3x24 at its network_specs(194) input, and
+# SmolLM-135M's query heads at a 1024-token prefill
+CAMPAIGN_CASES = {
+    "qmatmul 8x576x1536": ("qmatmul", dict(m=8, k=576, n=1536)),
+    "qmatmul 8x1536x576": ("qmatmul", dict(m=8, k=1536, n=576)),
+    "qconv2d t1_conv1": ("qconv2d", dict(h=24, w=24, cin=24, cout=24,
+                                         kh=3, kw=3)),
+    "qconv2d t1_conv4": ("qconv2d", dict(h=12, w=12, cin=96, cout=96,
+                                         kh=1, kw=1)),
+    "qconv2d conv_24x3x3x24@194": ("qconv2d", dict(h=194, w=194, cin=24,
+                                                   cout=24, kh=3, kw=3)),
+    "flashattn 1x9x1024x64": ("flashattn", dict(b=1, h=9, s=1024, hd=64)),
+    "shipdet reduced": ("shipdet", {}),
+    "transformer reduced smollm-135m": ("transformer", {}),
+}
+CAMPAIGN_ROWS = ("qconv2d_acc", "qconv2d_acc_checksum", "qmatmul_acc",
+                 "qmatmul_acc_checksum", "flash_attention",
+                 "flash_attention_checked")
+
+
+def _campaign_configs():
+    """(case label, policy, site, fault model, trials, verdict) per
+    configuration; each verdict is a check on the report row that raises."""
+    from repro_torch.core.dependability import Policy as P
+
+    def sdc0(r):
+        return r.sdc == 0
+
+    def detect_all(r):
+        return r.detection_rate == 1.0 and r.sdc == 0
+
+    def has_sdc(r):
+        return r.sdc > 0
+
+    def dmr(r):          # detected exactly when the output differs
+        return r.sdc == 0 and r.detected_corrected == 0
+
+    def healed(r):
+        return r.sdc == 0 and r.detected_uncorrected == 0
+
+    def covered(r):
+        return r.sdc == 0 and r.detected_corrected \
+            + r.detected_uncorrected > 0
+
+    out = []
+    for label in ("qmatmul 8x576x1536", "qmatmul 8x1536x576"):
+        out += [(label, P.ABFT, "accumulator", "single_bitflip", 500,
+                 detect_all),
+                (label, P.NONE, "accumulator", "single_bitflip", 200,
+                 has_sdc),
+                (label, P.CKPT, "weights", "single_bitflip", 200, healed),
+                (label, P.TMR, "accumulator", "mbu_burst", 200, sdc0)]
+        for site in ("accumulator", "weights", "activations"):
+            out += [(label, P.TMR, site, "single_bitflip", 200, sdc0),
+                    (label, P.DMR, site, "single_bitflip", 200, dmr)]
+    for label in ("qconv2d t1_conv1", "qconv2d t1_conv4",
+                  "qconv2d conv_24x3x3x24@194"):
+        out += [(label, P.ABFT, "accumulator", "single_bitflip", 200, sdc0),
+                (label, P.CKPT, "accumulator", "single_bitflip", 200, sdc0)]
+    out += [("flashattn 1x9x1024x64", P.ABFT, "accumulator",
+             "single_bitflip", 300, detect_all),
+            ("flashattn 1x9x1024x64", P.NONE, "accumulator",
+             "single_bitflip", 60, has_sdc)]
+    out += [("shipdet reduced", P.ABFT, "accumulator", "single_bitflip", 60,
+             sdc0),
+            ("shipdet reduced", P.CKPT, "accumulator", "single_bitflip", 60,
+             sdc0),
+            ("shipdet reduced", P.ABFT, "weights", "single_bitflip", 60,
+             covered),
+            ("shipdet reduced", P.CKPT, "weights", "single_bitflip", 60,
+             lambda r: covered(r) and healed(r))]
+    for site in ("weights", "activations"):
+        out += [("transformer reduced smollm-135m", P.TMR, site,
+                 "single_bitflip", 40, sdc0),
+                ("transformer reduced smollm-135m", P.DMR, site,
+                 "single_bitflip", 40, dmr)]
+    out.append(("transformer reduced smollm-135m", P.NONE, "activations",
+                "single_bitflip", 40, has_sdc))
+    return out
+
+
+def _campaign_launches():
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.qconv2d import kernel as K
+    from repro_torch.kernels.qmatmul import kernel as MK
+    return {k.__name__: k.launches
+            for k in (*K.KERNELS, *MK.KERNELS, *FK.KERNELS)}
+
+
+def _reset_all_launches():
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.qconv2d import kernel as K
+    from repro_torch.kernels.qmatmul import kernel as MK
+    for mod in (K, MK, FK):
+        mod.reset_launches()
+
+
+def phase_campaign(card: str) -> dict:
+    """Slice 10: the port's SEU campaign on the card, ``cuda`` backend,
+    through ``run_campaign`` and ``run_bit_sweep``, at full width; the
+    reference's verdicts asserted per configuration; ``run_trials`` on
+    the same seeds equal under ``ref``, ``torch`` and ``cuda``; launch
+    counts of rows 1, 2, 4, 5, 7, 8 above 0 under ``cuda`` and all 0
+    under ``ref`` and ``torch``."""
+    from repro_torch.campaign import (CampaignSpec, resolve_fault_model,
+                                      runner, trial_seeds)
+    from repro_torch.core.dependability import Policy
+
+    t_phase = time.perf_counter()
+    cases = {label: runner.CASES[w](0, "cuda", device=DEVICE, **geo)
+             for label, (w, geo) in CAMPAIGN_CASES.items()}
+    rows, failed = [], []
+    _reset_all_launches()
+    for label, policy, site, fm, trials, verdict in _campaign_configs():
+        workload = CAMPAIGN_CASES[label][0]
+        spec = CampaignSpec(workload, policy, site, fm, trials, seed=0)
+        t0 = time.perf_counter()
+        res, = runner.run_campaign(
+            [spec], cache={(workload, 0, "cuda", DEVICE): cases[label]},
+            device=DEVICE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ok = verdict(res)
+        rows.append({"case": label, "policy": policy.value, "site": site,
+                     "fault_model": fm, "trials": res.trials,
+                     "masked": res.masked,
+                     "detected_corrected": res.detected_corrected,
+                     "detected_uncorrected": res.detected_uncorrected,
+                     "sdc": res.sdc, "seconds": secs,
+                     "trials_per_s": res.trials / secs, "ok": ok})
+        print(f"campaign: {label:32s} {policy.value:4s} {site:11s} {fm:14s} "
+              f"n={res.trials} det={res.detection_rate:.3f} sdc={res.sdc} "
+              f"corr={res.detected_corrected} unc={res.detected_uncorrected}"
+              f" {res.trials / secs:.1f} trials/s"
+              + ("" if ok else "  VERDICT MISSED"))
+        if not ok:
+            failed.append(f"{label} {spec.label()}")
+
+    bit_rows = {}
+    for label in ("qmatmul 8x576x1536", "qconv2d t1_conv1",
+                  "qconv2d t1_conv4"):
+        t0 = time.perf_counter()
+        sweep = runner.run_bit_sweep(
+            CAMPAIGN_CASES[label][0], [Policy.NONE, Policy.ABFT],
+            trials_per_bit=BIT_TRIALS, case=cases[label], device=DEVICE)
+        secs = time.perf_counter() - t0
+        abft = [r for r in sweep if r.policy == "abft"]
+        none31 = [r for r in sweep if r.policy == "none" and r.bit == 31][0]
+        ok = (len(abft) == 32 and all(r.sdc == 0 for r in abft)
+              and none31.sdc == none31.trials)
+        bit_rows[label] = [r.to_dict() for r in sweep]
+        print(f"campaign: bit sweep {label}: abft sdc "
+              f"{sum(r.sdc for r in abft)} over 32 bits, none bit 31 sdc "
+              f"{none31.sdc}/{none31.trials}, "
+              f"{sum(r.trials for r in sweep) / secs:.1f} trials/s"
+              + ("" if ok else "  VERDICT MISSED"))
+        if not ok:
+            failed.append(f"bit sweep {label}")
+    cuda_launches = _campaign_launches()
+    print(f"campaign: launches under cuda {cuda_launches}")
+    if any(cuda_launches[name] == 0 for name in CAMPAIGN_ROWS):
+        failed.append(f"a campaign row never launched: {cuda_launches}")
+
+    # trial-by-trial: the same seeds under ref, torch and cuda give equal
+    # arrays (the plain backends launch no kernel)
+    parity = [("qmatmul 8x576x1536", Policy.ABFT, "accumulator"),
+              ("qmatmul 8x1536x576", Policy.NONE, "weights"),
+              ("qconv2d conv_24x3x3x24@194", Policy.ABFT, "accumulator"),
+              ("qconv2d t1_conv4", Policy.CKPT, "weights"),
+              ("shipdet reduced", Policy.ABFT, "accumulator"),
+              ("shipdet reduced", Policy.CKPT, "weights")]
+    fault = resolve_fault_model("single_bitflip").apply
+
+    def parity_arrays(label, policy, site, case):
+        seeds = trial_seeds(CampaignSpec(CAMPAIGN_CASES[label][0], policy,
+                                         site, "single_bitflip", 20))
+        return case.run_trials(policy, site, fault, seeds)
+
+    cuda_arrays = {p: parity_arrays(*p, cases[p[0]]) for p in parity}
+    plain_launches = {}
+    for backend in ("ref", "torch"):
+        _reset_all_launches()
+        for label, policy, site in parity:
+            w, geo = CAMPAIGN_CASES[label]
+            d_p, m_p = parity_arrays(
+                label, policy, site,
+                runner.CASES[w](0, backend, device=DEVICE, **geo))
+            d_c, m_c = cuda_arrays[label, policy, site]
+            same = np.array_equal(d_p, d_c) and np.array_equal(m_p, m_c)
+            print(f"campaign: {backend} == cuda trial by trial, {label} "
+                  f"{policy.value}/{site}: {same} (detected "
+                  f"{int(d_c.sum())}, mismatch {int(m_c.sum())} of 20)")
+            if not same:
+                failed.append(f"{backend} != cuda: {label} "
+                              f"{policy.value}/{site}")
+        torch.cuda.synchronize()
+        plain_launches[backend] = _campaign_launches()
+        print(f"campaign: launches under {backend} "
+              f"{plain_launches[backend]}")
+        if any(plain_launches[backend].values()):
+            failed.append(f"a kernel launched under {backend}: "
+                          f"{plain_launches[backend]}")
+
+    secs = time.perf_counter() - t_phase
+    print(f"campaign: {sum(r['trials'] for r in rows)} trials in "
+          f"{len(rows)} configurations and 3 bit sweeps in {secs:.1f} s "
+          f"(budget {CAMPAIGN_BUDGET_S} s) on {card}")
+    if secs > CAMPAIGN_BUDGET_S:
+        failed.append(f"campaign phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("campaign: " + "; ".join(failed))
+    return {"card": card, "seconds": secs, "configs": rows,
+            "bit_sweep": bit_rows, "launches_cuda": cuda_launches,
+            "launches_plain": plain_launches}
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -2301,6 +2541,8 @@ def main() -> None:
     launches["flash_attention_bwd"] = train_launches["flash_attention_bwd"]
     train_grads = phase_train_grads(tcfg, tshape)
 
+    campaign = phase_campaign(card)
+
     # every CUDA-event timing before the first profiler session
     rows, totals, calls, conv_library = phase_time(specs, gen, max_err)
     mm_rows, mm_calls, mm_lib_calls = phase_time_matmul(cfg, gen, max_err)
@@ -2358,7 +2600,8 @@ def main() -> None:
                        "flash_vs_chunked": flash_cmp,
                        "prefill_ms": prefill_ms, "train": train,
                        "train_grads": train_grads, "train_time": train_time,
-                       "backward_per_call": bwd_rows}, f, indent=1)
+                       "backward_per_call": bwd_rows,
+                       "campaign": campaign}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,16 +8,19 @@ the same selection precedence (most specific wins):
                 ``cfg.backend`` of the transformer
   3. global     ``set_default_backend`` / ``use_backend`` context manager
 
-All three accept either a backend name or a ``Backend`` instance.  Two
-backends are built in (``kernels/dispatch.py`` registers them):
+All three accept either a backend name or a ``Backend`` instance.  Three
+backends are built in (``kernels/dispatch.py`` registers them), the
+counterparts of the reference's ``jnp``, ``ref`` and ``pallas``:
 
-  ref   independent plain-PyTorch oracle (exact float64 products, tap loop,
-        exact integer sums, explicit mod-2^32 wrap)
-  cuda  the hand-written Hopper kernels; on CPU tensors their wrappers run
-        the kernels' plain versions, on CUDA tensors they launch or raise
+  torch  whole-tensor float64 matmul and ``F.conv2d`` (exact below 2^53),
+         rounded to int64 and wrapped mod 2^32; no hand kernel
+  ref    independent plain-PyTorch oracle (exact float64 products, tap loop,
+         exact integer sums, explicit mod-2^32 wrap)
+  cuda   the hand-written Hopper kernels; on CPU tensors their wrappers run
+         the kernels' plain versions, on CUDA tensors they launch or raise
 
 ``cuda`` is the global default.  The hot path is integer (int8 × int8 →
-int32, exact mod 2^32), so both backends are bit-identical there; their
+int32, exact mod 2^32), so the backends are bit-identical there; their
 attention is float and agrees to a tolerance.
 """
 from __future__ import annotations

@@ -1,18 +1,20 @@
 """Built-in execution backends for the quantized matmul and conv, and
 for attention.
 
-Registers ``ref`` and ``cuda`` into ``core.backend``'s registry (see that
-module for the contract and selection precedence); the registry imports
-this module lazily.  Their integer entries are bit-identical: the hot path
-is integer and every sum wraps mod 2^32.  Attention is float, so the two
-agree to a tolerance; within one backend the checked entry's output is
-the plain entry's bit for bit.
+Registers ``torch``, ``ref`` and ``cuda`` into ``core.backend``'s registry
+(see that module for the contract and selection precedence), the
+counterparts of the reference's ``jnp``, ``ref`` and ``pallas``; the
+registry imports this module lazily.  Their integer entries are
+bit-identical: the hot path is integer and every sum wraps mod 2^32.
+Attention is float, so the three agree to a tolerance; within one backend
+the checked entry's output is the plain entry's bit for bit.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import abft as abft_mod
 from repro_torch.core import backend as backend_mod
@@ -27,6 +29,52 @@ from repro_torch.kernels.qmatmul import kernel as qmatmul_kernel
 def _pads(x_q, w_q, stride, padding):
     return resolve_pads(x_q.shape[1], x_q.shape[2], w_q.shape[0],
                         w_q.shape[1], stride, padding)
+
+
+# ---------------------------------------------------------------------------
+# torch — whole-tensor float64 ops, the counterpart of the reference's jnp
+# (XLA dot_general / conv).  Every product and sum is an integer below 2^53,
+# so float64 is exact; torch has no exact int8 dot (on the CPU int8 @ int8
+# wraps in int8, on CUDA there is no int32 matmul), so no int8 or TF32 op.
+# ---------------------------------------------------------------------------
+
+
+def _exact_i32(v: torch.Tensor) -> torch.Tensor:
+    return abft_mod.wrap_int32(torch.round(v).to(torch.int64))
+
+
+def _matmul_acc_torch(x_q, w_q):
+    return _exact_i32(x_q.double() @ w_q.double())
+
+
+def _matmul_acc_checksum_torch(x_q, w_q, w_check):
+    want = _exact_i32(x_q.double() @ w_check.double())
+    return _matmul_acc_torch(x_q, w_q), want
+
+
+def _conv_acc_torch(x_q, x_zp, w, stride, padding):
+    """conv(x - zp, w) in float64 on the zero-point-padded NHWC input
+    (padded taps hold zp, so they contribute 0), HWIO weights."""
+    xp = pad_zp(x_q, x_zp, _pads(x_q, w, stride, padding))
+    x = xp.double() - x_zp.double()
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+                 stride=tuple(stride))
+    return _exact_i32(y.permute(0, 2, 3, 1))
+
+
+def _conv_acc_checksum_torch(x_q, x_zp, w_q, w_check, stride, padding):
+    return (_conv_acc_torch(x_q, x_zp, w_q, stride, padding),
+            _conv_acc_torch(x_q, x_zp, w_check, stride, padding)[..., 0])
+
+
+def _attn_torch(q, k, v, *, causal=True, window=None):
+    return flash_ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def _attn_checksum_torch(q, k, v, *, causal=True, window=None):
+    out = _attn_torch(q, k, v, causal=causal, window=window)
+    check = _attn_check_column(q, k, v, causal=causal, window=window)
+    return out, check, abft_mod.output_row_checksums(out)
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +197,16 @@ def _attn_checksum_cuda(q, k, v, *, causal=True, window=None):
 # ---------------------------------------------------------------------------
 
 for _be in (
+    backend_mod.Backend(
+        name="torch",
+        matmul_acc=_matmul_acc_torch,
+        matmul_acc_checksum=_matmul_acc_checksum_torch,
+        conv_acc=_conv_acc_torch,
+        conv_acc_checksum=_conv_acc_checksum_torch,
+        attn=_attn_torch,
+        attn_checksum=_attn_checksum_torch,
+        description="whole-tensor float64 matmul / F.conv2d, exact below "
+                    "2^53 (the reference's jnp)"),
     backend_mod.Backend(
         name="ref",
         matmul_acc=_matmul_acc_ref,

@@ -35,9 +35,13 @@ when a gradient is asked for, the ``flash_attention_bwd`` kernels; decode
 attention stays ``common.decode_attention`` under either setting, plain
 tensor code in both packages.
 
+``embeds`` (``forward``, ``prefill``) and ``embed`` (``decode_step``) take
+the place of the token embedding, as in the reference: the campaign's
+``activations`` site strikes the embeddings through them.
+
 Not in the port yet (each raises ``NotImplementedError`` naming its
-ROADMAP item): MoE blocks and ``ShardCtx`` (item 17), the int8 KV cache
-``quant_kv`` and embedding inputs (item 8).
+ROADMAP item): MoE blocks and ``ShardCtx`` (item 17) and the int8 KV cache
+``quant_kv`` (item 8).
 """
 from __future__ import annotations
 
@@ -57,7 +61,6 @@ _NOT_YET = {
     "ctx": "sharded execution (ShardCtx) comes with ROADMAP.md queue 1, "
            "item 17",
     "quant_kv": "the int8 KV cache comes with ROADMAP.md queue 1, item 8",
-    "embeds": "embedding inputs come with ROADMAP.md queue 1, item 8",
 }
 
 
@@ -65,15 +68,13 @@ def _not_yet(what: str):
     raise NotImplementedError(_NOT_YET[what])
 
 
-def _check(cfg: ArchConfig, ctx=None, embeds=None) -> None:
+def _check(cfg: ArchConfig, ctx=None) -> None:
     if cfg.moe is not None:
         _not_yet("moe")
     if ctx is not None:
         _not_yet("ctx")
     if cfg.quant_kv:
         _not_yet("quant_kv")
-    if embeds is not None:
-        _not_yet("embeds")
 
 
 def _pdt(cfg: ArchConfig):
@@ -281,12 +282,14 @@ def _block(cfg: ArchConfig, bp, x, positions):
     return _dense_ffn(cfg, bp, x)
 
 
-def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False):
-    """Embed, every block, final norm and head; ``keep_kv(layer, k, v)``
-    receives each layer's K/V; ``remat`` recomputes each block in the
-    backward."""
-    x = _embed(cfg, params, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
+           embeds=None):
+    """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
+    norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
+    ``remat`` recomputes each block in the backward."""
+    x = _embed(cfg, params, tokens) if embeds is None \
+        else embeds.to(_cdt(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for li, bp in enumerate(_layers(params["dense_blocks"])):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
@@ -307,9 +310,10 @@ def _remat(cfg: ArchConfig, params) -> bool:
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
             embeds=None) -> ForwardOut:
-    """tokens: (B, S) int → logits (B, S, V)."""
-    _check(cfg, ctx, embeds)
-    logits = _trunk(cfg, params, tokens, remat=_remat(cfg, params))
+    """tokens: (B, S) int (or embeds (B, S, d)) → logits (B, S, V)."""
+    _check(cfg, ctx)
+    logits = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
+                    embeds=embeds)
     zero = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, zero, zero)
 
@@ -356,13 +360,14 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
 
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
                 cache: KVCache, ctx=None, embed=None):
-    """token: (B,) int.  Writes each layer's new K/V row into ``cache`` in
-    place (slot ``length % T`` of each row), advances ``length`` and
-    returns (logits (B, V), cache)."""
-    _check(cfg, ctx, embed)
-    B = token.shape[0]
+    """token: (B,) int (or embed (B, d)).  Writes each layer's new K/V row
+    into ``cache`` in place (slot ``length % T`` of each row), advances
+    ``length`` and returns (logits (B, V), cache)."""
+    _check(cfg, ctx)
+    x = (_embed(cfg, params, token) if embed is None
+         else embed.to(_cdt(cfg)))[:, None, :]
+    B = x.shape[0]
     hd, H = cfg.resolved_head_dim, cfg.n_heads
-    x = _embed(cfg, params, token)[:, None, :]
     pos = cache.length
     T = cache.k.shape[2]
     rows = torch.arange(B, device=x.device)
@@ -382,15 +387,17 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
             ctx=None, embeds=None):
     """Full-sequence forward that also fills a fresh KV cache in the same
-    pass.  Returns (logits (B, S, V), cache)."""
-    _check(cfg, ctx, embeds)
-    B, S = tokens.shape
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    pass; ``embeds`` (B, S, d) takes the place of the token embedding.
+    Returns (logits (B, S, V), cache)."""
+    _check(cfg, ctx)
+    src = tokens if embeds is None else embeds
+    B, S = src.shape[:2]
+    cache = init_cache(cfg, B, max_len, device=src.device)
     T = cache.k.shape[2]
     tc = min(T, S)
     # keep the last T positions; SWA rings put position p at slot p % T
     ring = cfg.swa_window is not None and S >= T
-    idx = (torch.arange(tc, device=tokens.device) + (S - tc)) % T
+    idx = (torch.arange(tc, device=src.device) + (S - tc)) % T
 
     def keep(li, k, v):
         for page, new in ((cache.k[li], k), (cache.v[li], v)):
@@ -400,6 +407,6 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
             else:
                 page[:, :tc] = new
 
-    logits = _trunk(cfg, params, tokens, keep_kv=keep)
+    logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds)
     cache.length.fill_(S)
     return logits, cache

@@ -38,7 +38,9 @@ _SCRUB_ITEM = ("decode-state and storage scrubs come with ROADMAP.md "
                "queue 1, item 9")
 _WINDOW_ITEM = ("multi-step decode windows come with ROADMAP.md queue 1, "
                 "item 9")
-_OBS_ITEM = "observers come with obs/, ROADMAP.md queue 1, item 11"
+_OBS_ITEM = ("the tracer, event_log and metrics observers (repro_torch.obs) "
+             "are wired in with the scrubs and strike, ROADMAP.md queue 1, "
+             "item 9")
 
 
 def _clone_cache(cache):
