@@ -91,7 +91,24 @@ Phases, each of which raises on failure:
    7, 8 launched under ``cuda`` and no kernel under ``ref`` or ``torch``;
    trials/s per workload and policy; the phase within
    ``CAMPAIGN_BUDGET_S``;
-12. time each kernel at the main paths' shapes with CUDA events beside its
+12. slice 11: dependable serving at full width (SmolLM-135M, W8A8 FFN,
+   bf16, flash prefill, capacity 8, 16 requests of 32 new tokens) under
+   ``PolicyMap.uniform(ABFT)`` (scrubs ``detect``) and ``uniform(CKPT)``
+   (``rollback``, the storage scrub every pump), the int8 KV cache off and
+   on: clean runs raise no alarm; one run per map (8 requests) strikes the
+   cache's k page, its k scales (int8 cache), the token buffer and a weight, four
+   pumps apart, each detected one tick later, CKPT recovering every one
+   with streams equal to the clean ones; ``multi_step`` 4 equal to 1; two
+   same-seed runs with the tracer, metrics and event log byte-identical;
+   the ``serving`` and ``serving_int8kv`` campaigns at the reference's
+   case on the ``cuda`` backend (CKPT SDC 0, ABFT detection 1.000 at
+   every site, ``ref`` equal to ``cuda`` trial by trial); rows 4, 5 and 9
+   launched; decode ms/step and host syncs per step with the scrubs off,
+   ``detect`` and ``rollback``, the int8 cache off and on; one pass of
+   each scrub on the device beside its bound, the storage checksums equal
+   to the CPU's; the phase within ``DEP_BUDGET_S``; it runs after the
+   timings and profiles of 13;
+13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
    ``torch._int_mm`` on rows padded to M = 32 for the matmul accumulator,
@@ -2478,6 +2495,324 @@ def phase_campaign(card: str) -> dict:
             "launches_plain": plain_launches}
 
 
+# slice 11: dependable serving at full width
+DEP_STRIKE_TICKS = (2, 6, 10, 14)  # the strikes land after these pumps
+DEP_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum", "flash_attention_fwd_lse")
+DEP_CAMPAIGN_TRIALS = 8            # per serving campaign configuration
+DEP_TIMING_STEPS = 10              # decode steps per timing round
+DEP_BUDGET_S = 180                 # the phase's share of the limit
+
+
+def _dep_kw(name):
+    """Engine keywords of a uniform map; under CKPT the storage scrub runs
+    every pump, so the golden weights are back before any stage reads a
+    struck one (its default cadence, snapshot_every, heals only later
+    reads)."""
+    from repro_torch.core.policy_map import PolicyMap
+    kw = {"policy_map": PolicyMap.uniform(name)}
+    if name == "ckpt":
+        kw["storage_scrub_every"] = 1
+    return kw
+
+
+def _dep_strikes(quant_kv):
+    """(label, site, leaf) of each strike of a run, in order: the cache's
+    k page (int8 or bf16), its k scales (int8 cache), the token buffer
+    and a weight leaf drawn by size."""
+    out = [("kv_cache k", "kv_cache", ("k",))]
+    if quant_kv:
+        out.append(("kv_cache k_s", "kv_cache", ("k_s",)))
+    return out + [("decode_state", "decode_state", None),
+                  ("weights", "weights", None)]
+
+
+def _dep_run(cfg, params, prompts, quant_kv, strikes=(), **kw):
+    """Serve ``prompts`` on ``cfg`` (``quant_kv`` set) with an event log,
+    striking one flip_one_bit after each pump of ``DEP_STRIKE_TICKS``
+    (drawn from a generator seeded by ``trial_seed``); returns the engine,
+    its requests, the log and the seconds."""
+    from repro_torch.campaign import faultload as fl
+    from repro_torch.core import fault_injection as fi
+    from repro_torch.obs import EventLog
+    log = kw.pop("event_log", None) or EventLog()
+    eng, reqs = _serve(dataclasses.replace(cfg, quant_kv=quant_kv), params,
+                       prompts, MAX_NEW, event_log=log, **kw)
+    at = dict(zip(DEP_STRIKE_TICKS, strikes))
+    t0 = time.perf_counter()
+    while eng.executor.busy():
+        eng.step()
+        if eng.tick in at:
+            label, site, leaf = at[eng.tick]
+            gen = fl.generator(fl.trial_seed(
+                0, f"chip_smoke/dependable/{quant_kv}/{label}", 0))
+            eng.strike(site, fi.flip_one_bit, gen, leaf=leaf)
+    torch.cuda.synchronize()
+    if any(len(r.output or ()) != MAX_NEW for r in reqs):
+        raise AssertionError("dependable: a request did not complete")
+    return eng, reqs, log, time.perf_counter() - t0
+
+
+def _syncs_per_step(eng, steps):
+    """Host synchronisations per decode step, as torch's sync debug mode
+    reports them (one warning per synchronising call)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            for _ in range(steps):
+                eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen) / steps
+
+
+def _tree_bytes(t) -> int:
+    from repro_torch import tree
+    return sum(x.numel() * x.element_size() for x in tree.leaves(t))
+
+
+def phase_dependable(cfg, params, prompts, card: str) -> dict:
+    """Slice 11: dependable serving at full width (SmolLM-135M, W8A8 FFN,
+    bf16, flash prefill, capacity 8, 16 requests of 32 new tokens): (a)
+    uniform ABFT (detect) and CKPT (rollback) maps with the int8 KV cache
+    off and on, clean runs without an alarm and struck runs (the first 8
+    requests) with one detection per strike, CKPT streams equal to the
+    clean ones; (b) multi_step 4 equal to 1 (the first 8 requests); (c) two same-seed runs with all three
+    observers byte-identical; (d) the serving campaign workloads on the
+    ``cuda`` backend at the reference's case, CKPT SDC 0 and ABFT
+    detection 1.000 at every site, ``ref`` equal to ``cuda`` trial by
+    trial; (e) rows 4, 5 and 9 launched; (f) decode ms/step and host syncs
+    per step by scrub mode, and one scrub pass of each kind beside its
+    bound, the storage checksums equal to the CPU's.  Launch counts are
+    reset at its start and read at its end."""
+    from repro_torch import tree
+    from repro_torch.campaign import CampaignSpec, runner, trial_seeds
+    from repro_torch.campaign import resolve_fault_model
+    from repro_torch.core import abft
+    from repro_torch.core.dependability import Policy
+    from repro_torch.obs import EventLog, Registry, SpanTracer
+    from repro_torch.runtime.dataflow import _checks_equal, _state_checksums
+
+    t_phase = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, attn_impl="flash")
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+
+    # (a) the maps, clean and struck, the int8 KV cache off and on
+    clean, runs = {}, {}
+    for qkv in (False, True):
+        for name in ("abft", "ckpt"):
+            eng, reqs, log, secs = _dep_run(dcfg, params, prompts, qkv,
+                                            **_dep_kw(name))
+            streams = [list(r.output) for r in reqs]
+            alarms = (len(eng.drain_state_events()), len(log),
+                      int(eng.dependability["faults_detected"]))
+            if alarms != (0, 0, 0):
+                failed.append(f"clean {name} quant_kv={qkv}: alarms "
+                              f"{alarms}")
+            clean.setdefault(qkv, streams)
+            if streams != clean[qkv]:
+                failed.append(f"clean {name} quant_kv={qkv}: streams "
+                              f"differ between the maps")
+            # a request's stream does not depend on its neighbours, so the
+            # struck run serves one full batch and is held to its prefix
+            strikes = _dep_strikes(qkv)
+            eng, reqs, log, s_secs = _dep_run(dcfg, params,
+                                              prompts[:CAPACITY], qkv,
+                                              strikes, **_dep_kw(name))
+            events = eng.drain_state_events()
+            tls = log.timelines()
+            lat = [t["detection_latency_ticks"] for t in tls]
+            same = [list(r.output) for r in reqs] == clean[qkv][:CAPACITY]
+            ok = (len(events) == len(tls) == len(strikes)
+                  and all(t["detected"] for t in tls) and set(lat) == {1}
+                  and all(e["recovered"] == (name == "ckpt")
+                          for e in events)
+                  and (same or name == "abft"))
+            runs[f"{name} quant_kv={qkv}"] = {
+                "clean_s": secs, "struck_s": s_secs,
+                "strikes": [lbl for lbl, _, _ in strikes],
+                "events": len(events), "detection_ticks": lat,
+                "recovered": sum(e["recovered"] for e in events),
+                "streams_equal_clean": same, "ok": ok}
+            print(f"dependable: {name} quant_kv={qkv}: clean run "
+                  f"{secs:.2f} s, no alarm; {len(strikes)} strikes "
+                  f"({', '.join(lbl for lbl, _, _ in strikes)}) -> "
+                  f"{len(events)} events, detection after {lat} ticks, "
+                  f"{sum(e['recovered'] for e in events)} recovered, "
+                  f"streams equal clean: {same} ({s_secs:.2f} s)"
+                  + ("" if ok else "  FAILED"))
+            if not ok:
+                failed.append(f"struck {name} quant_kv={qkv}")
+    out["maps"] = runs
+
+    # (b) decode windows
+    for qkv in (False, True):
+        eng, reqs, _, secs = _dep_run(dcfg, params, prompts[:CAPACITY], qkv,
+                                      multi_step=4)
+        same = [list(r.output) for r in reqs] == clean[qkv][:CAPACITY]
+        print(f"dependable: multi_step 4 quant_kv={qkv}: streams equal "
+              f"multi_step 1: {same} ({eng.stats.steps} steps, "
+              f"{secs:.2f} s)")
+        if not same:
+            failed.append(f"multi_step 4 quant_kv={qkv}")
+
+    # (c) observers: two same-seed runs, byte for byte
+    exports = []
+    for _ in range(2):
+        tracer, reg = SpanTracer(), Registry()
+        _dep_run(dcfg, params, prompts[:CAPACITY], True,
+                 [("decode_state", "decode_state", None)], multi_step=2,
+                 tracer=tracer, metrics=reg, event_log=EventLog(),
+                 **_dep_kw("ckpt"))
+        exports.append((tracer.to_bytes(), reg.render_prometheus(),
+                        json.dumps(reg.snapshot(), sort_keys=True)))
+    same = exports[0] == exports[1]
+    print(f"dependable: observers: trace {len(exports[0][0])} bytes, "
+          f"metrics {len(exports[0][1])} bytes, byte-identical across two "
+          f"runs: {same}")
+    if not same:
+        failed.append("observer exports differ")
+
+    # (d) the serving campaign workloads at the reference's case
+    camp = []
+    fault = resolve_fault_model("single_bitflip").apply
+    for w in ("serving", "serving_int8kv"):
+        case = runner.CASES[w](0, "cuda", device=DEVICE)
+        for policy in (Policy.CKPT, Policy.ABFT):
+            for site in ("weights", "kv_cache", "decode_state"):
+                spec = CampaignSpec(w, policy, site, "single_bitflip",
+                                    DEP_CAMPAIGN_TRIALS)
+                t0 = time.perf_counter()
+                res, = runner.run_campaign(
+                    [spec], cache={(w, 0, "cuda", DEVICE): case},
+                    device=DEVICE)
+                secs = time.perf_counter() - t0
+                ok = (res.sdc == 0 if policy == Policy.CKPT
+                      else res.detection_rate == 1.0)
+                camp.append({"workload": w, "policy": policy.value,
+                             "site": site, "trials": res.trials,
+                             "detection_rate": res.detection_rate,
+                             "sdc": res.sdc,
+                             "faults_recovered": res.faults_recovered,
+                             "trials_per_s": res.trials / secs, "ok": ok})
+                print(f"dependable: campaign {w:14s} {policy.value:4s} "
+                      f"{site:12s} n={res.trials} det="
+                      f"{res.detection_rate:.3f} sdc={res.sdc} rec="
+                      f"{res.faults_recovered} {res.trials / secs:.1f} "
+                      f"trials/s" + ("" if ok else "  VERDICT MISSED"))
+                if not ok:
+                    failed.append(f"campaign {spec.label()}")
+        ref = runner.CASES[w](0, "ref", device=DEVICE)
+        for policy, site in ((Policy.NONE, "weights"),
+                             (Policy.NONE, "kv_cache"),
+                             (Policy.CKPT, "decode_state"),
+                             (Policy.ABFT, "kv_cache")):
+            seeds = trial_seeds(CampaignSpec(w, policy, site,
+                                             "single_bitflip",
+                                             DEP_CAMPAIGN_TRIALS))
+            d_c, m_c = case.run_trials(policy, site, fault, seeds)
+            d_r, m_r = ref.run_trials(policy, site, fault, seeds)
+            same = np.array_equal(d_c, d_r) and np.array_equal(m_c, m_r)
+            print(f"dependable: campaign {w} {policy.value}/{site}: ref == "
+                  f"cuda trial by trial: {same} (detected "
+                  f"{int(d_c.sum())}, mismatch {int(m_c.sum())} of "
+                  f"{len(seeds)})")
+            if not same:
+                failed.append(f"ref != cuda: {w} {policy.value}/{site}")
+    out["campaign"] = camp
+
+    # (e) launches on the phase's path
+    launches = _campaign_launches()
+    print(f"dependable: launches {launches}")
+    if any(launches[name] == 0 for name in DEP_ROWS):
+        failed.append(f"a row of the path never launched: {launches}")
+    out["launches"] = launches
+
+    # (f) timings: decode by scrub mode, syncs, one pass of each scrub
+    engines = {(qkv, mode): _decoding(
+        dataclasses.replace(dcfg, quant_kv=qkv), params, prompts,
+        {"state_scrub": mode, "storage_scrub": mode})
+        for qkv in (False, True) for mode in ("off", "detect", "rollback")}
+    step_ms = {k: [] for k in engines}
+    for _ in range(DECODE_ROUNDS):
+        for k, eng in engines.items():
+            eng.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DEP_TIMING_STEPS):
+                eng.step()
+            torch.cuda.synchronize()
+            step_ms[k].append((time.perf_counter() - t0) * 1e3
+                              / DEP_TIMING_STEPS)
+    timing = {}
+    for (qkv, mode), eng in engines.items():
+        ms = statistics.median(step_ms[qkv, mode])
+        syncs = _syncs_per_step(eng, DEP_TIMING_STEPS)
+        timing[f"quant_kv={qkv} {mode}"] = {
+            "ms_per_decode_step": ms, "ms_rounds": step_ms[qkv, mode],
+            "syncs_per_step": syncs}
+        print(f"dependable: decode quant_kv={qkv!s:5s} scrubs {mode:8s} "
+              f"{ms:8.3f} ms/step (rounds "
+              f"{', '.join(f'{t:.3f}' for t in step_ms[qkv, mode])}), "
+              f"{syncs:.2f} host syncs/step")
+    for qkv in (False, True):
+        base = timing[f"quant_kv={qkv} off"]["syncs_per_step"]
+        for mode in ("detect", "rollback"):
+            t = timing[f"quant_kv={qkv} {mode}"]
+            t["syncs_added_per_step"] = t["syncs_per_step"] - base
+    out["decode"] = timing
+
+    checks = abft.storage_checksums(params)
+    host = abft.storage_checksums(tree.map(lambda t: t.cpu(), params))
+    if any(int(a) != int(b) for a, b in zip(tree.leaves(checks),
+                                            tree.leaves(host))):
+        failed.append("storage checksums on the card differ from the CPU's")
+    print(f"dependable: storage checksums of {len(tree.leaves(checks))} "
+          f"parameter leaves equal on the card and on the CPU")
+    storage_bytes = _tree_bytes(params)
+    dev_ms, ops, _ = _device_ops(lambda: abft.verify_storage(params, checks),
+                                 5)
+    host_ms = _time_ms(lambda: abft.all_verified(abft.verify_storage(
+        params, checks)), 20)
+    out["storage_scrub"] = {"device_ms": dev_ms, "ops": ops,
+                            "events_ms": host_ms, "bytes": storage_bytes,
+                            "bound_ms": storage_bytes / HBM_BYTES_PER_S
+                            * 1e3}
+    for qkv in (False, True):
+        ex = engines[qkv, "detect"].executor
+        state = ex._device_state()
+        want = _state_checksums(state)
+        state_bytes = _tree_bytes(state)
+        s_dev, s_ops, _ = _device_ops(lambda: _state_checksums(state), 5)
+        s_host = _time_ms(lambda: _checks_equal(_state_checksums(state),
+                                                want), 20)
+        out[f"state_scrub quant_kv={qkv}"] = {
+            "device_ms": s_dev, "ops": s_ops, "events_ms": s_host,
+            "bytes": state_bytes,
+            "bound_ms": state_bytes / HBM_BYTES_PER_S * 1e3}
+    for name in ("storage_scrub", "state_scrub quant_kv=False",
+                 "state_scrub quant_kv=True"):
+        r = out[name]
+        print(f"dependable: one {name} pass: device "
+              + (f"{r['device_ms']:.4f}" if r["device_ms"] is not None
+                 else "not measured")
+              + f" ms over {r['ops']:.0f} ops, {r['events_ms']:.4f} ms by "
+              f"events with its readback, bound {r['bound_ms']:.4f} ms "
+              f"({r['bytes']} bytes / 3.35 TB/s)")
+
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"dependable: phase in {secs:.1f} s (budget {DEP_BUDGET_S} s) on "
+          f"{card}")
+    if secs > DEP_BUDGET_S:
+        failed.append(f"dependable phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("dependable: " + "; ".join(failed))
+    return out
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -2562,6 +2897,8 @@ def main() -> None:
                                                    fl_calls)
     profile["train_step"] = phase_profile_train(train_run, bwd_rows,
                                                 bwd_calls)
+    # slice 11 last: no timing or profile above runs after its engines
+    dependable = phase_dependable(cfg, lm_params, prompts, card)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -2601,7 +2938,8 @@ def main() -> None:
                        "prefill_ms": prefill_ms, "train": train,
                        "train_grads": train_grads, "train_time": train_time,
                        "backward_per_call": bwd_rows,
-                       "campaign": campaign}, f, indent=1)
+                       "campaign": campaign,
+                       "dependable": dependable}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

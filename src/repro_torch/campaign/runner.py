@@ -44,13 +44,18 @@ port loops over them.  Its kernels are deterministic (two launches give the
 same bits), so the golden output is computed once per ``run_trials`` call.
 Every trial reads its detection flag back to the host (one sync).
 
-The engine cases (``serving``, ``serving_int8kv``, ``fleet``, ``fleet_mp``)
-are known names that raise ``NotImplementedError`` naming their ROADMAP
-item.
+The engine cases ``serving`` and ``serving_int8kv`` strike a live
+``Engine`` (its weights, KV cache or token buffer) and compare whole token
+streams; they log real event chains and host recovery times, as the
+reference's do.  ``fleet`` and ``fleet_mp`` are known names that raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Sequence, Tuple
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -119,6 +124,30 @@ def _voted(policy: Policy, out, clean):
     if policy == Policy.TMR:
         return _tmr_vote(out, clean)
     return _dmr_check(out, clean)
+
+
+class _RecoveryLog:
+    """Host-side recovery accounting of the engine cases: rollback counts
+    and wall-clock latencies during run_trials, drained into the report's
+    recovery columns by the campaign runner."""
+
+    def __init__(self):
+        self.count = 0
+        self.seconds: List[float] = []
+
+    def drain_raw(self) -> Tuple[int, List[float]]:
+        """(count, wall seconds) since the last drain."""
+        count, secs = self.count, self.seconds
+        self.count, self.seconds = 0, []
+        return count, secs
+
+    def drain(self) -> dict:
+        count, secs = self.drain_raw()
+        return {"faults_recovered": count,
+                "recovery_ms_mean": float(np.mean(secs) * 1e3) if secs
+                else 0.0,
+                "recovery_ms_max": float(np.max(secs) * 1e3) if secs
+                else 0.0}
 
 
 def _ints(gen, lo, hi, shape, dtype, dev):
@@ -416,6 +445,190 @@ class TransformerCase:
         return _model_trials(policy, one, golden, seeds)
 
 
+class ServingCase:
+    """End-to-end serving drill: SEUs strike a live continuous-batching
+    engine — its weight memory (``weights``) or its transient decode state
+    (``kv_cache`` / ``decode_state``) — and classification compares whole
+    generated token streams.
+
+      NONE      undefended baseline
+      ABFT      detect-only scrubbing: weights against deploy-time storage
+                checksums after the run, transient sites by the engine's
+                decode-state scrub in ``detect`` mode (the corrupted stream
+                ships: detected_uncorrected)
+      CKPT      the same detection plus recovery: snapshot rollback
+                mid-run, or the golden parameters re-executed
+                (detected_corrected, recovery latency measured)
+      DMR/TMR   temporal redundancy judged on the replayed stream
+                (weights site)
+
+    Trial ``i`` draws its fault from ``faultload.generator(seed_i)``: the
+    struck leaf (weighted by size), then the fault's own draws.
+    """
+
+    name = "serving"
+    sites = ("weights", "kv_cache", "decode_state")
+    policies = (Policy.NONE, Policy.ABFT, Policy.DMR, Policy.TMR,
+                Policy.CKPT)
+    quant_kv = False    # subclass hook: run on the int8 KV cache
+    shardable = True          # host-side trial loop: chunks fan across a pool
+    event_logged = True       # emits real EventLog chains (no synthesis)
+    recovery_logged = True    # host recovery accounting in _RecoveryLog
+
+    # the tick after which mid-run state strikes land; > 0 so prefill and
+    # at least one decode step have populated real state
+    STRIKE_STEP = 2
+
+    def __init__(self, seed: int = 0, backend: str = fl.DEFAULT_BACKEND,
+                 arch: str = "smollm-135m", *, device="cuda"):
+        from repro_torch.configs import registry
+        from repro_torch.models import api as model_api
+        from repro_torch.models.config import reduced
+        dev = resolve_device(device)
+        cfg = reduced(registry.get(arch))
+        if self.quant_kv:
+            cfg = dataclasses.replace(cfg, quant_kv=True)
+        # subclass hook: adjust the config before params and engine exist
+        self.cfg = self._customize_cfg(cfg)
+        self.backend = backend
+        # dependability events on the engine's tick clock: the engine's
+        # strikes, scrubs and rollbacks emit into it; weight-site
+        # injections (host pytree surgery) are stamped by run_trials
+        self.events = EventLog()
+        self.prompts = [[5, 9, 2], [3, 1, 4, 1]]
+        self._recovery = _RecoveryLog()
+        self.use_params(model_api.init_params(
+            self.cfg, torch.Generator().manual_seed(seed), device=dev))
+
+    def _customize_cfg(self, cfg):
+        return cfg
+
+    def use_params(self, params) -> None:
+        """Serve ``params``: a fresh engine over them and their deploy-time
+        storage checksums (the scrub baseline of the weights site)."""
+        from repro_torch.runtime.serving import Engine
+        self.params = params
+        self.engine = Engine(self.cfg, params, capacity=2, max_len=64,
+                             prefill_pad=8, snapshot_every=2,
+                             backend=self.backend, event_log=self.events)
+        self.storage_checks = abft_mod.storage_checksums(params)
+
+    @staticmethod
+    def supports(policy: Policy, site: str) -> bool:
+        # DMR/TMR are stream-replay drills over persistent faults; the
+        # transient sites belong to the scrubbing policies and NONE
+        if policy in (Policy.DMR, Policy.TMR):
+            return site == "weights"
+        return True
+
+    def _run_engine(self, params, scrub_mode: str = "off",
+                    state_site: str = None, fault=None, gen=None
+                    ) -> Tuple[Tuple[int, ...], ...]:
+        from repro_torch.runtime.serving import Request
+        eng = self.engine
+        eng.state_scrub = scrub_mode
+        eng.reset(params=params)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=4)
+                for i, p in enumerate(self.prompts)]
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while (eng.queue or eng.active) and steps < 1000:
+            eng.step()
+            steps += 1
+            if steps == self.STRIKE_STEP and state_site is not None:
+                # the decode stage owns both transient sites
+                eng.strike(state_site, fault, gen)
+        return tuple(tuple(r.output) for r in reqs)
+
+    def _weight_scrub_failed(self) -> bool:
+        return not abft_mod.all_verified(abft_mod.verify_storage(
+            self.engine.params, self.storage_checks))
+
+    @torch.no_grad()
+    def run_trials(self, policy, site, fault, seeds):
+        scrub_mode = {Policy.ABFT: "detect", Policy.CKPT: "rollback"}.get(
+            policy, "off")
+        state_site = site if site in ("kv_cache", "decode_state") else None
+        self.events.ctx.update(policy=policy.value)
+        golden = self._run_engine(self.params)
+        self.events.clear()               # the golden pass leaves no chains
+        detected_l, mismatch_l = [], []
+        for s in seeds:
+            gen = fl.generator(s)
+            params = self.params
+            if state_site is None:
+                params = fi.inject_pytree_with(self.params, gen, fault)
+                # a weight-site injection is host pytree surgery, not an
+                # Engine.strike: stamp its strike event here
+                self.events.emit(
+                    "strike", tick=self.engine.tick, site=site,
+                    fault=getattr(fault, "__name__", ""))
+            out = self._run_engine(params, scrub_mode=scrub_mode,
+                                   state_site=state_site, fault=fault,
+                                   gen=gen)
+            events = self.engine.drain_state_events()
+            detected = len(events) > 0
+            self._recovery.count += sum(1 for e in events if e["recovered"])
+            self._recovery.seconds += [e["seconds"] for e in events
+                                       if e["recovered"]]
+            if site == "weights" and policy in (Policy.ABFT, Policy.CKPT):
+                # post-run storage scrub against deploy-time checksums
+                bad = self._weight_scrub_failed()
+                self.engine.record_dependability({
+                    "faults_detected": 1 if bad else 0, "checks_run": 1})
+                detected = detected or bad
+                if bad and policy == Policy.CKPT:
+                    # rollback: re-execute from the golden parameters
+                    t0 = time.perf_counter()
+                    out = self._run_engine(self.params)
+                    seconds = time.perf_counter() - t0
+                    self._recovery.seconds.append(seconds)
+                    self._recovery.count += 1
+                    self.engine.record_dependability(
+                        {"faults_recovered": 1})
+                    self.events.emit(
+                        "recovery", tick=self.engine.tick, site="weights",
+                        seconds=seconds,
+                        detail={"action": "golden_reexecute"})
+            differs = out != golden
+            if policy == Policy.TMR:
+                # clean replicas replay deterministically: the per-token
+                # majority of (faulty, clean, clean) is the clean stream,
+                # and disagreement is the detection signal
+                detected_l.append(differs)
+                mismatch_l.append(False)
+                if differs:
+                    self.engine.record_dependability({
+                        "faults_detected": 1, "checks_run": 1})
+            elif policy == Policy.DMR:
+                # detect-only: the faulted stream is what shipped
+                detected_l.append(differs)
+                mismatch_l.append(differs)
+                if differs:
+                    self.engine.record_dependability({
+                        "faults_detected": 1, "checks_run": 1})
+            elif policy == Policy.NONE:
+                detected_l.append(False)
+                mismatch_l.append(differs)
+            else:                                   # ABFT / CKPT
+                detected_l.append(bool(detected))
+                mismatch_l.append(differs)
+        return np.asarray(detected_l, bool), np.asarray(mismatch_l, bool)
+
+    def drain_recovery_stats(self) -> dict:
+        return self._recovery.drain()
+
+
+class ServingInt8KVCase(ServingCase):
+    """ServingCase on the int8 KV cache (``ArchConfig.quant_kv``): the
+    ``kv_cache`` site strikes a mixed pytree (int8 rows and f32 per-row
+    scales); the dtype-uniform state scrub covers both."""
+
+    name = "serving_int8kv"
+    quant_kv = True
+
+
 # ---------------------------------------------------------------------------
 # Campaign driver
 # ---------------------------------------------------------------------------
@@ -426,14 +639,12 @@ CASES: Dict[str, type] = {
     "flashattn": FlashAttnCase,
     "shipdet": ShipdetCase,
     "transformer": TransformerCase,
+    "serving": ServingCase,
+    "serving_int8kv": ServingInt8KVCase,
 }
 
-# the reference's engine workloads: known names, not in the port yet
+# the reference's fleet workloads: known names, not in the port yet
 NOT_YET = {
-    "serving": "the serving campaign workloads come with ROADMAP.md "
-               "queue 1, item 12b",
-    "serving_int8kv": "the serving campaign workloads come with ROADMAP.md "
-                      "queue 1, item 12b",
     "fleet": "the fleet workloads come with fleet/, ROADMAP.md queue 1, "
              "item 14",
     "fleet_mp": "the fleet workloads come with fleet/, ROADMAP.md queue 1, "
@@ -465,10 +676,13 @@ def build_case(workload: str, seed: int = 0,
 def _spec_supported(spec: fl.CampaignSpec, cls: type) -> bool:
     """Class-level support check — no case instance needed, so sharded
     campaigns can filter the grid without paying a parent-side build."""
-    return spec.site in cls.sites and spec.policy in cls.policies
+    supported = spec.site in cls.sites and spec.policy in cls.policies
+    if supported and hasattr(cls, "supports"):
+        supported = cls.supports(spec.policy, spec.site)
+    return supported
 
 
-def _finalize_config(spec: fl.CampaignSpec,
+def _finalize_config(spec: fl.CampaignSpec, cls: type,
                      acc: "engine_mod.ConfigAccumulator",
                      plan: stats_mod.SamplingPlan,
                      event_sink: List[dict] | None) -> ConfigResult:
@@ -478,24 +692,38 @@ def _finalize_config(spec: fl.CampaignSpec,
     mismatch = np.asarray(acc.mismatch, bool)
     counts = classify_counts(detected, mismatch)
     n = acc.n
-    # in-op rollback: every corrected CKPT trial was a rollback
-    # re-execution; its latency is part of the op, not the host
-    recovery = ({"faults_recovered": counts["detected_corrected"]}
-                if spec.policy == Policy.CKPT else {})
-    # the cases' trials emit no host events: synthesize the chains from the
-    # trial verdicts, as the reference does for its in-graph cases — strike
-    # at trial index i, same-tick detection (the in-op check verdict lands
-    # within the op call itself)
-    synth = EventLog(policy=spec.policy.value, site=spec.site,
-                     fault=spec.fault_model)
-    for i, (det, mis) in enumerate(zip(detected, mismatch)):
-        synth.emit("strike", tick=i)
-        if det:
-            synth.emit("detection", tick=i, detail={"check": "in_op"})
-            if spec.policy == Policy.CKPT and not mis:
-                synth.emit("recovery", tick=i,
-                           detail={"action": "in_op_rollback"})
-    tl_cols, tls = _timeline_columns(synth)
+    if getattr(cls, "recovery_logged", False):
+        secs = acc.recovery_seconds
+        recovery = {
+            "faults_recovered": acc.recovery_count,
+            "recovery_ms_mean": float(np.mean(secs) * 1e3) if secs else 0.0,
+            "recovery_ms_max": float(np.max(secs) * 1e3) if secs else 0.0}
+    elif spec.policy == Policy.CKPT:
+        # in-op rollback: every corrected CKPT trial was a rollback
+        # re-execution; its latency is part of the op, not the host
+        recovery = {"faults_recovered": counts["detected_corrected"]}
+    else:
+        recovery = {}
+    if getattr(cls, "event_logged", False):
+        # real chains, merged from the chunk outcomes in trial order
+        elog = EventLog()
+        elog.events.extend(acc.events)
+        tl_cols, tls = _timeline_columns(elog)
+    else:
+        # the op cases emit no host events: synthesize the chains from the
+        # trial verdicts, as the reference does for its in-graph cases —
+        # strike at trial index i, same-tick detection (the in-op check
+        # verdict lands within the op call itself)
+        synth = EventLog(policy=spec.policy.value, site=spec.site,
+                         fault=spec.fault_model)
+        for i, (det, mis) in enumerate(zip(detected, mismatch)):
+            synth.emit("strike", tick=i)
+            if det:
+                synth.emit("detection", tick=i, detail={"check": "in_op"})
+                if spec.policy == Policy.CKPT and not mis:
+                    synth.emit("recovery", tick=i,
+                               detail={"action": "in_op_rollback"})
+        tl_cols, tls = _timeline_columns(synth)
     if event_sink is not None:
         event_sink.append({"config": spec.label(), "timelines": tls})
     sdc_lo, sdc_hi = plan.sdc_interval(counts["sdc"], n)
@@ -591,7 +819,7 @@ def run_campaign(specs: Sequence[fl.CampaignSpec],
             run_stats["trials_live"] += acc.n - acc.resumed_trials
             if acc.resumed_trials and acc.resumed_trials == acc.n:
                 run_stats["configs_resumed"] += 1
-            res = _finalize_config(spec, acc, plan, event_sink)
+            res = _finalize_config(spec, cls, acc, plan, event_sink)
             log(f"{spec.label()}: det={res.detection_rate:.3f} "
                 f"sdc={res.sdc_rate:.3f} cov={res.coverage:.3f} "
                 f"n={res.trials}/{res.max_trials}"

@@ -1,8 +1,9 @@
 """Algorithm-Based Fault Tolerance for the integer matmul and conv (exact
 checksums), and the per-row bit checksum of a float op's output.
 
-The counterpart of ``repro.core.abft`` (its storage scrub comes with the
-engine's scrubs).  The hot path is integer, so the Huang–Abraham identities
+The counterpart of ``repro.core.abft``, the storage scrub's per-leaf
+checksums (``storage_checksums``, ``verify_storage``) included.  The hot
+path is integer, so the Huang–Abraham identities
 
     rowsum_N( X·W )          ==  X · (W · 1_N)              (mod 2^32)
     sum_Cout( conv(x, W) )   ==  conv(x, sum_Cout W)        (mod 2^32)
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core import backend as backend_mod
 from repro_torch.core.fault_injection import _as_bits
 
@@ -125,6 +127,44 @@ def output_row_checksums(x: torch.Tensor) -> torch.Tensor:
     width = (1 << (8 * x.element_size())) - 1
     rows = (bits.to(torch.int64) & width).sum(dim=-1)
     return rows & 0xFFFFFFFF
+
+
+def _leaf_checksum(x: torch.Tensor) -> torch.Tensor:
+    """The sum mod 2^32 of ``x``'s bit patterns read as unsigned, as a ()
+    int64 in [0, 2^32).  Reduced with an int32 result (the reduction
+    accumulates in int64 and the result wraps mod 2^32), which reads a
+    32-bit leaf in place; an 8- or 16-bit leaf is widened to int32 and
+    masked to its unsigned value first.  Exact below 2^31 elements."""
+    if x.numel() >= 2**31:
+        raise ValueError(f"storage checksum of {x.numel()} elements: the "
+                         "reduction is exact below 2^31")
+    bits, _ = _as_bits(x)
+    if x.element_size() < 4:
+        bits = bits.to(torch.int32).bitwise_and_(
+            (1 << (8 * x.element_size())) - 1)
+    return bits.sum(dtype=torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def storage_checksums(params):
+    """Per-leaf mod-2^32 storage checksums of a parameter pytree: each
+    leaf's same-width unsigned bit patterns summed mod 2^32, so any single
+    flipped bit b changes its leaf's sum by +-2^b != 0 (mod 2^32).  A tree
+    of () int64 tensors holding the reference's uint32 values, leaf for
+    leaf (see ``output_row_checksums`` for why int64)."""
+    return tree.map(_leaf_checksum, params)
+
+
+def verify_storage(params, checks):
+    """A tree of () bool tensors: True == the leaf still matches its
+    deploy-time checksum."""
+    return tree.map(lambda a, b: a == b, storage_checksums(params), checks)
+
+
+def all_verified(flags) -> bool:
+    """The verdict of a tree of () bool tensors (``verify_storage``'s), in
+    one host readback."""
+    leaves = tree.leaves(flags)
+    return bool(torch.stack(leaves).all()) if leaves else True
 
 
 def channel_checksum(acc: torch.Tensor) -> torch.Tensor:

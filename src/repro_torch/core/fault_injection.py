@@ -9,7 +9,8 @@ The reference draws its targets from ``jax.random`` key streams, which the
 port cannot reproduce.  So every fault model whose target is a draw has an
 explicitly addressed twin (``flip_bit_at_index`` for ``flip_one_bit`` and
 ``flip_bit_at``, ``flip_burst_at`` for ``flip_burst``, ``stuck_at_index``
-for ``stuck_at``), with which a test strikes the same cells in both
+for ``stuck_at``, ``inject_leaf_with`` for ``inject_pytree_with``'s leaf
+draw), with which a test strikes the same cells in both
 packages, and the random models (the campaign's faultload, the pytree
 injectors of the training drills) draw from a CPU ``torch.Generator``
 instead of a key.  The draws happen on the host and the fault is applied on
@@ -156,6 +157,16 @@ def inject_pytree_with(params, gen: torch.Generator,
     i = int(torch.multinomial(sizes / sizes.sum(), 1, generator=gen))
     path, leaf = leaves[i]
     return tree.replace(params, path, fault(leaf, gen))
+
+
+def inject_leaf_with(params, path: tuple, gen: torch.Generator,
+                     fault: Callable[[torch.Tensor, torch.Generator],
+                                     torch.Tensor]):
+    """Apply ``fault(x, gen) -> x'`` to the leaf at ``path``
+    (``tree.leaves_with_paths``' paths): the addressed twin of
+    ``inject_pytree_with``'s leaf draw."""
+    leaf = dict(tree.leaves_with_paths(params))[tuple(path)]
+    return tree.replace(params, tuple(path), fault(leaf, gen))
 
 
 def inject_into_pytree(params, gen: torch.Generator, n_flips: int = 1):

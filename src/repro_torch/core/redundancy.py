@@ -1,17 +1,19 @@
 """N-modular redundancy with bitwise majority voting (temporal form).
 
-The counterpart of ``vote``, ``agree`` and ``_bitwise_majority3`` in
-``repro.core.redundancy``.  Bitwise majority of three,
+The counterpart of ``vote``, ``agree``, ``dmr_apply``, ``tmr_apply`` and
+``_bitwise_majority3`` in ``repro.core.redundancy``; replicas are tensors
+or pytrees of them (``repro_torch.tree``).  Bitwise majority of three,
 maj(a,b,c) = (a&b) | (b&c) | (a&c), applied to the bit patterns, is exact
 and branch-free for every dtype.  The spatial form (``replicated_vote``,
 one replica per device) comes with the parallelism slice.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch import tree
 from repro_torch.core.fault_injection import _as_bits
 
 
@@ -31,7 +33,7 @@ def vote(replicas: Sequence[torch.Tensor]) -> torch.Tensor:
     2 replicas → detection only: returns replica 0; use ``agree`` to check.
     """
     if len(replicas) == 3:
-        return _bitwise_majority3(*replicas)
+        return tree.map(_bitwise_majority3, *replicas)
     if len(replicas) == 2:
         return replicas[0]
     raise ValueError(f"vote() supports 2 or 3 replicas, got {len(replicas)}")
@@ -40,9 +42,36 @@ def vote(replicas: Sequence[torch.Tensor]) -> torch.Tensor:
 def agree(replicas: Sequence[torch.Tensor]) -> torch.Tensor:
     """() bool tensor — all replicas bit-identical (DMR detection predicate).
     Stays on the device: no host synchronisation."""
-    b0, _ = _as_bits(replicas[0])
-    ok = torch.ones((), dtype=torch.bool, device=b0.device)
+    flat0 = tree.leaves(replicas[0])
+    ok = torch.ones((), dtype=torch.bool, device=flat0[0].device)
     for other in replicas[1:]:
-        ob, _ = _as_bits(other)
-        ok = ok & torch.all(b0 == ob)
+        for a, b in zip(flat0, tree.leaves(other)):
+            ok = ok & torch.all(_as_bits(a)[0] == _as_bits(b)[0])
     return ok
+
+
+def _replicas(f: Callable, args, injectors) -> list:
+    outs = []
+    for inj in injectors:
+        y = f(*args)
+        if inj is not None:
+            y = tree.map(inj, y)
+        outs.append(y)
+    return outs
+
+
+def dmr_apply(f: Callable, *args,
+              injectors: Sequence[Optional[Callable]] = (None, None)):
+    """Dual modular redundancy, detect-only: run ``f`` twice (each pass
+    optionally perturbed by an injector) and compare bit for bit.
+    Returns ``(y0, detected)``: replica 0's output and a () bool tensor,
+    True when the replicas disagree."""
+    outs = _replicas(f, args, injectors)
+    return outs[0], ~agree(outs)
+
+
+def tmr_apply(f: Callable, *args,
+              injectors: Sequence[Optional[Callable]] = (None, None, None)):
+    """Run ``f`` three times, each optionally perturbed by an injector,
+    and vote."""
+    return vote(_replicas(f, args, injectors))

@@ -5,9 +5,10 @@ only: batch ``i`` is a pure function of (seed, i, host) drawn from numpy's
 Philox with the reference's key and counter, so the port's batches are bit
 for bit the reference's and a restore from a checkpoint continues on the
 same data with no loader state to persist.  ``n_hosts``/``host_id``
-default to one host.  ``prefetch`` (which needs the threaded ``dataflow``
-driver, ROADMAP.md queue 1, item 9) and ``shard_batch`` (item 17) are not
-in the port yet.
+default to one host.  ``prefetch`` streams batches through a bounded
+``Channel`` from a producer thread (the dataflow executor's threaded
+driver).  ``shard_batch`` (ROADMAP.md queue 1, item 17) is not in the port
+yet.
 """
 from __future__ import annotations
 
@@ -78,3 +79,34 @@ class MmapCorpus:
         rows = np.stack([self.data[i * S:i * S + S + 1] for i in idx])
         return {"tokens": rows[:, :-1].astype(np.int32),
                 "labels": rows[:, 1:].astype(np.int32)}
+
+
+def prefetch(source, start_step: int = 0, depth: int = 2):
+    """Double-buffered prefetch: synthesize batch i+1 while i is consumed.
+
+    One ``SourceStage`` producing ``(step, source.batch_at(step))`` runs
+    under the threaded driver, blocking on a bounded ``Channel`` of depth
+    ``depth``.  The consumer side is an iterator; ``close()`` closes the
+    channel, which unblocks and joins the producer.
+    """
+    from repro_torch.runtime.dataflow import (Channel, Closed, SourceStage,
+                                              ThreadedSource)
+    ch = Channel(depth, name="prefetch")
+    stage = SourceStage(lambda step: (step, source.batch_at(step)),
+                        ch, start=start_step)
+    driver = ThreadedSource(stage).start()
+
+    class _Iter:
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            try:
+                return ch.get()
+            except Closed:
+                raise StopIteration from None
+
+        def close(self):
+            driver.close()
+
+    return _Iter()

@@ -113,19 +113,44 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return out[:, :S]
 
 
+def int8_scores(q_q: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, hd) int8 . (B, T, KV, hd) int8 -> (B, KV, G, T) int32,
+    the reference's int8 x int8 -> int32 product.  Taken in float64 on
+    every device: |sum| <= hd * 127^2, far below 2^53, so every product
+    and partial sum is exact and no TF32 setting reaches it."""
+    return torch.einsum("bkgh,btkh->bkgt", q_q.to(torch.float64),
+                        k_cache.to(torch.float64)).to(torch.int32)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cur_len: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_len: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token attention over a (ring-buffered) KV cache.
 
     q (B, 1, H, hd), caches (B, T, KV, hd), cur_len (B,) valid slots.
+    With ``k_scale``/``v_scale`` (B, T, KV) the caches are int8: q is
+    quantized per (b, kv, g) row, the scores are the exact int32 product
+    (``int8_scores``) rescaled by q's and each row's k scale, and V is
+    dequantized page-wide to q's dtype, as in the reference.
     """
     B, T, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
+    scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, KV, G, hd).to(torch.float32)
-    s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.to(torch.float32)) \
-        * (1.0 / math.sqrt(hd))
+    if k_scale is not None:
+        q_s = torch.clamp(qg.abs().amax(dim=-1), min=1e-8) / 127.0
+        q_q = torch.clamp(torch.round(qg / q_s[..., None]), -127,
+                          127).to(torch.int8)
+        ks_t = k_scale.movedim(1, 2)[:, :, None, :]          # (B, KV, 1, T)
+        s = (int8_scores(q_q, k_cache).to(torch.float32) * q_s[..., None]
+             * ks_t * scale)
+        v_cache = (v_cache.to(torch.float32)
+                   * v_scale[..., None]).to(q.dtype)
+    else:
+        s = torch.einsum("bkgh,btkh->bkgt", qg,
+                         k_cache.to(torch.float32)) * scale
     valid = torch.arange(T, device=q.device)[None, :] \
         < cur_len.reshape(-1).expand(B)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
@@ -141,9 +166,12 @@ def cache_write_slot(batch_cache, one_cache, slot: int, n: int):
 
     Leaves are (L, B, T, ...) (batch at dim 1; a shorter one-request time
     axis is copied as a prefix, the rest of the row zeroed), a (B,) int
-    per-row length vector (set to ``n``), or a scalar counter (maxed).
+    per-row length vector (set to ``n``), or a scalar counter (maxed);
+    a ``None`` field (no int8 scales) is skipped.
     """
     for bc, oc in zip(batch_cache, one_cache):
+        if bc is None:
+            continue
         if bc.dim() == 0:
             bc.copy_(torch.maximum(bc, oc))
         elif bc.dim() == 1 and not bc.is_floating_point():

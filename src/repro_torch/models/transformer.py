@@ -37,15 +37,22 @@ tensor code in both packages.
 
 ``embeds`` (``forward``, ``prefill``) and ``embed`` (``decode_step``) take
 the place of the token embedding, as in the reference: the campaign's
-``activations`` site strikes the embeddings through them.
+``activations`` site strikes the embeddings through them.  A token id out
+of range reads the row JAX's gather reads (a negative id counts from the
+end once, then the id is clamped), so a struck token buffer decodes the
+same stream in both packages and never faults the card.
+
+``cfg.quant_kv`` keeps the KV cache in int8 with one f32 scale per
+(layer, row, position, KV head) in ``KVCache.k_s``/``v_s`` (``None``
+otherwise), quantized as the reference's ``_quantize_kv_rows``; decode
+attention takes the int8 q.k product exactly (``common.decode_attention``).
 
 Not in the port yet (each raises ``NotImplementedError`` naming its
-ROADMAP item): MoE blocks and ``ShardCtx`` (item 17) and the int8 KV cache
-``quant_kv`` (item 8).
+ROADMAP item): MoE blocks and ``ShardCtx`` (item 17).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -60,7 +67,6 @@ _NOT_YET = {
     "moe": "MoE blocks come with ROADMAP.md queue 1, item 17",
     "ctx": "sharded execution (ShardCtx) comes with ROADMAP.md queue 1, "
            "item 17",
-    "quant_kv": "the int8 KV cache comes with ROADMAP.md queue 1, item 8",
 }
 
 
@@ -73,8 +79,6 @@ def _check(cfg: ArchConfig, ctx=None) -> None:
         _not_yet("moe")
     if ctx is not None:
         _not_yet("ctx")
-    if cfg.quant_kv:
-        _not_yet("quant_kv")
 
 
 def _pdt(cfg: ArchConfig):
@@ -268,7 +272,12 @@ def _logits(cfg: ArchConfig, params, x):
 
 
 def _embed(cfg: ArchConfig, params, tokens):
-    return F.embedding(tokens.long(), params["embed"]).to(_cdt(cfg))
+    """The embedding rows of ``tokens``, an out-of-range id read as JAX's
+    gather reads it: negative ids count from the end once, then clamp."""
+    V = params["embed"].shape[0]
+    ids = tokens.long()
+    ids = torch.clamp(torch.where(ids < 0, ids + V, ids), 0, V - 1)
+    return F.embedding(ids, params["embed"]).to(_cdt(cfg))
 
 
 class ForwardOut(NamedTuple):
@@ -334,9 +343,20 @@ def loss_fn(cfg: ArchConfig, params, batch, ctx=None):
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor          # (L, B, T, KV, hd) — compute dtype
-    v: torch.Tensor
+    k: torch.Tensor          # (L, B, T, KV, hd) — compute dtype, or int8
+    v: torch.Tensor          #   when cfg.quant_kv (k_s/v_s hold the scales)
     length: torch.Tensor     # (B,) int32 — per-row tokens currently in cache
+    k_s: Optional[torch.Tensor] = None   # (L, B, T, KV) f32 int8-KV scales
+    v_s: Optional[torch.Tensor] = None
+
+
+def _quantize_kv_rows(x: torch.Tensor):
+    """Per-(..., KV)-row symmetric int8 over hd: (..., KV, hd) -> q, scale
+    (round half to even of an IEEE divide, as the reference)."""
+    x = x.to(torch.float32)
+    s = torch.clamp(x.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
 
 
 def cache_len(cfg: ArchConfig, max_len: int) -> int:
@@ -352,6 +372,14 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
     dev = resolve_device(device)
     shape = (cfg.n_layers, B, cache_len(cfg, max_len), cfg.n_kv_heads,
              cfg.resolved_head_dim)
+    if cfg.quant_kv:
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.zeros((B,), dtype=torch.int32, device=dev),
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev),
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev))
     dtype = dtype or _cdt(cfg)
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev),
@@ -375,9 +403,20 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
     valid = torch.clamp(pos + 1, max=T)
     for li, bp in enumerate(_layers(params["dense_blocks"])):
         q, k, v = _qkv(cfg, bp, x, pos[:, None])
-        cache.k[li, rows, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[li, rows, slot] = v[:, 0].to(cache.v.dtype)
-        o = common.decode_attention(q, cache.k[li], cache.v[li], valid)
+        if cache.k_s is not None:                    # int8 KV cache
+            k_q, k_sc = _quantize_kv_rows(k[:, 0])   # (B, KV, hd), (B, KV)
+            v_q, v_sc = _quantize_kv_rows(v[:, 0])
+            cache.k[li, rows, slot] = k_q
+            cache.v[li, rows, slot] = v_q
+            cache.k_s[li, rows, slot] = k_sc
+            cache.v_s[li, rows, slot] = v_sc
+            o = common.decode_attention(q, cache.k[li], cache.v[li], valid,
+                                        k_scale=cache.k_s[li],
+                                        v_scale=cache.v_s[li])
+        else:
+            cache.k[li, rows, slot] = k[:, 0].to(cache.k.dtype)
+            cache.v[li, rows, slot] = v[:, 0].to(cache.v.dtype)
+            o = common.decode_attention(q, cache.k[li], cache.v[li], valid)
         x = x + (o.reshape(B, 1, H * hd) @ _w(cfg, bp["wo"])).to(x.dtype)
         x = _dense_ffn(cfg, bp, x)
     cache.length.add_(1)
@@ -399,13 +438,23 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
     ring = cfg.swa_window is not None and S >= T
     idx = (torch.arange(tc, device=src.device) + (S - tc)) % T
 
+    def write(page, new):
+        if ring:
+            page[:, idx] = new
+        else:
+            page[:, :tc] = new
+
     def keep(li, k, v):
-        for page, new in ((cache.k[li], k), (cache.v[li], v)):
-            new = new[:, S - tc:].to(page.dtype)
-            if ring:
-                page[:, idx] = new
-            else:
-                page[:, :tc] = new
+        k, v = k[:, S - tc:], v[:, S - tc:]
+        if cache.k_s is None:
+            write(cache.k[li], k.to(cache.k.dtype))
+            write(cache.v[li], v.to(cache.v.dtype))
+            return
+        for page, scales, new in ((cache.k[li], cache.k_s[li], k),
+                                  (cache.v[li], cache.v_s[li], v)):
+            q, sc = _quantize_kv_rows(new)
+            write(page, q)
+            write(scales, sc)
 
     logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds)
     cache.length.fill_(S)

@@ -2,11 +2,14 @@
 executor (``runtime/dataflow.py``).
 
 The counterpart of ``repro.runtime.serving.Engine``, with the same
-constructor: ``backend=`` pins the execution backend of the W8A8 FFN
-matmuls and ``policy_map=`` bakes a per-site dependability map into the
-config (``ffn.*`` rules run in ``_qdot``; rules on ``kv_cache``,
-``decode_state`` or ``weights`` imply the scrubs, which are not in this
-slice and raise).
+constructor and surface: ``backend=`` pins the execution backend of the
+W8A8 FFN matmuls and ``policy_map=`` bakes a per-site dependability map
+into the config (``ffn.*`` rules run in ``_qdot``; the ``kv_cache`` and
+``decode_state`` policies set the decode-state scrub, CKPT => rollback and
+ABFT => detect, and the ``weights`` policy the storage scrub: ABFT =>
+detect at every pump, CKPT => rollback every ``snapshot_every`` pumps);
+``strike`` is the campaign's per-stage SEU surface, and ``tracer``,
+``event_log`` and ``metrics`` attach the ``repro_torch.obs`` observers.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from repro_torch.core.dependability import Policy
 from repro_torch.models import api as model_api
 from repro_torch.models.config import ArchConfig
 from repro_torch.runtime.dataflow import (     # noqa: F401 — re-exports
-    Channel, EngineStats, Request, StreamingExecutor)
+    Channel, Closed, EngineStats, Request, StreamingExecutor,
+    check_scrub_mode)
 
 
 class Engine:
@@ -48,13 +52,18 @@ class Engine:
                 storage_scrub = {Policy.ABFT: "detect",
                                  Policy.CKPT: "rollback"}.get(
                     pm.storage_policy(), "off")
-        # the scrubs refuse in this slice, so their cadence
-        # (storage_scrub_every) is not used
+        if storage_scrub is None:
+            storage_scrub = "off"
+        if storage_scrub_every is None:
+            storage_scrub_every = 1 if storage_scrub == "detect" \
+                else snapshot_every
         self._ex = StreamingExecutor(
             cfg, params, capacity=capacity, max_len=max_len,
             prefill_pad=prefill_pad, snapshot_every=snapshot_every,
             eos_id=eos_id, compiled=compiled, state_scrub=state_scrub,
-            storage_scrub=storage_scrub or "off", certify=certify, drain_barrier=drain_barrier,
+            storage_scrub=storage_scrub,
+            storage_scrub_every=storage_scrub_every,
+            certify=certify, drain_barrier=drain_barrier,
             multi_step=multi_step, tracer=tracer, event_log=event_log,
             metrics=metrics)
 
@@ -158,13 +167,47 @@ class Engine:
     def state_scrub(self) -> str:
         return self._ex.state_scrub
 
+    @state_scrub.setter
+    def state_scrub(self, mode: str):
+        self._ex.state_scrub = check_scrub_mode("state_scrub", mode)
+
     @property
     def storage_scrub(self) -> str:
         return self._ex.storage_scrub
 
     @property
+    def storage_scrub_every(self) -> int:
+        return self._ex.storage_scrub_every
+
+    @property
+    def state_events(self):
+        return self._ex.state_events
+
+    # ------------------------------------------------------- observability
+    @property
     def tick(self) -> int:
+        """The executor's deterministic pump-cycle clock."""
         return self._ex.tick
+
+    @property
+    def tracer(self):
+        return self._ex.tracer
+
+    @tracer.setter
+    def tracer(self, value):
+        self._ex.tracer = value
+
+    @property
+    def event_log(self):
+        return self._ex.event_log
+
+    @event_log.setter
+    def event_log(self, value):
+        self._ex.event_log = value
+
+    @property
+    def metrics(self):
+        return self._ex.metrics
 
     @property
     def dependability(self):
@@ -173,6 +216,10 @@ class Engine:
     @property
     def _snapshot(self):
         return self._ex._snapshot
+
+    @_snapshot.setter
+    def _snapshot(self, value):
+        self._ex._snapshot = value
 
     # ------------------------------------------------------------ lifecycle
     def reset(self, params=None):
@@ -194,9 +241,43 @@ class Engine:
         return self._ex.run(max_steps=max_steps)
 
     # ------------------------------------------------------- dependability
+    def scrub_decode_state(self) -> bool:
+        return self._ex.scrub_decode_state()
+
+    def scrub_storage(self) -> bool:
+        """Verify live params against the golden storage checksums
+        (True == clean); True when storage scrubbing is off."""
+        return self._ex.scrub_storage()
+
+    def refresh_storage_baseline(self):
+        """Re-bless the current params as golden (rolling-deploy hook)."""
+        self._ex.refresh_storage_baseline()
+
+    def drain_state_events(self) -> List[dict]:
+        return self._ex.drain_state_events()
+
     def record_dependability(self, stats: dict):
         self._ex.record_dependability(stats)
 
+    def strike(self, site: str, fault, key, leaf=None) -> None:
+        """Per-stage SEU injection (the campaign's drill surface)."""
+        self._ex.strike(site, fault, key, leaf=leaf)
+
+    def dependability_report(self) -> dict:
+        """Host-side dependability summary: detection counters and the
+        replay/snapshot state a campaign judges recovery cost by."""
+        from repro_torch.core.dependability import DependabilityStats
+        ex = self._ex
+        out = DependabilityStats.to_host(ex.dependability)
+        out.update(steps=ex.stats.steps, replays=ex.stats.replays,
+                   tokens_out=ex.stats.tokens_out,
+                   snapshot_every=ex.snapshot_every,
+                   state_scrub=ex.state_scrub,
+                   storage_scrub=ex.storage_scrub,
+                   state_events_pending=len(ex.state_events))
+        return out
+
     def restore_snapshot(self) -> int:
-        """Roll back to the last snapshot; returns the steps replayed."""
+        """Roll back to the last (checksum-verified) snapshot; returns the
+        steps replayed."""
         return self._ex.restore_snapshot()

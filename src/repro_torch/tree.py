@@ -7,6 +7,11 @@ leaf in both packages, and ``path_str`` spells it as the reference's
 checkpoint manifests do ("params/dense_blocks/wq").  ``structure`` is a
 JSON description of the containers (a NamedTuple by its import path), from
 which ``unflatten`` rebuilds the tree without pickling anything.
+
+``None`` is an empty subtree, as in JAX: it holds no leaf, ``map`` and
+``replace`` pass it through, and ``structure``/``unflatten`` keep it in its
+place (the int8 KV cache's ``KVCache.k_s``/``v_s`` are ``None`` without
+``quant_kv``).
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ def _is_namedtuple(t) -> bool:
 
 
 def leaves_with_paths(tree) -> List[Tuple[tuple, Any]]:
-    """(path, leaf) pairs in JAX's order."""
+    """(path, leaf) pairs in JAX's order; ``None`` holds no leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [((k,) + p, leaf) for k in sorted(tree)
                 for p, leaf in leaves_with_paths(tree[k])]
@@ -40,8 +47,13 @@ def path_str(path: tuple) -> str:
     return "/".join(str(p) for p in path) or "root"
 
 
+_NONE = {"none": None}          # an empty subtree; a leaf is plain None
+
+
 def structure(tree):
     """A JSON-able description of the containers of ``tree``."""
+    if tree is None:
+        return dict(_NONE)
     if isinstance(tree, dict):
         return {"dict": {k: structure(tree[k]) for k in sorted(tree)}}
     if _is_namedtuple(tree):
@@ -60,6 +72,8 @@ def unflatten(struct, leaves_in: List[Any]):
     def build(s):
         if s is None:
             return next(it)
+        if s == _NONE:
+            return None
         if "dict" in s:
             return {k: build(v) for k, v in s["dict"].items()}
         if "namedtuple" in s:

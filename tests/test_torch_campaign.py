@@ -12,8 +12,9 @@ The paper-level invariants the campaign must certify empirically:
   * A campaign is a pure function of its spec + seed (bit-exact replay).
   * Reports round-trip through JSON.
 
-The reference's serving and fleet cases wait for ROADMAP items 12b and 14;
-their names raise ``NotImplementedError`` here.  Every case runs on the
+The reference's fleet cases wait for ROADMAP item 14; their names raise
+``NotImplementedError`` here (the serving cases are held in
+``test_torch_serving_campaign.py``).  Every case runs on the
 CPU (``device="cpu"``), where the ``cuda`` backend's wrappers run their
 kernels' plain versions.  The float ``flashattn`` workload is held against
 the reference by verdict here; the integer workloads trial by trial in
@@ -34,6 +35,7 @@ from repro.campaign import report as jreport
 from repro.campaign import runner as jrunner
 from repro.core import fault_injection as jfi
 from repro.core.dependability import Policy as JPolicy
+from repro_torch import tree
 from repro_torch.campaign import (
     CampaignSpec, ConfigResult, build_case, classify_counts, expand_grid,
     load_report, resolve_fault_model, run_campaign, trial_seed, trial_seeds,
@@ -238,8 +240,11 @@ def test_bit_sweep_rejects_model_workloads():
     assert kernel_workloads() == ["flashattn", "qconv2d", "qmatmul"]
     with pytest.raises(KeyError, match="unknown workload"):
         run_bit_sweep("nope", [Policy.NONE], trials_per_bit=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    with pytest.raises(ValueError, match="'serving'"):
         run_bit_sweep("serving", [Policy.NONE], trials_per_bit=1,
+                      device=CPU)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run_bit_sweep("fleet", [Policy.NONE], trials_per_bit=1,
                       device=CPU)
 
 
@@ -344,7 +349,8 @@ def test_cli_without_a_card_raises_and_does_not_fall_back(tmp_path):
 
 @pytest.mark.parametrize("workload", sorted(NOT_YET))
 def test_engine_workloads_name_their_item(workload, tmp_path):
-    item = "12b" if workload.startswith("serving") else "14"
+    assert sorted(NOT_YET) == ["fleet", "fleet_mp"]
+    item = "14"
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_case(workload, device=CPU)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -555,7 +561,8 @@ def test_transformer_embeds_replace_the_token_embedding():
     la, ca = model_api.prefill(cfg, params, tokens, 24)
     lb, cb = model_api.prefill(cfg, params, None, 24, embeds=embeds)
     assert torch.equal(la, lb)
-    assert all(torch.equal(x, y) for x, y in zip(ca, cb))
+    assert all(torch.equal(x, y)
+               for x, y in zip(tree.leaves(ca), tree.leaves(cb)))
     nxt = torch.argmax(la[:, -1], dim=-1)
     da, _ = model_api.decode_step(cfg, params, nxt, ca)
     db, _ = model_api.decode_step(cfg, params, None, cb,

@@ -241,11 +241,24 @@ def test_snapshot_survives_in_place_cache_writes(served):
 
 
 def test_unported_engine_options_raise(served):
+    """Bad modes raise; the options once refused (the scrubs, maps that
+    imply them, decode windows, observers) now construct, with the
+    reference's derived scrub schedule."""
     cfg, params, _, _ = served
     with pytest.raises(ValueError, match="state_scrub"):
         Engine(cfg, params, state_scrub="sometimes")
-    for kw in ({"state_scrub": "rollback"}, {"storage_scrub": "detect"},
-               {"policy_map": PolicyMap.uniform(Policy.ABFT)},
-               {"multi_step": 4}, {"tracer": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Engine(cfg, params, **kw)
+    with pytest.raises(ValueError, match="storage_scrub"):
+        Engine(cfg, params, storage_scrub="sometimes")
+    with pytest.raises(ValueError, match="multi_step"):
+        Engine(cfg, params, multi_step=0)
+    for kw, want in (({"state_scrub": "rollback"}, ("rollback", "off", 32)),
+                     ({"storage_scrub": "detect"}, ("off", "detect", 1)),
+                     ({"policy_map": PolicyMap.uniform(Policy.ABFT)},
+                      ("detect", "detect", 1)),
+                     ({"policy_map": PolicyMap.uniform(Policy.CKPT)},
+                      ("rollback", "rollback", 32)),
+                     ({"multi_step": 4}, ("off", "off", 32)),
+                     ({"tracer": object()}, ("off", "off", 32))):
+        eng = Engine(cfg, params, **kw)
+        assert (eng.state_scrub, eng.storage_scrub,
+                eng.storage_scrub_every) == want

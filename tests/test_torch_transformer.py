@@ -243,10 +243,14 @@ def test_unported_paths_name_their_roadmap_item():
     assert tregistry.names() == ["qwen3-0.6b", "smollm-135m"]
     _, tcfg = small()
     moe = dataclasses.replace(tcfg, moe=TMoEConfig(4, 2, 16))
-    for cfg in (moe, dataclasses.replace(tcfg, quant_kv=True),
-                dataclasses.replace(tcfg, family="rwkv")):
+    for cfg in (moe, dataclasses.replace(tcfg, family="rwkv")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tapi.init_params(cfg, torch.Generator(), device="cpu")
+    # the int8 KV cache came in: its cache holds int8 pages and f32 scales
+    qkv = dataclasses.replace(tcfg, quant_kv=True)
+    cache = tapi.init_cache(qkv, 2, max_len=8, device="cpu")
+    assert cache.k.dtype == torch.int8 and cache.k_s.dtype == torch.float32
+    assert cache.k_s.shape == cache.k.shape[:-1]
     # training came in: loss_fn, once refused, now gives a finite loss
     tp = tapi.init_params(tcfg, torch.Generator().manual_seed(0),
                           device="cpu")
