@@ -108,6 +108,29 @@ Phases, each of which raises on failure:
    each scrub on the device beside its bound, the storage checksums equal
    to the CPU's; the phase within ``DEP_BUDGET_S``; it runs after the
    timings and profiles of 13;
+14. slice 12, the serving fleet at full width (``phase_fleet``:
+   SmolLM-135M, W8A8 FFN, bf16, flash prefill, capacity 8, 12 requests of
+   16 new tokens, prompts of 8-512 tokens): NONE, ABFT (under
+   ``PolicyMap.uniform(ABFT)``), DMR and CKPT fleets of 3 replicas serve
+   one ``Engine``'s streams with rows 4, 5 and 9 launched as derived; a
+   weight strike restored incrementally onto the card, a token-buffer
+   strike replayed under DMR, a KV-cache strike rolled back under CKPT, a
+   replica killed, a rolling deploy to seed-1 params and a strike mid-swap,
+   each with the clean streams; the proc transport with 2 workers on the
+   card, clean and with a worker SIGKILLed, its workers gone at the end;
+   the ``fleet`` and ``fleet_mp`` campaigns (ABFT and CKPT SDC 0, NONE
+   SDC > 0, DMR SDC 0 at the transient sites; ``ref`` == ``cuda`` trial
+   by trial on the case with the W8A8 FFN, so that row 4 is held against
+   its plain version); ms per tick and tokens/s per policy, recovery
+   seconds, proc against in-process, peak memory, the seconds of each
+   step; within ``FLEET_BUDGET_S``;
+15. slice 12, the embedding-input models (``phase_embed``): musicgen-large
+   in full and llava-next-34b at full width with 4 of its 60 layers, W8A8
+   FFN, flash prefill: ``prefill(embeds=)`` at S 1500 and 2880 and 16
+   ``decode_step(embed=)`` steps, logits finite, greedy streams under
+   ``cuda`` equal to ``ref``, rows 4 and 9 launched as derived, row 9
+   against its plain version at each model's attention shape; prefill ms
+   and decode ms/step; within ``EMBED_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -2813,6 +2836,618 @@ def phase_dependable(cfg, params, prompts, card: str) -> dict:
     return out
 
 
+# slice 12: the dependable serving fleet at full width
+FLEET_REQUESTS = 12
+FLEET_MAX_NEW = 16
+FLEET_MAX_LEN = 576                # prompts of 8-512 tokens + 16 new, in 64s
+FLEET_REPLICAS = 3
+FLEET_SCRUB_EVERY = 4
+FLEET_ROUNDS = 3                   # timing rounds of each policy's clean run
+FLEET_PROC_ROUNDS = 2              # timed rounds of the proc fleet
+FLEET_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum",
+              "flash_attention_fwd_lse")
+FLEET_CAMPAIGN_TRIALS = 16         # per fleet campaign configuration
+FLEET_NONE_TRIALS = 64             # NONE: enough trials for a manifest SDC
+FLEET_MP_TRIALS = 8                # fleet_mp ABFT / CKPT (NONE: 64)
+FLEET_COMPARE_TRIALS = 8           # ref == cuda, per configuration
+FLEET_BUDGET_S = 370               # the phase's share of the limit: 1.3 x
+                                   # its slowest run, 284.8 s on an NVIDIA
+                                   # H100 80GB HBM3 (700 W) with a slow host
+
+
+def fleet_setup(cfg):
+    """The served LM with the flash prefill, and 12 seeded prompts of
+    8-512 tokens."""
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    rng = random.Random(5)
+    prompts = [[rng.randrange(cfg.vocab_size)
+                for _ in range(rng.randint(8, 512))]
+               for _ in range(FLEET_REQUESTS)]
+    return fcfg, prompts
+
+
+def _fleet(cfg, params, **kw):
+    from repro_torch.fleet import Fleet
+    kw = {"n_replicas": FLEET_REPLICAS, "capacity": CAPACITY,
+          "max_len": FLEET_MAX_LEN, "prefill_pad": PREFILL_PAD,
+          "scrub_every": FLEET_SCRUB_EVERY, **kw}
+    return Fleet(cfg, params, **kw)
+
+
+def _fleet_serve(fleet, prompts, policy=None, mid_run=None, deploy=None):
+    """Reset ``fleet`` (to ``policy``), submit ``prompts``, run a drill
+    after two ticks (``mid_run(fleet)``, or ``deploy`` keywords of
+    ``Fleet.deploy``), serve to the end.  Returns the released streams
+    (None where a request was not released) and the run's numbers: host
+    seconds, ticks, decode steps and prefills of the replicas, and the
+    kernel launches it made."""
+    from repro_torch.runtime.serving import Request
+    fleet.reset(policy=policy)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=FLEET_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    before = _campaign_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not fleet.submit(r):
+            raise AssertionError(f"fleet: request {r.uid} rejected")
+    summary = None
+    if mid_run is not None or deploy is not None:
+        fleet.tick()
+        fleet.tick()
+        if mid_run is not None:
+            mid_run(fleet)
+        if deploy is not None:
+            summary = fleet.deploy(**deploy)
+    fleet.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = _campaign_launches()
+    streams = [list(fleet.released[r.uid].output)
+               if r.uid in fleet.released else None for r in reqs]
+    tokens = sum(len(s) for s in streams if s)
+    copies = 2 if fleet.policy.value == "dmr" else 1
+    return streams, {
+        "seconds": secs, "ticks": fleet.tick_no,
+        "ms_per_tick": secs * 1e3 / max(fleet.tick_no, 1),
+        "engine_steps": fleet.metrics.engine_steps,
+        "tokens": tokens, "tokens_per_s": tokens / secs,
+        "decode_steps": sum(r.engine.stats.steps for r in fleet.replicas),
+        "prefills": copies * len(reqs),
+        "launches": {k: after[k] - before[k] for k in after},
+        "metrics": fleet.metrics.to_json(), "summary": summary}
+
+
+def _derived_fleet_launches(cfg, run, row):
+    """What a clean run launches: ``row`` (4 unmapped, 5 under the ABFT
+    map) once per FFN matmul of every prefill and decode step, row 9 once
+    per layer of every prefill, nothing else."""
+    want = {name: 0 for name in run["launches"]}
+    want[row] = 3 * cfg.n_layers * (run["prefills"] + run["decode_steps"])
+    want["flash_attention_fwd_lse"] = cfg.n_layers * run["prefills"]
+    return want
+
+
+def _strike_gen(label):
+    from repro_torch.campaign import faultload as fl
+    return fl.generator(fl.trial_seed(0, f"chip_smoke/fleet/{label}", 0))
+
+
+def _fleet_golden(cfg, params, prompts):
+    """The streams one ``Engine`` serves on the same params."""
+    from repro_torch.runtime.serving import Engine, Request
+    eng = Engine(cfg, params, capacity=CAPACITY, max_len=FLEET_MAX_LEN,
+                 prefill_pad=PREFILL_PAD)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=FLEET_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [list(r.output) for r in reqs]
+
+
+def _w8a8(cfg):
+    return dataclasses.replace(cfg, quant="w8a8_ffn")
+
+
+def _fleet_campaigns(failed, out):
+    """The ``fleet`` and ``fleet_mp`` campaigns at the reference's case on
+    the ``cuda`` backend: ABFT and CKPT SDC 0, NONE SDC > 0 at the weights
+    site, DMR SDC 0 at the transient sites.  The reference's case serves
+    unquantized and launches no kernel, so ``fleet`` under ``ref`` is held
+    equal to ``cuda`` trial by trial on the same case with the W8A8 FFN,
+    where ``cuda`` launches row 4 and ``ref`` runs its plain version."""
+    from repro_torch.campaign import CampaignSpec, runner, trial_seeds
+    from repro_torch.campaign import resolve_fault_model
+    from repro_torch.core.dependability import Policy
+    fault = resolve_fault_model("single_bitflip").apply
+    rows = []
+
+    def verdict(case, w, policy, site, n):
+        spec = CampaignSpec(w, policy, site, "single_bitflip", n)
+        t0 = time.perf_counter()
+        res, = runner.run_campaign([spec], cache={(w, 0, "cuda", DEVICE):
+                                                  case}, device=DEVICE)
+        secs = time.perf_counter() - t0
+        ok = res.sdc > 0 if policy == Policy.NONE else res.sdc == 0
+        rows.append({"workload": w, "policy": policy.value, "site": site,
+                     "trials": res.trials, "sdc": res.sdc,
+                     "detection_rate": res.detection_rate,
+                     "faults_recovered": res.faults_recovered,
+                     "trials_per_s": res.trials / secs, "ok": ok})
+        print(f"fleet: campaign {w:8s} {policy.value:4s} {site:12s} "
+              f"n={res.trials} det={res.detection_rate:.3f} sdc={res.sdc} "
+              f"rec={res.faults_recovered} {res.trials / secs:.1f} trials/s"
+              + ("" if ok else "  VERDICT MISSED"))
+        if not ok:
+            failed.append(f"campaign {spec.label()}")
+
+    case = runner.CASES["fleet"](0, "cuda", device=DEVICE)
+    n = FLEET_CAMPAIGN_TRIALS
+    for policy, site, trials in (
+            (Policy.NONE, "weights", FLEET_NONE_TRIALS),
+            (Policy.ABFT, "weights", n), (Policy.ABFT, "kv_cache", n),
+            (Policy.ABFT, "decode_state", n), (Policy.CKPT, "weights", n),
+            (Policy.CKPT, "kv_cache", n), (Policy.CKPT, "decode_state", n),
+            (Policy.DMR, "kv_cache", n), (Policy.DMR, "decode_state", n)):
+        verdict(case, "fleet", policy, site, trials)
+    case.fleet.close()
+
+    class W8A8Fleet(runner.CASES["fleet"]):
+        _customize_cfg = staticmethod(_w8a8)
+
+    q_cuda = W8A8Fleet(0, "cuda", device=DEVICE)
+    q_ref = W8A8Fleet(0, "ref", device=DEVICE)
+    for policy, site in ((Policy.NONE, "weights"), (Policy.ABFT, "weights"),
+                         (Policy.CKPT, "kv_cache"),
+                         (Policy.DMR, "decode_state")):
+        seeds = trial_seeds(CampaignSpec("fleet", policy, site,
+                                         "single_bitflip",
+                                         FLEET_COMPARE_TRIALS))
+        before = _campaign_launches()["qmatmul_acc"]
+        d_c, m_c = q_cuda.run_trials(policy, site, fault, seeds)
+        row4 = _campaign_launches()["qmatmul_acc"] - before
+        d_r, m_r = q_ref.run_trials(policy, site, fault, seeds)
+        same = np.array_equal(d_c, d_r) and np.array_equal(m_c, m_r)
+        print(f"fleet: campaign fleet, W8A8 FFN, {policy.value}/{site}: ref "
+              f"== cuda trial by trial: {same} (detected {int(d_c.sum())}, "
+              f"mismatch {int(m_c.sum())} of {len(seeds)}; cuda launched "
+              f"row 4 {row4} times)" + ("" if same and row4 else "  FAILED"))
+        if not same or not row4:
+            failed.append(f"ref != cuda: fleet {policy.value}/{site}")
+    for c in (q_cuda, q_ref):
+        c.fleet.close()
+    mp = runner.CASES["fleet_mp"](0, "cuda", device=DEVICE)
+    try:
+        for policy, trials in ((Policy.NONE, FLEET_NONE_TRIALS),
+                               (Policy.ABFT, FLEET_MP_TRIALS),
+                               (Policy.CKPT, FLEET_MP_TRIALS)):
+            verdict(mp, "fleet_mp", policy, "weights", trials)
+    finally:
+        mp.close()
+    if any(r.handle.proc.is_alive() for r in mp.fleet.replicas):
+        failed.append("fleet_mp: a worker outlived its case")
+    out["campaign"] = rows
+
+
+def phase_fleet(cfg, params, card: str) -> dict:
+    """Slice 12: the dependable serving fleet at full width (SmolLM-135M,
+    W8A8 FFN, bf16, flash prefill, capacity 8, 12 requests of 16 new
+    tokens, prompts of 8-512 tokens): (1) NONE, 3 replicas in process,
+    streams equal to one Engine's; (2) ABFT under PolicyMap.uniform(ABFT),
+    a weight strike on replica 0 detected, restored incrementally onto the
+    card and readmitted; (3) DMR, a token-buffer strike detected and
+    replayed; (4) CKPT, a KV-cache strike rolled back in place; (5) a
+    replica killed mid-decode; (6) a rolling deploy to seed-1 params, and a
+    strike on replica 0 while replica 1 is mid-swap; (7) the proc
+    transport, 2 workers on the card, clean and with a worker SIGKILLed;
+    (8) the fleet and fleet_mp campaigns; every healed stream equal to the
+    clean one, rows 4, 5 and 9 launched as derived on the clean runs; (9)
+    tokens/s and ms per tick per policy (median of 3 rounds), recovery
+    seconds, proc against in-process ms per tick, peak memory, the seconds
+    each step took.  Launch counts are reset at its start and read at its
+    end."""
+    from repro_torch import tree
+    from repro_torch.core import fault_injection as fi
+    from repro_torch.core.dependability import Policy
+    from repro_torch.core.policy_map import PolicyMap
+    from repro_torch.fleet import ReplicaState
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    fcfg, prompts = fleet_setup(cfg)
+    failed, out = [], {"card": card, "steps_s": {}}
+    t_step = [t_phase]
+
+    def step_done(label):
+        now = time.perf_counter()
+        out["steps_s"][label] = now - t_step[0]
+        t_step[0] = now
+
+    golden = _fleet_golden(fcfg, params, prompts)
+    _reset_all_launches()
+    fleets = []
+    step_done("golden")
+
+    def healed(label, streams, run, **want):
+        m = run["metrics"]
+        ok = streams == golden and all(m[k] >= v for k, v in want.items())
+        print(f"fleet: {label}: streams equal clean: {streams == golden}; "
+              + ", ".join(f"{k} {m[k]}" for k in ("detections", "recoveries",
+                                                  "incremental_restores",
+                                                  "state_rollbacks",
+                                                  "failovers"))
+              + f"; recovery_mean_seconds {m['recovery_mean_seconds']}"
+              + ("" if ok else "  FAILED"))
+        if not ok:
+            failed.append(label)
+        out.setdefault("drills", {})[label] = {
+            k: run[k] for k in ("seconds", "ticks", "ms_per_tick")}
+        out["drills"][label]["metrics"] = m
+        return ok
+
+    try:
+        plain = _fleet(fcfg, params)
+        abft = _fleet(fcfg, params, policy=Policy.ABFT,
+                      policy_map=PolicyMap.uniform("abft"))
+        fleets += [plain, abft]
+        # (1)-(4) clean runs, FLEET_ROUNDS rounds interleaving the policies
+        clean = {"none": (plain, Policy.NONE, "qmatmul_acc"),
+                 "abft": (abft, Policy.ABFT, "qmatmul_acc_checksum"),
+                 "dmr": (plain, Policy.DMR, "qmatmul_acc"),
+                 "ckpt": (plain, Policy.CKPT, "qmatmul_acc")}
+        rounds = {name: [] for name in clean}
+        for _ in range(FLEET_ROUNDS):
+            for name, (fleet, policy, row) in clean.items():
+                streams, run = _fleet_serve(fleet, prompts, policy)
+                want = _derived_fleet_launches(fcfg, run, row)
+                if streams != golden:
+                    failed.append(f"clean {name}: streams differ from the "
+                                  f"Engine's")
+                if run["launches"] != want:
+                    failed.append(f"clean {name}: launches "
+                                  f"{run['launches']}, derived {want}")
+                if run["metrics"]["detections"]:
+                    failed.append(f"clean {name}: a false alarm")
+                rounds[name].append(run)
+        timing = {}
+        for name, runs in rounds.items():
+            ms = statistics.median(r["ms_per_tick"] for r in runs)
+            tps = statistics.median(r["tokens_per_s"] for r in runs)
+            r0 = runs[0]
+            timing[name] = {
+                "ms_per_tick": ms, "tokens_per_s": tps,
+                "ms_per_tick_rounds": [r["ms_per_tick"] for r in runs],
+                "ticks": r0["ticks"], "engine_steps": r0["engine_steps"],
+                "decode_steps": r0["decode_steps"],
+                "prefills": r0["prefills"], "launches": r0["launches"]}
+            print(f"fleet: clean {name:4s} {FLEET_REPLICAS} replicas: "
+                  f"streams equal one Engine's, no alarm; {ms:.2f} ms/tick, "
+                  f"{tps:.1f} tokens/s (median of {FLEET_ROUNDS}; rounds "
+                  + ", ".join(f"{r['ms_per_tick']:.2f}" for r in runs)
+                  + f" ms/tick); {r0['ticks']} ticks, {r0['decode_steps']} "
+                  f"decode steps, {r0['prefills']} prefills; launches "
+                  f"{ {k: v for k, v in r0['launches'].items() if v} } "
+                  f"= derived")
+        out["clean"] = timing
+        step_done("clean")
+
+        # (2) ABFT: a weight strike on replica 0, restored incrementally
+        def strike_weights(f):
+            f.strike(0, "weights", fi.flip_one_bit, _strike_gen("weights"))
+
+        streams, run = _fleet_serve(abft, prompts, Policy.ABFT,
+                                    mid_run=strike_weights)
+        healed("abft weight strike", streams, run, detections=1,
+               recoveries=1, incremental_restores=1)
+        devices = {str(t.device) for r in abft.replicas
+                   for t in tree.leaves(r.engine.params)}
+        healthy = all(r.state is ReplicaState.HEALTHY for r in abft.replicas)
+        print(f"fleet: after the restore every replica healthy: {healthy}; "
+              f"parameter leaves on {sorted(devices)}")
+        if devices != {str(abft.device)} or not healthy \
+                or abft.device.type != torch.device(DEVICE).type:
+            failed.append(f"abft restore: leaves on {devices}, healthy "
+                          f"{healthy}")
+
+        # (3) DMR: a token-buffer strike, detected by the pair and replayed
+        streams, run = _fleet_serve(
+            plain, prompts, Policy.DMR, mid_run=lambda f: f.strike(
+                0, "decode_state", fi.flip_one_bit,
+                _strike_gen("decode_state")))
+        healed("dmr decode_state strike", streams, run, detections=1,
+               failovers=1)
+        # (4) CKPT: a KV-cache strike, rolled back in place
+        streams, run = _fleet_serve(
+            plain, prompts, Policy.CKPT, mid_run=lambda f: f.strike(
+                0, "kv_cache", fi.flip_one_bit, _strike_gen("kv_cache")))
+        healed("ckpt kv_cache strike", streams, run, detections=1,
+               state_rollbacks=1)
+        # (5) a replica killed mid-decode: bit-exact failover
+        streams, run = _fleet_serve(plain, prompts, Policy.NONE,
+                                    mid_run=lambda f: f.kill_replica(0))
+        healed("kill replica 0", streams, run, failovers=1)
+        plain.close()
+        step_done("drills")
+
+        # (6) rolling deploys under the ABFT map: to seed-1 params, then a
+        # strike on replica 0 while replica 1 is mid-swap
+        pb = api.init_params(fcfg, torch.Generator().manual_seed(1),
+                             device=DEVICE)
+        golden_b = _fleet_golden(fcfg, pb, prompts)
+        streams, run = _fleet_serve(abft, prompts, Policy.ABFT,
+                                    deploy={"params": pb})
+        s = run["summary"]
+        ok = (None not in streams and streams != golden
+              and s["swapped"] == list(range(FLEET_REPLICAS))
+              and not s["failed"] and s["changed"] > 0
+              and run["metrics"]["detections"] == 0)
+        post, _ = _fleet_serve(abft, prompts, Policy.ABFT)
+        ok = ok and post == golden_b
+        print(f"fleet: rolling deploy to seed-1 params mid-serve: "
+              f"{s['changed']} leaves changed, swapped {s['swapped']}, "
+              f"every request released, no alarm; afterwards the streams "
+              f"equal one Engine's on the new params: {post == golden_b} "
+              f"({run['seconds']:.2f} s)" + ("" if ok else "  FAILED"))
+        if not ok:
+            failed.append("rolling deploy")
+        struck = []
+
+        def mid_swap(rid):
+            if rid == 1 and not struck:
+                struck.append(rid)
+                abft.strike(0, "weights", fi.flip_one_bit,
+                            _strike_gen("deploy"))
+
+        streams, run = _fleet_serve(abft, prompts, Policy.ABFT,
+                                    deploy={"params": pb,
+                                            "mid_swap": mid_swap})
+        kinds = [e.kind for e in abft.event_log]
+        ok = (streams == golden_b and struck
+              and run["metrics"]["detections"] >= 1
+              and run["metrics"]["recoveries"] >= 1
+              and all(r.state is ReplicaState.HEALTHY and r.routable
+                      for r in abft.replicas)
+              and "strike" in kinds and "recovery" in kinds
+              and kinds.index("deploy_start") < kinds.index("strike"))
+        print(f"fleet: mid-swap strike on replica 0: detections "
+              f"{run['metrics']['detections']}, recoveries "
+              f"{run['metrics']['recoveries']}, streams equal clean: "
+              f"{streams == golden_b}, every replica healthy and routable"
+              + ("" if ok else "  FAILED"))
+        if not ok:
+            failed.append("mid-swap strike")
+        out["deploy"] = {"metrics": run["metrics"],
+                         "seconds": run["seconds"]}
+        abft.close()
+        del pb
+        step_done("deploy")
+
+        # (7) the proc transport: 2 workers on the card
+        t0 = time.perf_counter()
+        proc = _fleet(fcfg, params, n_replicas=2, transport="proc")
+        fleets.append(proc)
+        spawn_s = time.perf_counter() - t0
+        # a cold pass (each worker's first steps load its kernels and
+        # cuBLAS), then FLEET_PROC_ROUNDS timed ones
+        p_runs = []
+        same = True
+        for _ in range(1 + FLEET_PROC_ROUNDS):
+            streams, run = _fleet_serve(proc, prompts, Policy.NONE)
+            same = same and streams == golden
+            p_runs.append(run)
+        cold, timed = p_runs[0], p_runs[1:]
+        p_ms = statistics.median(r["ms_per_tick"] for r in timed)
+        p_step_ms = statistics.median(
+            r["seconds"] * 1e3 / max(r["engine_steps"], 1) for r in timed)
+        streams, k_run = _fleet_serve(
+            proc, prompts, Policy.NONE,
+            mid_run=lambda f: f.replicas[0].handle.proc.kill())
+        ok = (same and streams == golden
+              and all(r.state is ReplicaState.HEALTHY for r in proc.replicas)
+              and k_run["metrics"]["recoveries"] >= 1)
+        proc.close()
+        alive = [r.handle.proc.is_alive() for r in proc.replicas]
+        inproc = timing["none"]
+        out["proc"] = {
+            "spawn_s": spawn_s, "ms_per_tick": p_ms,
+            "ms_per_tick_rounds": [r["ms_per_tick"] for r in timed],
+            "cold_ms_per_tick": cold["ms_per_tick"],
+            "ms_per_engine_step": p_step_ms,
+            "inproc_ms_per_engine_step": inproc["ms_per_tick"]
+            * inproc["ticks"] / max(inproc["engine_steps"], 1),
+            "sigkill_seconds": k_run["seconds"],
+            "recovery_mean_seconds":
+                k_run["metrics"]["recovery_mean_seconds"]}
+        print(f"fleet: proc transport, 2 workers on the card (started in "
+              f"{spawn_s:.1f} s): clean streams equal the in-process "
+              f"fleet's: {same}; with worker 0 SIGKILLed mid-decode: "
+              f"{streams == golden} (respawned, {k_run['seconds']:.1f} s); "
+              f"{p_ms:.2f} ms/tick over 2 workers (median "
+              f"of {FLEET_PROC_ROUNDS}; the cold first pass "
+              f"{cold['ms_per_tick']:.2f}), "
+              f"{out['proc']['ms_per_engine_step']:.2f} ms per engine step "
+              f"against {out['proc']['inproc_ms_per_engine_step']:.2f} in "
+              f"process; workers alive after close: {alive}"
+              + ("" if ok and not any(alive) else "  FAILED"))
+        if not ok or any(alive):
+            failed.append("proc transport")
+        step_done("proc")
+
+        # (8) the fleet campaigns
+        _fleet_campaigns(failed, out)
+        step_done("campaigns")
+    finally:
+        for f in fleets:
+            f.close()
+
+    launches = _campaign_launches()
+    print(f"fleet: launches {launches}")
+    if any(launches[name] == 0 for name in FLEET_ROWS):
+        failed.append(f"a row of the path never launched: {launches}")
+    out["launches"] = launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print("fleet: seconds by step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["steps_s"].items()))
+    print(f"fleet: peak memory {out['peak_bytes'] / 2**30:.2f} GiB; phase in "
+          f"{secs:.1f} s (budget {FLEET_BUDGET_S} s) on {card}")
+    if secs > FLEET_BUDGET_S:
+        failed.append(f"fleet phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("fleet: " + "; ".join(failed))
+    return out
+
+
+# slice 12: the embedding-input models
+EMBED_MUSICGEN_S = 1500            # 30 s of audio at EnCodec's 50 frames/s
+EMBED_LLAVA_S = 2880               # anyres: 5 tiles x 576 patches
+EMBED_LLAVA_LAYERS = 4             # depth cut: 4 of 60 layers, full width
+EMBED_STEPS = 16                   # decode steps after each prefill
+EMBED_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse")
+EMBED_BUDGET_S = 180               # the phase's share of the limit
+
+
+def _embed_serve(cfg, params, embeds, steps):
+    """``prefill(embeds=)`` then ``decode_step(embed=)`` with the step
+    embeddings; returns the greedy tokens, the logits, prefill ms and
+    decode ms per step (host clock) and the launches of the run."""
+    from repro_torch.models import api
+    before = _campaign_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, params, None,
+                                embeds.shape[1] + len(steps), embeds=embeds)
+    tokens = [torch.argmax(logits[:, -1], dim=-1)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [logits[:, -1]]
+    for e in steps:
+        lg, cache = api.decode_step(cfg, params, None, cache, embed=e)
+        tokens.append(torch.argmax(lg, dim=-1))
+        out.append(lg)
+    stream = torch.stack(tokens, dim=1).cpu().tolist()
+    t2 = time.perf_counter()
+    after = _campaign_launches()
+    return stream, torch.stack(out), {
+        "prefill_ms": (t1 - t0) * 1e3,
+        "decode_ms_per_step": (t2 - t1) * 1e3 / len(steps),
+        "launches": {k: after[k] - before[k] for k in after}}
+
+
+def _embed_model(name, cfg, depth, gen, failed):
+    """One embedding-input model at full width: prefill + EMBED_STEPS
+    decode steps under the ``cuda`` and ``ref`` backends (streams equal,
+    logits finite, rows 4 and 9 launched as derived), then row 9 against
+    its plain version at the model's attention shape."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    s = EMBED_MUSICGEN_S if name == "musicgen-large" else EMBED_LLAVA_S
+    embeds = torch.randn((1, s, cfg.d_model), generator=gen,
+                         device=DEVICE)
+    steps = [torch.randn((1, cfg.d_model), generator=gen, device=DEVICE)
+             for _ in range(EMBED_STEPS)]
+    api.prefill(cfg, params, None, 64, embeds=embeds[:, :64])   # warm up
+    runs, logits = {}, {}
+    for backend in ("cuda", "ref"):
+        bcfg = api.with_backend(cfg, backend)
+        stream, logits[backend], runs[backend] = _embed_serve(
+            bcfg, params, embeds, steps)
+        runs[backend]["stream"] = stream
+    L = cfg.n_layers
+    want = {"cuda": 3 * L * (1 + EMBED_STEPS), "ref": 0}
+    finite = bool(torch.isfinite(logits["cuda"]).all())
+    same = runs["cuda"]["stream"] == runs["ref"]["stream"]
+    bit_equal = torch.equal(logits["cuda"], logits["ref"])
+    launched = all(runs[b]["launches"]["qmatmul_acc"] == want[b]
+                   and runs[b]["launches"]["flash_attention_fwd_lse"] == L
+                   for b in runs)
+    # row 9 at the model's shape, and at a length off the 64-row tiles
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    ratio = 0.0
+    for length in sorted({s, s - 37}):
+        q = torch.randn((1, H, length, hd), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn((1, KV, length, hd), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        got = FK.flash_attention_fwd_lse(q, k, v)
+        ref = FR.flash_plain(q, k, v, emit="lse")
+        ratio = max(ratio, _flash_err(got[0], ref[0], torch.bfloat16)[1],
+                    _flash_err(got[1], ref[1], torch.float32)[1])
+    ok = finite and same and launched
+    r = runs["cuda"]
+    print(f"embed: {name} ({depth}, d {cfg.d_model}, {H}/{KV} heads of "
+          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+          f"W8A8 FFN, params in {init_s:.1f} s: prefill(embeds=) B 1 x S "
+          f"{s} {r['prefill_ms']:.2f} ms, decode {r['decode_ms_per_step']:.2f}"
+          f" ms/step; logits finite: {finite}; greedy streams cuda == ref: "
+          f"{same} (logits bit-equal: {bit_equal}); launches cuda "
+          f"{ {k: v for k, v in r['launches'].items() if v} }, ref "
+          f"{ {k: v for k, v in runs['ref']['launches'].items() if v} } "
+          f"= derived: {launched}; fwd_lse against flash_plain at S "
+          f"{sorted({s, s - 37})}: worst error / limit {ratio:.4f}"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(name)
+    return {"layers": L, "seq": s, "init_s": init_s,
+            "prefill_ms": r["prefill_ms"],
+            "decode_ms_per_step": r["decode_ms_per_step"],
+            "ref_prefill_ms": runs["ref"]["prefill_ms"],
+            "ref_decode_ms_per_step": runs["ref"]["decode_ms_per_step"],
+            "launches": r["launches"], "streams_equal": same,
+            "logits_bit_equal": bit_equal, "flash_ratio": ratio}
+
+
+def phase_embed(card: str) -> dict:
+    """Slice 12: the embedding-input models at full width, W8A8 FFN, bf16,
+    flash prefill: musicgen-large in full (48 layers) at B 1 x S 1500,
+    llava-next-34b with its depth cut to 4 of 60 layers at S 2880, each a
+    prefill(embeds=) and 16 decode_step(embed=) steps under the ``cuda``
+    and ``ref`` backends (``_embed_model``).  Launch counts are reset at
+    its start and read at its end."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    full = registry.get("llava-next-34b").n_layers
+    models = {
+        "musicgen-large": (registry.get("musicgen-large"),
+                           "48 layers, in full"),
+        "llava-next-34b": (dataclasses.replace(
+            registry.get("llava-next-34b"), n_layers=EMBED_LLAVA_LAYERS),
+            f"depth cut to {EMBED_LLAVA_LAYERS} of {full} layers"),
+    }
+    for name, (cfg, depth) in models.items():
+        cfg = dataclasses.replace(cfg, quant="w8a8_ffn", attn_impl="flash")
+        out[name] = _embed_model(name, cfg, depth, gen, failed)
+        out[name]["depth"] = depth
+        torch.cuda.empty_cache()
+    launches = _campaign_launches()
+    print(f"embed: launches {launches}")
+    if any(launches[n] == 0 for n in EMBED_ROWS):
+        failed.append(f"a row of the path never launched: {launches}")
+    out["launches"] = launches
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"embed: phase in {secs:.1f} s (budget {EMBED_BUDGET_S} s) on "
+          f"{card}")
+    if secs > EMBED_BUDGET_S:
+        failed.append(f"embed phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("embed: " + "; ".join(failed))
+    return out
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -2897,8 +3532,11 @@ def main() -> None:
                                                    fl_calls)
     profile["train_step"] = phase_profile_train(train_run, bwd_rows,
                                                 bwd_calls)
-    # slice 11 last: no timing or profile above runs after its engines
+    # slices 11 and 12 last: no timing or profile above runs after their
+    # engines
     dependable = phase_dependable(cfg, lm_params, prompts, card)
+    fleet = phase_fleet(cfg, lm_params, card)
+    embed = phase_embed(card)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -2939,7 +3577,8 @@ def main() -> None:
                        "train_grads": train_grads, "train_time": train_time,
                        "backward_per_call": bwd_rows,
                        "campaign": campaign,
-                       "dependable": dependable}, f, indent=1)
+                       "dependable": dependable, "fleet": fleet,
+                       "embed": embed}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ from repro_torch.campaign.report import (
     BitCoverageRow, ConfigResult, classify_counts, load_report, to_markdown,
     write_report)
 from repro_torch.campaign.runner import (
-    CASES, NOT_YET, build_case, kernel_workloads, run_bit_sweep, run_campaign)
+    CASES, build_case, kernel_workloads, run_bit_sweep, run_campaign)
 from repro_torch.campaign.stats import (
     SamplingPlan, binomial_interval, clopper_pearson_interval, halfwidth,
     wilson_interval)
@@ -33,8 +33,7 @@ __all__ = [
     "FAULT_MODELS", "CampaignSpec", "expand_grid", "resolve_fault_model",
     "trial_seed", "trial_seeds", "BitCoverageRow", "ConfigResult",
     "classify_counts", "load_report", "to_markdown", "write_report", "CASES",
-    "NOT_YET", "build_case", "kernel_workloads", "run_bit_sweep",
-    "run_campaign",
+    "build_case", "kernel_workloads", "run_bit_sweep", "run_campaign",
     "SamplingPlan", "binomial_interval", "clopper_pearson_interval",
     "halfwidth", "wilson_interval", "CampaignJournal", "CampaignPool",
     "CampaignInterrupted", "ChunkOutcome", "AbortAfter", "run_config",

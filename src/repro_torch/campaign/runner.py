@@ -47,8 +47,9 @@ Every trial reads its detection flag back to the host (one sync).
 The engine cases ``serving`` and ``serving_int8kv`` strike a live
 ``Engine`` (its weights, KV cache or token buffer) and compare whole token
 streams; they log real event chains and host recovery times, as the
-reference's do.  ``fleet`` and ``fleet_mp`` are known names that raise
-``NotImplementedError`` naming their ROADMAP item.
+reference's do.  ``fleet`` strikes one replica of an in-process
+``fleet.Fleet`` and ``fleet_mp`` one of a process-transport fleet mid
+rolling deploy; both judge the fleet's released streams.
 """
 from __future__ import annotations
 
@@ -629,6 +630,197 @@ class ServingInt8KVCase(ServingCase):
     quant_kv = True
 
 
+class FleetCase:
+    """Fleet-level end-to-end drill: an SEU strikes ONE replica of a live
+    multi-replica serving fleet (``repro_torch/fleet/``) and the campaign
+    judges the *released output stream*.
+
+    Sites:
+      weights       persistent storage SEU in replica 0's parameters.  The
+                    scrub-gated policies (ABFT, CKPT) verify against
+                    deploy-time storage checksums, quarantine, restore the
+                    corrupted leaves from the golden checkpoint, re-verify,
+                    readmit, and replay recalled requests — trials end
+                    ``detected_corrected`` with a measured recovery time.
+      kv_cache      transient SEU in replica 0's live KV cache mid-flight.
+      decode_state  transient SEU in replica 0's sampled-token buffer
+                    mid-flight.  A CKPT fleet rolls the engine back to its
+                    verified snapshot in place, an ABFT fleet detects and
+                    drains + fails over, and DMR pair-serving detects by
+                    stream divergence.
+
+    Under NONE the fleet releases whatever the corrupted replica produced.
+    One fleet is reused across all trials; ``Fleet.reset`` restores golden
+    params and a fully-healthy fleet.  Trial ``i`` draws its fault from
+    ``faultload.generator(seed_i)``.
+    """
+
+    name = "fleet"
+    sites = ("weights", "kv_cache", "decode_state")
+    policies = (Policy.NONE, Policy.ABFT, Policy.DMR, Policy.CKPT)
+    shardable = True
+    event_logged = True
+    recovery_logged = True
+    transport = "inproc"
+    max_new_tokens = 4
+
+    def __init__(self, seed: int = 0, backend: str = fl.DEFAULT_BACKEND,
+                 arch: str = "smollm-135m", *, device="cuda"):
+        from repro_torch.configs import registry
+        from repro_torch.models import api as model_api
+        from repro_torch.models.config import reduced
+        from repro_torch.runtime.serving import Request
+        self._Request = Request
+        self.backend = backend
+        self.cfg = self._customize_cfg(reduced(registry.get(arch)))
+        self.prompts = [[5, 9, 2], [3, 1, 4, 1], [2, 7]]
+        self._recovery = _RecoveryLog()
+        # accumulates the fleet's per-trial dependability events (fleet-tick
+        # clock) across a configuration's trials, drained by the runner into
+        # the report's timeline columns
+        self.events = EventLog()
+        self.fleet = None
+        self.use_params(model_api.init_params(
+            self.cfg, torch.Generator().manual_seed(seed),
+            device=resolve_device(device)))
+
+    def _customize_cfg(self, cfg):
+        return cfg
+
+    def use_params(self, params) -> None:
+        """Serve ``params``: a fresh fleet over them (on their device)."""
+        from repro_torch.fleet.fleet import Fleet
+        if self.fleet is not None:
+            self.fleet.close()
+        self.params = params
+        self.fleet = Fleet(self.cfg, params, n_replicas=2,
+                           policy=Policy.NONE, capacity=2, max_len=64,
+                           prefill_pad=8, scrub_every=3, snapshot_every=2,
+                           backend=self.backend, transport=self.transport)
+
+    @staticmethod
+    def supports(policy: Policy, site: str) -> bool:
+        # DMR pair-serving judges output streams, so a cache strike that
+        # never manifests in tokens is invisible to it — the pair agrees
+        # and the (clean) stream releases.  That is masked, not SDC, so
+        # every policy covers every site.
+        return True
+
+    def _submit(self, policy: Policy):
+        fleet = self.fleet
+        fleet.reset(policy=policy)
+        reqs = [self._Request(uid=i, prompt=list(p),
+                              max_new_tokens=self.max_new_tokens)
+                for i, p in enumerate(self.prompts)]
+        for r in reqs:
+            fleet.submit(r)
+        return reqs
+
+    def _serve(self, policy: Policy, site: str, fault, gen):
+        fleet = self.fleet
+        reqs = self._submit(policy)
+        if site == "weights":
+            # strike the parameter store before serving (deploy-window SEU)
+            fleet.strike(0, "weights", fault, gen)
+        else:   # transient sites: strike the live decode stage two ticks in
+            fleet.tick()
+            fleet.tick()
+            fleet.strike(0, site, fault, gen)
+        fleet.run()
+        return self._collect(reqs)
+
+    def _collect(self, reqs):
+        """Reduce a finished trial to (released streams, detected flag) and
+        fold recovery/timeline accounting into the case's logs."""
+        fleet = self.fleet
+        outs = tuple(
+            tuple(fleet.released[r.uid].output) if r.uid in fleet.released
+            else None
+            for r in reqs)
+        m = fleet.metrics
+        self._recovery.count += m.recoveries + m.state_rollbacks \
+            + m.state_drains
+        rec_hist = m.recovery_seconds
+        if rec_hist.count:
+            # histogram, not a list: reconstruct count entries preserving the
+            # exact sum and max — all the report's recovery columns need
+            n, total, peak = rec_hist.count, rec_hist.sum, float(rec_hist.max)
+            if n == 1:
+                self._recovery.seconds.append(total)
+            else:
+                self._recovery.seconds += [(total - peak) / (n - 1)] * (n - 1)
+                self._recovery.seconds.append(peak)
+        self.events.events.extend(fleet.event_log.drain())
+        return outs, m.detections > 0
+
+    def run_trials(self, policy, site, fault, seeds):
+        golden, _ = self._serve(policy, site, _IDENTITY,
+                                fl.generator(seeds[0]))
+        # the golden pass must not contribute recovery or timeline accounting
+        self._recovery.drain()
+        self.events.clear()
+        detected_l, mismatch_l = [], []
+        for s in seeds:
+            out, det = self._serve(policy, site, fault, fl.generator(s))
+            detected_l.append(bool(det))
+            mismatch_l.append(out != golden)
+        return np.asarray(detected_l, bool), np.asarray(mismatch_l, bool)
+
+    def drain_recovery_stats(self) -> dict:
+        return self._recovery.drain()
+
+
+class FleetMPCase(FleetCase):
+    """The rolling-deploy scenario on the process transport: a 2-replica
+    fleet whose engines live in spawned worker processes performs a
+    zero-drain rolling weight deploy *while serving*, and the SEU strikes
+    **during the in-flight swap** — ``mid_swap`` fires while replica 1 is
+    out of the router being patched, and the strike lands on replica 0,
+    already swapped and carrying the fleet alone at that instant.  Under
+    ABFT/CKPT the certify-before-release scrub (against the *new* storage
+    checksums) catches the corruption before any token ships; under NONE
+    the corrupted stream releases.
+
+    ``shardable = False``: each trial drives real worker processes, so the
+    case owns them.  One fleet (and its two workers) is reused across all
+    trials via ``Fleet.reset``.
+    """
+
+    name = "fleet_mp"
+    sites = ("weights",)
+    policies = (Policy.NONE, Policy.ABFT, Policy.CKPT)
+    shardable = False
+    transport = "proc"
+    max_new_tokens = 6
+
+    def _serve(self, policy: Policy, site: str, fault, gen):
+        fleet = self.fleet
+        reqs = self._submit(policy)
+        fleet.tick()
+        fleet.tick()
+        strike = fault is not _IDENTITY
+
+        def mid_swap(rid):
+            # replica 1 is mid-swap (out of the router, weights half new):
+            # strike the already-swapped replica 0 — the only one serving
+            if strike and rid == 1:
+                fleet.strike(0, "weights", fault, gen)
+
+        fleet.deploy(params=self.params, mid_swap=mid_swap)
+        fleet.run()
+        return self._collect(reqs)
+
+    def close(self):
+        if self.fleet is not None:
+            self.fleet.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:       # noqa: BLE001 — interpreter teardown
+            pass
+
+
 # ---------------------------------------------------------------------------
 # Campaign driver
 # ---------------------------------------------------------------------------
@@ -641,27 +833,15 @@ CASES: Dict[str, type] = {
     "transformer": TransformerCase,
     "serving": ServingCase,
     "serving_int8kv": ServingInt8KVCase,
-}
-
-# the reference's fleet workloads: known names, not in the port yet
-NOT_YET = {
-    "fleet": "the fleet workloads come with fleet/, ROADMAP.md queue 1, "
-             "item 14",
-    "fleet_mp": "the fleet workloads come with fleet/, ROADMAP.md queue 1, "
-                "item 14",
+    "fleet": FleetCase,
+    "fleet_mp": FleetMPCase,
 }
 
 SUPPORTED = {name: (cls.sites, cls.policies) for name, cls in CASES.items()}
 
 
 def check_workload(workload: str) -> None:
-    """Raise for a workload the port does not run: ``NotImplementedError``
-    naming the ROADMAP item for the reference's engine workloads,
-    ``KeyError`` for unknown names."""
-    if workload in NOT_YET:
-        raise NotImplementedError(
-            f"workload {workload!r} is not in the port yet: "
-            f"{NOT_YET[workload]}")
+    """Raise ``KeyError`` for a workload the port does not know."""
     if workload not in CASES:
         raise KeyError(f"unknown workload {workload!r}; known: "
                        f"{sorted(CASES)}")

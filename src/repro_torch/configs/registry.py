@@ -1,7 +1,9 @@
 """Architecture registry: ``get(name)`` resolves here.
 
 The counterpart of ``repro.configs.registry``, holding the configurations
-the port runs: the dense, token-input transformers that fit one card.  The
+the port runs: the dense transformers that fit one card, token-input and
+embedding-input (``musicgen-large``, ``llava-next-34b``: the caller's
+``embeds`` stand in for their stub front ends).  The
 reference's other names resolve to a ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -9,11 +11,14 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs.llava_next_34b import CONFIG as _llava
+from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3
 from repro_torch.configs.smollm_135m import CONFIG as _smollm
 from repro_torch.models.config import ArchConfig
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in (_smollm, _qwen3)}
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in (_smollm, _qwen3, _musicgen, _llava)}
 
 _NOT_YET = {
     "kimi-k2-1t-a32b": "MoE and expert parallelism: ROADMAP.md queue 1, "
@@ -26,8 +31,6 @@ _NOT_YET = {
     "rwkv6-1.6b": "the recurrent families: ROADMAP.md queue 1, item 16",
     "recurrentgemma-2b": "the recurrent families: ROADMAP.md queue 1, "
                          "item 16",
-    "musicgen-large": "embedding-input models: ROADMAP.md queue 1, item 8",
-    "llava-next-34b": "embedding-input models: ROADMAP.md queue 1, item 8",
 }
 
 

@@ -254,6 +254,44 @@ class Request:
     submitted_tick: int = -1
     finished_tick: int = -1
 
+    def to_doc(self) -> dict:
+        """JSON-safe wire form for the fleet's process transport: token
+        ids as plain ints (host readbacks may be numpy scalars)."""
+        return {
+            "uid": int(self.uid),
+            "prompt": [int(t) for t in self.prompt],
+            "max_new_tokens": int(self.max_new_tokens),
+            "output": (None if self.output is None
+                       else [int(t) for t in self.output]),
+            "submitted_at": float(self.submitted_at),
+            "finished_at": float(self.finished_at),
+            "submitted_tick": int(self.submitted_tick),
+            "finished_tick": int(self.finished_tick),
+        }
+
+    @classmethod
+    def from_doc(cls, doc: dict) -> "Request":
+        return cls(
+            uid=int(doc["uid"]),
+            prompt=[int(t) for t in doc["prompt"]],
+            max_new_tokens=int(doc.get("max_new_tokens", 16)),
+            output=(None if doc.get("output") is None
+                    else [int(t) for t in doc["output"]]),
+            submitted_at=float(doc.get("submitted_at", 0.0)),
+            finished_at=float(doc.get("finished_at", 0.0)),
+            submitted_tick=int(doc.get("submitted_tick", -1)),
+            finished_tick=int(doc.get("finished_tick", -1)),
+        )
+
+    def sync_from_doc(self, doc: dict) -> "Request":
+        """Fold a wire copy's pipeline-filled fields back into this (the
+        canonical, parent-side) object: the certify upcall path."""
+        self.output = (None if doc.get("output") is None
+                       else [int(t) for t in doc["output"]])
+        self.finished_at = float(doc.get("finished_at", 0.0))
+        self.finished_tick = int(doc.get("finished_tick", -1))
+        return self
+
 
 @dataclasses.dataclass
 class EngineStats:

@@ -23,7 +23,8 @@ the tree's containers are stored as JSON (a NamedTuple by its import
 path), not as a pickled treedef; nothing is pickled.  A torch leaf is
 copied to host numpy when ``save`` is called, before the caller can change
 it (bf16 as its 16-bit pattern, named "bfloat16" in the manifest), and
-comes back from ``restore`` as a torch tensor on ``device``; any other leaf
+comes back from ``restore`` as a torch tensor on ``device`` (default the
+card, as every entry of the port; a CPU caller says so); any other leaf
 comes back as a numpy array, as in the reference.  There are no sharding
 specs: the elastic restore onto a new mesh comes with parallelism
 (ROADMAP.md queue 1, item 17).
@@ -42,7 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import resolve_device, tree
 
 MANIFEST = "manifest.json"
 
@@ -167,9 +168,10 @@ def _checked(arr: np.ndarray, crc: int, verify: bool, what: str):
 
 
 def restore(ckpt_dir: str | Path, step: Optional[int] = None,
-            verify: bool = True, device="cpu") -> Tuple[int, Any]:
+            verify: bool = True, device="cuda") -> Tuple[int, Any]:
     """Load a checkpoint (the newest, or ``step``): (step, state), torch
-    leaves on ``device``."""
+    leaves on ``device`` (the card unless the caller names another)."""
+    device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     step = _resolve_step(ckpt_dir, step)
     d = _step_dir(ckpt_dir, step)
@@ -243,11 +245,13 @@ def _assemble_incremental(ckpt_dir: Path, manifest: dict, verify: bool,
 
 def restore_leaves(ckpt_dir: str | Path, paths: Sequence[str],
                    step: Optional[int] = None, verify: bool = True,
-                   device="cpu") -> Dict[str, Any]:
+                   device="cuda") -> Dict[str, Any]:
     """Partial restore: only the named leaves (manifest ``path`` keys, e.g.
     ``"params/w"``) of the newest (or given) checkpoint, either format,
-    every byte crc32-verified.  Unknown paths are absent from the result
-    (the caller decides whether to fall back to a full reload)."""
+    every byte crc32-verified, torch leaves on ``device``.  Unknown paths
+    are absent from the result (the caller decides whether to fall back to
+    a full reload)."""
+    device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     d = _step_dir(ckpt_dir, _resolve_step(ckpt_dir, step))
     manifest = json.loads((d / MANIFEST).read_text())

@@ -12,8 +12,8 @@ The paper-level invariants the campaign must certify empirically:
   * A campaign is a pure function of its spec + seed (bit-exact replay).
   * Reports round-trip through JSON.
 
-The reference's fleet cases wait for ROADMAP item 14; their names raise
-``NotImplementedError`` here (the serving cases are held in
+The fleet workloads run here from the CLI (they are held against the
+reference in ``test_torch_fleet_campaign.py``, the serving cases in
 ``test_torch_serving_campaign.py``).  Every case runs on the
 CPU (``device="cpu"``), where the ``cuda`` backend's wrappers run their
 kernels' plain versions.  The float ``flashattn`` workload is held against
@@ -42,7 +42,7 @@ from repro_torch.campaign import (
     write_report)
 from repro_torch.campaign import cli
 from repro_torch.campaign import faultload as fl
-from repro_torch.campaign.runner import (ACC_BITS, NOT_YET, SUPPORTED,
+from repro_torch.campaign.runner import (ACC_BITS, SUPPORTED, check_workload,
                                          kernel_workloads, run_bit_sweep)
 from repro_torch.core import fault_injection as tfi
 from repro_torch.core.dependability import Policy
@@ -243,7 +243,7 @@ def test_bit_sweep_rejects_model_workloads():
     with pytest.raises(ValueError, match="'serving'"):
         run_bit_sweep("serving", [Policy.NONE], trials_per_bit=1,
                       device=CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="'fleet'"):
         run_bit_sweep("fleet", [Policy.NONE], trials_per_bit=1,
                       device=CPU)
 
@@ -347,18 +347,18 @@ def test_cli_without_a_card_raises_and_does_not_fall_back(tmp_path):
         build_case("qmatmul")
 
 
-@pytest.mark.parametrize("workload", sorted(NOT_YET))
+@pytest.mark.parametrize("workload", ["fleet", "fleet_mp"])
 def test_engine_workloads_name_their_item(workload, tmp_path):
-    assert sorted(NOT_YET) == ["fleet", "fleet_mp"]
-    item = "14"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_case(workload, device=CPU)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        run_campaign([CampaignSpec(workload, Policy.NONE, "weights",
-                                   "single_bitflip", 2)], device=CPU)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main(["--workload", workload, "--device", "cpu", "--quiet",
-                  "--out", str(tmp_path)])
+    """The reference's fleet workloads, once refused naming their ROADMAP
+    item, now run from the CLI."""
+    check_workload(workload)
+    assert cli.main(["--workload", workload, "--device", "cpu", "--quiet",
+                     "--policies", "none", "--sites", "weights",
+                     "--fault-models", "single_bitflip", "--trials", "1",
+                     "--bit-trials", "0", "--no-journal",
+                     "--out", str(tmp_path)]) == 0
+    report = json.loads((tmp_path / "campaign.json").read_text())
+    assert [r["workload"] for r in report["results"]] == [workload]
 
 
 # ---------------------------------------------------------------------------

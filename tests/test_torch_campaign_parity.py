@@ -198,7 +198,7 @@ def test_faultload_registries_match_reference():
         w: (sites, tuple(Policy(p.value) for p in pols))
         for w, (sites, pols) in jrunner.SUPPORTED.items()
         if w in trunner.CASES}
-    assert set(trunner.CASES) | set(trunner.NOT_YET) == set(jrunner.CASES)
+    assert set(trunner.CASES) == set(jrunner.CASES)
     j = jfl.expand_grid(["qmatmul", "transformer"], list(JPolicy),
                         list(jfl.SITES), ["single_bitflip"], 5,
                         supported=jrunner.SUPPORTED)

@@ -26,6 +26,8 @@ from repro_torch.train.steps import TrainState
 
 jax.config.update("jax_platform_name", "cpu")
 
+CPU = "cpu"                 # restore defaults to the card, as every entry
+
 
 def small_state(seed=0):
     g = torch.Generator().manual_seed(seed)
@@ -55,7 +57,7 @@ def _mutate(state, r=-1.0):
 def test_save_restore_roundtrip(tmp_path):
     state = small_state()
     ckpt.save(tmp_path, 7, state)
-    step, restored = ckpt.restore(tmp_path)
+    step, restored = ckpt.restore(tmp_path, device=CPU)
     assert step == 7
     assert_same(state, restored)
 
@@ -68,13 +70,13 @@ def test_bf16_and_train_state_roundtrip(tmp_path):
                     {"m": {"w": s["opt"]["m"], "b": s["params"]["b"]}},
                     s["step"])
     ckpt.save(tmp_path / "full", 3, st)
-    _, r = ckpt.restore(tmp_path / "full")
+    _, r = ckpt.restore(tmp_path / "full", device=CPU)
     assert isinstance(r, TrainState)
     assert_same(st, r)
     with ckpt.IncrementalCheckpointer(tmp_path / "inc",
                                       async_write=False) as c:
         c.save(3, st)
-    _, r2 = ckpt.restore(tmp_path / "inc")
+    _, r2 = ckpt.restore(tmp_path / "inc", device=CPU)
     assert_same(st, r2)
     man = json.loads((tmp_path / "inc" / "step_0000000003" /
                       "manifest.json").read_text())
@@ -100,7 +102,7 @@ def test_atomicity_orphan_tmp_ignored(tmp_path):
     orphan.mkdir()
     (orphan / "garbage").write_text("crash")
     assert ckpt.latest_step(tmp_path) == 3
-    step, _ = ckpt.restore(tmp_path)
+    step, _ = ckpt.restore(tmp_path, device=CPU)
     assert step == 3
 
 
@@ -112,12 +114,12 @@ def test_crc_detects_corruption(tmp_path):
     raw[len(raw) // 2] ^= 0x40
     shards.write_bytes(bytes(raw))
     with pytest.raises((IOError, ValueError, Exception)):
-        ckpt.restore(tmp_path, 1)
+        ckpt.restore(tmp_path, 1, device=CPU)
 
 
 def test_restore_missing_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
-        ckpt.restore(tmp_path / "nope")
+        ckpt.restore(tmp_path / "nope", device=CPU)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -143,12 +145,12 @@ def test_checkpoint_roundtrip_nested_trees(seed, tmp_path):
     state = {"tree": make(seed % 3 + 1), "step": np.int64(seed)}
     ckpt.save(tmp_path / "full", 1, state)
     assert_same(state | {"step": np.asarray(state["step"])},
-                ckpt.restore(tmp_path / "full")[1])
+                ckpt.restore(tmp_path / "full", device=CPU)[1])
     with ckpt.IncrementalCheckpointer(tmp_path / "inc", async_write=False,
                                       chunk_bytes=16) as c:
         c.save(1, state)
     assert_same(state | {"step": np.asarray(state["step"])},
-                ckpt.restore(tmp_path / "inc")[1])
+                ckpt.restore(tmp_path / "inc", device=CPU)[1])
 
 
 def test_manifest_paths_and_bytes_match_reference(tmp_path):
@@ -177,8 +179,8 @@ def test_incremental_restore_bit_identical_to_full(tmp_path):
         c.save(1, state)
         c.save(2, state2)
     ckpt.save(full_dir, 2, state2)
-    s_inc, r_inc = ckpt.restore(inc_dir)
-    s_full, r_full = ckpt.restore(full_dir)
+    s_inc, r_inc = ckpt.restore(inc_dir, device=CPU)
+    s_full, r_full = ckpt.restore(full_dir, device=CPU)
     assert s_inc == s_full == 2
     assert_same(r_inc, r_full)
 
@@ -204,7 +206,7 @@ def test_async_writer_bounded_staleness_and_durability(tmp_path):
             c.save(s, _mutate(state, float(s)))
         c.wait()
         assert ckpt.latest_step(tmp_path) == 5
-    _, restored = ckpt.restore(tmp_path)
+    _, restored = ckpt.restore(tmp_path, device=CPU)
     assert float(restored["params"]["w"][0, 0]) == 5.0
 
 
@@ -226,13 +228,13 @@ def test_crash_mid_write_restores_last_durable_manifest(tmp_path,
         c.save(2, state2)
     monkeypatch.setattr(os, "rename", real_rename)
     assert ckpt.latest_step(tmp_path) == 1
-    step, restored = ckpt.restore(tmp_path)
+    step, restored = ckpt.restore(tmp_path, device=CPU)
     assert step == 1
     assert_same(state, restored)
     c.save(2, state2)
     assert ckpt.latest_step(tmp_path) == 2
     assert not list(Path(tmp_path).glob("*.tmp"))
-    assert_same(state2, ckpt.restore(tmp_path)[1])
+    assert_same(state2, ckpt.restore(tmp_path, device=CPU)[1])
 
 
 def test_restore_leaves_partial_matches_full(tmp_path):
@@ -244,11 +246,12 @@ def test_restore_leaves_partial_matches_full(tmp_path):
         c.save(2, _mutate(state))                       # format 2, chained
     for d, ref in ((tmp_path / "full", state),
                    (tmp_path / "inc", _mutate(state))):
-        leaves = ckpt.restore_leaves(d, ["params/w", "opt/m"])
+        leaves = ckpt.restore_leaves(d, ["params/w", "opt/m"], device=CPU)
         assert set(leaves) == {"params/w", "opt/m"}
         assert torch.equal(leaves["params/w"], ref["params"]["w"])
         assert torch.equal(leaves["opt/m"], ref["opt"]["m"])
-    assert ckpt.restore_leaves(tmp_path / "inc", ["no/such"]) == {}
+    assert ckpt.restore_leaves(tmp_path / "inc", ["no/such"],
+                               device=CPU) == {}
 
 
 def test_incremental_chunk_crc_detects_storage_seu(tmp_path):
@@ -259,7 +262,7 @@ def test_incremental_chunk_crc_detects_storage_seu(tmp_path):
     raw[len(raw) // 2] ^= 0x40
     shards.write_bytes(bytes(raw))
     with pytest.raises((IOError, ValueError, Exception)):
-        ckpt.restore(tmp_path, 1)
+        ckpt.restore(tmp_path, 1, device=CPU)
 
 
 def test_retention_keeps_chain_referenced_dirs(tmp_path):
@@ -271,7 +274,7 @@ def test_retention_keeps_chain_referenced_dirs(tmp_path):
     names = sorted(d.name for d in Path(tmp_path).iterdir())
     assert "step_0000000006" in names and "step_0000000005" in names
     assert "step_0000000001" in names
-    _, restored = ckpt.restore(tmp_path)
+    _, restored = ckpt.restore(tmp_path, device=CPU)
     assert float(restored["params"]["w"][0, 0]) == 6.0
 
 
@@ -285,7 +288,7 @@ def test_async_save_snapshots_before_caller_mutates(tmp_path):
         w.fill_(7.0)
         a[:] = 7.0
         c.wait()
-    _, restored = ckpt.restore(tmp_path)
+    _, restored = ckpt.restore(tmp_path, device=CPU)
     assert torch.equal(restored["w"], torch.zeros((64, 64)))
     np.testing.assert_array_equal(restored["a"], np.zeros((8,), np.float32))
 
@@ -328,3 +331,62 @@ def test_async_writer_error_is_reraised(tmp_path, monkeypatch):
     monkeypatch.undo()
     c.close()
     assert ckpt.latest_step(tmp_path) == 1
+
+
+def test_restore_defaults_to_the_card(tmp_path):
+    """``restore``/``restore_leaves`` put torch leaves on the card unless
+    the caller names a device, as every entry of the port: without a card
+    they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    ckpt.save(tmp_path, 1, small_state())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore_leaves(tmp_path, ["params/w"])
+
+
+def test_fleet_reload_keeps_each_leaf_device(monkeypatch):
+    """A quarantined replica's incremental restore and its full reload name
+    the replica's device, and every reloaded leaf lands there with its own
+    dtype (the bf16 and int8 leaves included)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.dependability import Policy
+    from repro_torch.fleet import Fleet
+    from repro_torch.models import api as model_api
+    from repro_torch.models.config import reduced
+    cfg = dataclasses.replace(reduced(registry.get("llava-next-34b")),
+                              quant="w8a8_ffn", input_mode="tokens")
+    params = model_api.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device=CPU)
+    fleet = Fleet(cfg, params, n_replicas=2, policy=Policy.ABFT, capacity=2,
+                  max_len=32, prefill_pad=8)
+    seen = []
+    for name in ("restore", "restore_leaves"):
+        real = getattr(ckpt, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            seen.append((_name, kw.get("device")))
+            return _real(*a, **kw)
+        monkeypatch.setattr(ckpt, name, spy)
+    try:
+        r = fleet.replicas[0]
+        want = {p: (t.device, t.dtype)
+                for p, t in tree.leaves_with_paths(r.engine.params)}
+        assert {dt for _, dt in want.values()} >= {torch.bfloat16,
+                                                   torch.int8}
+        wq = r.engine.params["dense_blocks"]["wq"]
+        r.engine.params = tree.replace(r.engine.params,
+                                       ("dense_blocks", "wq"), wq + 1)
+        assert fleet.supervisor.scrub(r, fleet.metrics, 1) is False
+        assert fleet.supervisor.recover(r, fleet.ckpt_dir, fleet.metrics, 1,
+                                        step=0)
+        fleet.supervisor._full_reload(r, fleet.ckpt_dir, 0)
+        assert seen == [("restore_leaves", r.device), ("restore", r.device)]
+        got = {p: (t.device, t.dtype)
+               for p, t in tree.leaves_with_paths(r.engine.params)}
+        assert got == want
+        assert r.scrub() == []
+    finally:
+        fleet.close()

@@ -484,6 +484,10 @@ def test_wrappers_pass_the_plan_to_their_entry(monkeypatch, name, geometry):
     monkeypatch.setattr(tkernel, "_on_card", lambda *t: True)
     monkeypatch.setattr(tkernel, "_launch",
                         lambda entry, device, *a: seen.append((entry, a)))
+    # the simulated launch counts; the count is restored at teardown, so
+    # later tests in this process see only their own launches
+    monkeypatch.setattr(getattr(tkernel, name), "launches",
+                        getattr(tkernel, name).launches)
     before = getattr(tkernel, name).launches
     getattr(tkernel, name)(*args, stride=(1, 1))
     (entry, passed), = seen

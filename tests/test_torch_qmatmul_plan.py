@@ -28,6 +28,13 @@ FFN_SHAPES = [(8, 576, 1536), (8, 1536, 576), (64, 576, 1536),
 # wave of 132 SMs: 192, 72, 768 and 288 tiles of 64 x 32
 PREFILL_SHAPES = [(256, 576, 1536, 1), (256, 1536, 576, 2),
                   (1024, 576, 1536, 1), (1024, 1536, 576, 1)]
+# the embedding-input models' W8A8 FFN (musicgen-large 2048 -> 8192 ->
+# 2048, llava-next-34b 7168 -> 20480 -> 7168) at decode (1-8 rows) and at
+# chip_smoke.py's prefills (1500 and 2880 positions)
+EMBED_FFN = {"musicgen-large": ((2048, 8192), (8192, 2048), 1500),
+             "llava-next-34b": ((7168, 20480), (20480, 7168), 2880)}
+EMBED_SHAPES = [(m, k, n) for up, down, s in EMBED_FFN.values()
+                for k, n in (up, down) for m in (1, 2, 5, 7, 8, s)]
 # tests/test_torch_qmatmul.py's SHAPES
 SHAPES = [(8, 16, 8), (128, 128, 128), (256, 512, 384), (1, 4096, 128),
           (130, 257, 129)]
@@ -94,6 +101,15 @@ def test_plan_at_the_prefill_shapes(m, k, n, ranks):
     p = _check_plan(m, k, n)
     assert p.tile_m == 64 and p.cluster == ranks and p.grid >= tkernel.SMS
     assert p.k_chunk == tkernel.MAX_K_CHUNK < p.k_rank
+
+
+@pytest.mark.parametrize("m,k,n", EMBED_SHAPES)
+def test_plan_at_the_embedding_model_shapes(m, k, n):
+    """K covered once, clusters of at most 8 ranks, shared memory within
+    227 KB, and the decode rows in one tile, at both models' FFN shapes."""
+    p = _check_plan(m, k, n)
+    if m <= 8:
+        assert p.tile_m == 8 and p.grid >= -(-n // tkernel.TILE_N)
 
 
 @pytest.mark.parametrize("m,k,n", FFN_SHAPES)
@@ -282,6 +298,10 @@ def test_wrappers_pass_the_plan_to_their_entry(monkeypatch, name, m, k, n):
     monkeypatch.setattr(tkernel, "_on_card", lambda *t: True)
     monkeypatch.setattr(tkernel, "_launch",
                         lambda entry, device, *a: seen.append((entry, a)))
+    # the simulated launch counts; the count is restored at teardown, so
+    # later tests in this process see only their own launches
+    monkeypatch.setattr(getattr(tkernel, name), "launches",
+                        getattr(tkernel, name).launches)
     before = getattr(tkernel, name).launches
     getattr(tkernel, name)(*args)
     (entry, passed), = seen

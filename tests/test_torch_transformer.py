@@ -240,7 +240,8 @@ def test_unported_paths_name_their_roadmap_item():
         tregistry.get("mixtral-8x7b")
     with pytest.raises(KeyError):
         tregistry.get("no-such-arch")
-    assert tregistry.names() == ["qwen3-0.6b", "smollm-135m"]
+    assert tregistry.names() == ["llava-next-34b", "musicgen-large",
+                                 "qwen3-0.6b", "smollm-135m"]
     _, tcfg = small()
     moe = dataclasses.replace(tcfg, moe=TMoEConfig(4, 2, 16))
     for cfg in (moe, dataclasses.replace(tcfg, family="rwkv")):
