@@ -91,8 +91,9 @@ Phases, each of which raises on failure:
    7, 8 launched under ``cuda`` and no kernel under ``ref`` or ``torch``;
    trials/s per workload and policy; the phase within
    ``CAMPAIGN_BUDGET_S``;
-12. slice 11: dependable serving at full width (SmolLM-135M, W8A8 FFN,
-   bf16, flash prefill, capacity 8, 16 requests of 32 new tokens) under
+12. slice 11: dependable serving at full width (SmolLM-135M at 15 of its
+   30 layers since slice 13, W8A8 FFN, bf16, flash prefill, capacity 8,
+   16 requests of 32 new tokens) under
    ``PolicyMap.uniform(ABFT)`` (scrubs ``detect``) and ``uniform(CKPT)``
    (``rollback``, the storage scrub every pump), the int8 KV cache off and
    on: clean runs raise no alarm; one run per map (8 requests) strikes the
@@ -109,7 +110,8 @@ Phases, each of which raises on failure:
    to the CPU's; the phase within ``DEP_BUDGET_S``; it runs after the
    timings and profiles of 13;
 14. slice 12, the serving fleet at full width (``phase_fleet``:
-   SmolLM-135M, W8A8 FFN, bf16, flash prefill, capacity 8, 12 requests of
+   SmolLM-135M at 15 of its 30 layers since slice 13, W8A8 FFN, bf16,
+   flash prefill, capacity 8, 12 requests of
    16 new tokens, prompts of 8-512 tokens): NONE, ABFT (under
    ``PolicyMap.uniform(ABFT)``), DMR and CKPT fleets of 3 replicas serve
    one ``Engine``'s streams with rows 4, 5 and 9 launched as derived; a
@@ -125,12 +127,35 @@ Phases, each of which raises on failure:
    seconds, proc against in-process, peak memory, the seconds of each
    step; within ``FLEET_BUDGET_S``;
 15. slice 12, the embedding-input models (``phase_embed``): musicgen-large
-   in full and llava-next-34b at full width with 4 of its 60 layers, W8A8
+   at full width with 24 of its 48 layers (cut in slice 13 to keep the
+   script's time) and llava-next-34b with 4 of its 60 layers, W8A8
    FFN, flash prefill: ``prefill(embeds=)`` at S 1500 and 2880 and 16
    ``decode_step(embed=)`` steps, logits finite, greedy streams under
    ``cuda`` equal to ``ref``, rows 4 and 9 launched as derived, row 9
    against its plain version at each model's attention shape; prefill ms
    and decode ms/step; within ``EMBED_BUDGET_S``.
+16. slice 13, the selective-hardening DSE (``phase_dse``): the cost
+   oracle at full width (``dse.cost.measure_serving`` on SmolLM-135M in
+   full, W8A8 FFN, batch 8, reusing the main path's params; every decode
+   window once with rows 4 and 5 launched as derived and its tokens equal
+   to the unmapped window's, ``ref`` == ``cuda`` on two windows;
+   ``measure_shipdet(reduced=False)`` at ``network_specs(194)``, rows 1
+   and 2 as derived), printed per FFN site × policy, scrub and conv layer;
+   then ``repro_torch.dse.cli search`` and ``certify`` (the CLI's 150
+   trials per site) in both spaces on the ``cuda`` backend against this
+   card's cost model, in a temporary
+   directory: exit code 0 (SDC = 0 at every site, cost below uniform
+   ABFT), the genes, ``campaigns_run`` and the cost ratio; the best maps'
+   trials equal under ``ref`` and ``cuda``; within ``DSE_BUDGET_S``;
+17. slice 13, the recurrent families (``phase_recurrent``): rwkv6-1.6b in
+   full and recurrentgemma-2b at full width with 8 of its 26 layers, each
+   with the logits of a 64-token prefill's last position and 16 decode
+   steps against ``forward``'s in f32 (``REC_TOL``, which a bf16 control
+   must miss), an ``Engine`` of capacity 4 serving prompts of 8–512
+   tokens (and 2,560 for recurrentgemma, past its 2,048 window) with the
+   streams of one request at a time, a strike on the recurrent state
+   healed under ``state_scrub="rollback"``, and no kernel launched; param
+   seconds, prefill ms and decode ms/step; within ``REC_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -181,7 +206,7 @@ INT8_OPS_PER_S = 1.979e15
 INT32_OPS_PER_S = 67e12            # CUDA-core rate, for the int32 check channel
 BATCH = 4                          # frames per forward on the main path
 RANDOM_CASES = 48                  # seeded random geometries in phase 3
-FORWARD_ROUNDS = 5                 # timing rounds of 10 forwards per policy
+FORWARD_ROUNDS = 3                 # timing rounds of 10 forwards per policy
 DEVICE = "cuda"
 CONV_SOURCE = "src/repro_torch/kernels/qconv2d/csrc/qconv2d.cu"
 MATMUL_SOURCE = "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu"
@@ -225,7 +250,7 @@ EDGE_ROWS = (1, 7, 8, 9, 16, 17, 63, 64, 65, 200)
 EDGE_KN = ((600, 1000), (99, 41), (1536, 70))
 COLD_LAYERS = 30                   # distinct FFN weights per cold decode step
 INT_MM_MIN_M = 32                  # torch._int_mm refuses M <= 16
-DECODE_ROUNDS = 3                  # timing rounds of 20 decode steps per map
+DECODE_ROUNDS = 2                  # timing rounds of 20 decode steps per map
 # slice 3: the attention kernels
 BF16_FLOPS_PER_S = 989e12          # tensor cores, dense
 F32_FLOPS_PER_S = 67e12            # CUDA cores
@@ -250,7 +275,7 @@ TRAIN_STEPS = 12
 TRAIN_CKPT_EVERY = 4
 TRAIN_NAN_STEP = 9
 TRAIN_RESUME_AT = 8
-TRAIN_ROUNDS = 5                   # timing rounds of one train step
+TRAIN_ROUNDS = 3                   # timing rounds of one train step
 DRILL_SEED = 4                     # inject_into_pytree's generator seed
 
 
@@ -2524,6 +2549,7 @@ DEP_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum", "flash_attention_fwd_lse")
 DEP_CAMPAIGN_TRIALS = 8            # per serving campaign configuration
 DEP_TIMING_STEPS = 10              # decode steps per timing round
 DEP_BUDGET_S = 180                 # the phase's share of the limit
+DEP_LAYERS = 15                    # depth cut: 15 of 30 layers (slice 13)
 
 
 def _dep_kw(name):
@@ -2596,8 +2622,9 @@ def _tree_bytes(t) -> int:
 
 
 def phase_dependable(cfg, params, prompts, card: str) -> dict:
-    """Slice 11: dependable serving at full width (SmolLM-135M, W8A8 FFN,
-    bf16, flash prefill, capacity 8, 16 requests of 32 new tokens): (a)
+    """Slice 11: dependable serving at full width (SmolLM-135M with its
+    depth cut to DEP_LAYERS of 30 layers, W8A8 FFN, bf16, flash prefill,
+    capacity 8, 16 requests of 32 new tokens): (a)
     uniform ABFT (detect) and CKPT (rollback) maps with the int8 KV cache
     off and on, clean runs without an alarm and struck runs (the first 8
     requests) with one detection per strike, CKPT streams equal to the
@@ -2618,8 +2645,12 @@ def phase_dependable(cfg, params, prompts, card: str) -> dict:
     from repro_torch.runtime.dataflow import _checks_equal, _state_checksums
 
     t_phase = time.perf_counter()
-    dcfg = dataclasses.replace(cfg, attn_impl="flash")
-    failed, out = [], {"card": card}
+    # the first DEP_LAYERS layers at full width: views of the main path's
+    # stacked weights
+    dcfg = dataclasses.replace(cfg, attn_impl="flash", n_layers=DEP_LAYERS)
+    params = {**params, "dense_blocks": {
+        k: v[:DEP_LAYERS] for k, v in params["dense_blocks"].items()}}
+    failed, out = [], {"card": card, "layers": DEP_LAYERS}
     _reset_all_launches()
 
     # (a) the maps, clean and struck, the int8 KV cache off and on
@@ -2842,8 +2873,9 @@ FLEET_MAX_NEW = 16
 FLEET_MAX_LEN = 576                # prompts of 8-512 tokens + 16 new, in 64s
 FLEET_REPLICAS = 3
 FLEET_SCRUB_EVERY = 4
-FLEET_ROUNDS = 3                   # timing rounds of each policy's clean run
-FLEET_PROC_ROUNDS = 2              # timed rounds of the proc fleet
+FLEET_ROUNDS = 2                   # timing rounds of each policy's clean run
+FLEET_PROC_ROUNDS = 1              # timed rounds of the proc fleet
+FLEET_LAYERS = 15                  # depth cut: 15 of 30 layers (slice 13)
 FLEET_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum",
               "flash_attention_fwd_lse")
 FLEET_CAMPAIGN_TRIALS = 16         # per fleet campaign configuration
@@ -3031,8 +3063,9 @@ def _fleet_campaigns(failed, out):
 
 
 def phase_fleet(cfg, params, card: str) -> dict:
-    """Slice 12: the dependable serving fleet at full width (SmolLM-135M,
-    W8A8 FFN, bf16, flash prefill, capacity 8, 12 requests of 16 new
+    """Slice 12: the dependable serving fleet at full width (SmolLM-135M
+    with its depth cut to FLEET_LAYERS of 30 layers since slice 13, W8A8
+    FFN, bf16, flash prefill, capacity 8, 12 requests of 16 new
     tokens, prompts of 8-512 tokens): (1) NONE, 3 replicas in process,
     streams equal to one Engine's; (2) ABFT under PolicyMap.uniform(ABFT),
     a weight strike on replica 0 detected, restored incrementally onto the
@@ -3043,7 +3076,7 @@ def phase_fleet(cfg, params, card: str) -> dict:
     transport, 2 workers on the card, clean and with a worker SIGKILLed;
     (8) the fleet and fleet_mp campaigns; every healed stream equal to the
     clean one, rows 4, 5 and 9 launched as derived on the clean runs; (9)
-    tokens/s and ms per tick per policy (median of 3 rounds), recovery
+    tokens/s and ms per tick per policy (median of FLEET_ROUNDS), recovery
     seconds, proc against in-process ms per tick, peak memory, the seconds
     each step took.  Launch counts are reset at its start and read at its
     end."""
@@ -3057,7 +3090,12 @@ def phase_fleet(cfg, params, card: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     fcfg, prompts = fleet_setup(cfg)
-    failed, out = [], {"card": card, "steps_s": {}}
+    # the first FLEET_LAYERS layers at full width: views of the main
+    # path's stacked weights
+    fcfg = dataclasses.replace(fcfg, n_layers=FLEET_LAYERS)
+    params = {**params, "dense_blocks": {
+        k: v[:FLEET_LAYERS] for k, v in params["dense_blocks"].items()}}
+    failed, out = [], {"card": card, "steps_s": {}, "layers": FLEET_LAYERS}
     t_step = [t_phase]
 
     def step_done(label):
@@ -3305,6 +3343,7 @@ def phase_fleet(cfg, params, card: str) -> dict:
 EMBED_MUSICGEN_S = 1500            # 30 s of audio at EnCodec's 50 frames/s
 EMBED_LLAVA_S = 2880               # anyres: 5 tiles x 576 patches
 EMBED_LLAVA_LAYERS = 4             # depth cut: 4 of 60 layers, full width
+EMBED_MUSICGEN_LAYERS = 24         # depth cut: 24 of 48 layers, full width
 EMBED_STEPS = 16                   # decode steps after each prefill
 EMBED_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse")
 EMBED_BUDGET_S = 180               # the phase's share of the limit
@@ -3409,7 +3448,8 @@ def _embed_model(name, cfg, depth, gen, failed):
 
 def phase_embed(card: str) -> dict:
     """Slice 12: the embedding-input models at full width, W8A8 FFN, bf16,
-    flash prefill: musicgen-large in full (48 layers) at B 1 x S 1500,
+    flash prefill: musicgen-large with its depth cut to 24 of 48 layers
+    (EMBED_MUSICGEN_LAYERS) at B 1 x S 1500,
     llava-next-34b with its depth cut to 4 of 60 layers at S 2880, each a
     prefill(embeds=) and 16 decode_step(embed=) steps under the ``cuda``
     and ``ref`` backends (``_embed_model``).  Launch counts are reset at
@@ -3421,8 +3461,10 @@ def phase_embed(card: str) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     full = registry.get("llava-next-34b").n_layers
     models = {
-        "musicgen-large": (registry.get("musicgen-large"),
-                           "48 layers, in full"),
+        "musicgen-large": (dataclasses.replace(
+            registry.get("musicgen-large"), n_layers=EMBED_MUSICGEN_LAYERS),
+            f"depth cut to {EMBED_MUSICGEN_LAYERS} of "
+            f"{registry.get('musicgen-large').n_layers} layers"),
         "llava-next-34b": (dataclasses.replace(
             registry.get("llava-next-34b"), n_layers=EMBED_LLAVA_LAYERS),
             f"depth cut to {EMBED_LLAVA_LAYERS} of {full} layers"),
@@ -3445,6 +3487,456 @@ def phase_embed(card: str) -> dict:
         failed.append(f"embed phase took {secs:.1f} s")
     if failed:
         raise AssertionError("embed: " + "; ".join(failed))
+    return out
+
+
+# slice 13: the selective-hardening DSE on the card
+DSE_BATCH = 8                      # decode batch of the serving oracle
+DSE_STEPS = 4                      # decode steps per timed window
+DSE_REPS = 1                       # timed windows per variant and round
+DSE_ROUNDS = 2                     # interleaved rounds (per-variant minimum)
+DSE_SHIPDET_REPS = 30              # timed calls per conv layer and policy
+# generations, population, trials per site and genome; certify runs the
+# CLI's own 150 trials per site
+DSE_SEARCH = {"serving": (2, 6, 20), "shipdet": (1, 4, 64)}
+DSE_COMPARE_TRIALS = 4             # ref == cuda trials per site
+DSE_ROWS = ("qconv2d_acc", "qconv2d_acc_checksum", "qmatmul_acc",
+            "qmatmul_acc_checksum")
+DSE_BUDGET_S = 270                 # the phase's share of the limit
+
+
+def _dse_window_launches(key, n_layers, steps):
+    """Row 4 and row 5 launches of one decode window of ``steps`` steps
+    under a single-site map (``key`` = (site, policy)), as the code makes
+    them: an unmapped FFN site launches row 4 once per layer; ABFT and
+    CKPT row 5 once (clean, no recompute); DMR row 4 twice; TMR thrice."""
+    per = {"abft": (0, 1), "ckpt": (0, 1), "dmr": (2, 0), "tmr": (3, 0)}
+    site, pol = key
+    if site == "__base__":
+        r4, r5 = 3, 0              # three plain sites
+    else:
+        r4, r5 = per[pol]
+        r4 += 2                    # the two other sites, plain
+    return {"qmatmul_acc": r4 * n_layers * steps,
+            "qmatmul_acc_checksum": r5 * n_layers * steps}
+
+
+def _dse_oracle(cfg, params, failed):
+    """The cost oracle at full width on the card: every window once with
+    its launches counted (as derived) and its tokens against the unmapped
+    window's, ``ref`` against ``cuda`` on two windows, then
+    ``measure_serving`` (launches as derived in total) and
+    ``measure_shipdet(reduced=False)`` at ``network_specs(194)``."""
+    from repro_torch.dse import cost
+    from repro_torch.models import api
+    L = cfg.n_layers
+    # 1. each window once: launches and tokens
+    variants, _ = cost._windows(cfg, params, batch=DSE_BATCH, seed=0,
+                                n_steps=DSE_STEPS, device=DEVICE)
+    emitted, launch_ok = {}, True
+    for key, run in variants.items():
+        _reset_all_launches()
+        emitted[key] = run(api.init_cache(cfg, DSE_BATCH, cost.MAX_LEN,
+                                          device=DEVICE)).cpu()
+        got = {k: v for k, v in _campaign_launches().items() if v}
+        want = {k: v for k, v in _dse_window_launches(
+            key, L, DSE_STEPS).items() if v}
+        if got != want:
+            launch_ok = False
+            failed.append(f"window {key} launched {got}, derived {want}")
+    base = emitted[("__base__", "none")]
+    same = all(torch.equal(e, base) for e in emitted.values())
+    if not same:
+        failed.append("a mapped window's tokens differ from the unmapped")
+    # 2. ref == cuda on the base window and one ABFT window
+    rcfg = api.with_backend(cfg, "ref")
+    rvars, _ = cost._windows(rcfg, params, batch=DSE_BATCH, seed=0,
+                             n_steps=DSE_STEPS, device=DEVICE)
+    _reset_all_launches()
+    ref_equal = all(
+        torch.equal(rvars[k](api.init_cache(rcfg, DSE_BATCH, cost.MAX_LEN,
+                                            device=DEVICE)).cpu(),
+                    emitted[k])
+        for k in (("__base__", "none"), ("ffn.wg", "abft")))
+    ref_launches = sum(_campaign_launches().values())
+    if not ref_equal or ref_launches:
+        failed.append(f"ref window: equal {ref_equal}, launches "
+                      f"{ref_launches}")
+    print(f"dse: windows of {DSE_STEPS} steps at batch {DSE_BATCH}: "
+          f"{len(variants)} variants, launches as derived: {launch_ok}; "
+          f"mapped tokens == unmapped: {same}; ref == cuda (base, "
+          f"ffn.wg=abft): {ref_equal}, ref launches {ref_launches}")
+    # 3. the oracle itself
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    serving = cost.measure_serving(cfg, batch=DSE_BATCH, reps=DSE_REPS,
+                                   backend="cuda", n_steps=DSE_STEPS,
+                                   rounds=DSE_ROUNDS, device=DEVICE,
+                                   params=params)
+    serving_s = time.perf_counter() - t0
+    calls = 1 + DSE_ROUNDS * DSE_REPS
+    want = {"qmatmul_acc": 0, "qmatmul_acc_checksum": 0}
+    for key in variants:
+        for k, v in _dse_window_launches(key, L, DSE_STEPS).items():
+            want[k] += calls * v
+    got = _campaign_launches()
+    oracle_launches = {k: got[k] for k in want}
+    if oracle_launches != want:
+        failed.append(f"oracle launches {oracle_launches}, derived {want}")
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    shipdet = cost.measure_shipdet(reps=DSE_SHIPDET_REPS, backend="cuda",
+                                   reduced=False, device=DEVICE)
+    shipdet_s = time.perf_counter() - t0
+    n_conv = len(shipdet["layers"])
+    per = 1 + DSE_SHIPDET_REPS
+    want_conv = {"qconv2d_acc": 6 * n_conv * per,       # none+dmr×2+tmr×3
+                 "qconv2d_acc_checksum": 2 * n_conv * per}  # abft, ckpt
+    got = _campaign_launches()
+    conv_launches = {k: got[k] for k in want_conv}
+    if conv_launches != want_conv:
+        failed.append(f"shipdet oracle launches {conv_launches}, derived "
+                      f"{want_conv}")
+    for site, entry in serving["sites"].items():
+        print(f"dse: {site} {entry['shape_mkn']} ms/step "
+              + " ".join(f"{p} {v:.3f}" for p, v in entry["ms"].items()))
+    print(f"dse: scrub ms storage_verify "
+          f"{serving['scrub']['storage_verify_ms']:.3f} storage_checksum "
+          f"{serving['scrub']['storage_checksum_ms']:.3f}; serving oracle "
+          f"{serving_s:.1f} s, launches {oracle_launches} = derived: "
+          f"{oracle_launches == want}")
+    for name, entry in shipdet["layers"].items():
+        print(f"dse: shipdet {name} ms "
+              + " ".join(f"{p} {v:.4f}" for p, v in entry["ms"].items()))
+    print(f"dse: shipdet oracle {shipdet_s:.1f} s, launches {conv_launches}"
+          f" = derived: {conv_launches == want_conv}")
+    doc = {"meta": {"arch": cfg.name, "batch": DSE_BATCH, "reps": DSE_REPS,
+                    "backend": "cuda", "seed": 0,
+                    "device": cost.device_name(DEVICE), "full_width": True},
+           "serving": serving, "shipdet": shipdet}
+    return doc, {"windows_equal": same, "ref_equal": ref_equal,
+                 "window_launches_ok": launch_ok,
+                 "oracle_launches": {**oracle_launches, **conv_launches},
+                 "serving_s": serving_s, "shipdet_s": shipdet_s}
+
+
+def _quiet(main, argv):
+    """``main(argv)`` with its per-campaign lines kept out of the printed
+    output (they are returned, and kept in ``--out``'s JSON): (exit code,
+    lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def _dse_compare(space, genes, failed):
+    """The best map's cases under ``ref`` and ``cuda``: equal
+    ``detected``/``mismatch`` on DSE_COMPARE_TRIALS trials per site."""
+    from repro_torch.campaign import faultload as fl
+    from repro_torch.core.dependability import Policy
+    from repro_torch.dse.fitness import MapServingCase, MapShipdetCase
+    pm = space.to_policy_map(tuple(genes[s] for s in space.site_names))
+    cases = {}
+    for backend in ("ref", "cuda"):
+        if space.name == "serving":
+            cases[backend] = MapServingCase(0, backend, policy_map=pm,
+                                            device=DEVICE)
+        else:
+            cases[backend] = MapShipdetCase(0, backend, policy_map=pm,
+                                            device=DEVICE)
+    fault = fl.resolve_fault_model("single_bitflip").apply
+    equal = True
+    for site in space.campaign_sites:
+        policy = Policy(genes[site]) if space.name == "serving" \
+            else Policy.NONE
+        spec = fl.CampaignSpec(f"compare:{space.name}", policy, site,
+                               "single_bitflip", DSE_COMPARE_TRIALS, 0)
+        seeds = fl.trial_seeds(spec)
+        out = {b: c.run_trials(policy, site, fault, seeds)
+               for b, c in cases.items()}
+        equal &= all(np.array_equal(a, b)
+                     for a, b in zip(out["ref"], out["cuda"]))
+    if not equal:
+        failed.append(f"{space.name}: ref != cuda on the best map's trials")
+    return equal
+
+
+def phase_dse(cfg, params, card: str) -> dict:
+    """Slice 13: the selective-hardening DSE on the card.  The cost oracle
+    at full width (``_dse_oracle``: SmolLM-135M in full, W8A8 FFN, batch
+    8; ``network_specs(194)``), saved as this card's cost model; then, in
+    each space, ``repro_torch.dse.cli search`` (``DSE_SEARCH``,
+    the shipdet space's addressed weight rows included) and ``certify`` of
+    the best map at the CLI's 150 trials per site, on the ``cuda`` backend,
+    into a temporary directory: exit code 0 (SDC = 0 at every site, predicted
+    cost below uniform ABFT); the best map's trials equal under ``ref``
+    and ``cuda``.  Rows 1, 2, 4 and 5 launched; counts reset at the start,
+    read at the end."""
+    from repro_torch.dse import cli
+    from repro_torch.dse.cost import CostModel
+    from repro_torch.dse.space import get_space
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    doc, out["oracle"] = _dse_oracle(cfg, params, failed)
+    cm = CostModel(doc)
+    for space_name in ("serving", "shipdet"):
+        sp = get_space(space_name)
+        uniform = {u: cm.predict(space_name, sp.genes(sp.uniform_genome(u)))
+                   for u in ("none", "abft", "dmr", "tmr", "ckpt")}
+        print(f"dse: {space_name} uniform maps (predicted ms) "
+              + " ".join(f"{u} {v:.4f}" for u, v in uniform.items()))
+        out[space_name] = {"uniform_ms": uniform}
+    _reset_all_launches()
+    with tempfile.TemporaryDirectory(prefix="dse_") as tmp:
+        cm_path = cm.save(os.path.join(tmp, "cost_model.json"))
+        for space_name in ("serving", "shipdet"):
+            sp = get_space(space_name)
+            gens, pop, n_search = DSE_SEARCH[space_name]
+            d = os.path.join(tmp, space_name)
+            common = ["--space", space_name, "--out", d, "--cost-model",
+                      str(cm_path), "--device", DEVICE, "--backend", "cuda"]
+            t0 = time.perf_counter()
+            rc_s, log_s = _quiet(cli.main, [
+                "search", *common, "--generations", str(gens),
+                "--population", str(pop), "--trials", str(n_search),
+                "--ci-halfwidth", "0", "--no-journal"])
+            search_s = time.perf_counter() - t0
+            with open(os.path.join(d, "pareto.json")) as f:
+                pareto = json.load(f)
+            bench = os.path.join(d, "BENCH_dse.json")
+            t0 = time.perf_counter()
+            rc_c, log_c = _quiet(cli.main, ["certify", *common,
+                                            "--bench-out", bench])
+            certify_s = time.perf_counter() - t0
+            with open(bench) as f:
+                b = json.load(f)
+            genes = pareto["best"]["genes"]
+            equal = _dse_compare(sp, genes, failed)
+            ok = rc_s == 0 and rc_c == 0 and equal
+            print(f"dse: {space_name} search {search_s:.1f} s (exit {rc_s},"
+                  f" {pareto['evaluations']} genomes, campaigns_run "
+                  f"{pareto['meta']['campaigns_run']}), best {genes}; "
+                  f"certify {certify_s:.1f} s exit {rc_c}: sdc_max "
+                  f"{b['certify']['sdc_max']} over {b['certify']['trials']} "
+                  f"trials, cost {b['cost']['best_ms']:.4f} ms vs uniform "
+                  f"ABFT {b['cost']['uniform_abft_ms']:.4f} ms (ratio "
+                  f"{b['cost']['vs_uniform_abft']}); ref == cuda on "
+                  f"{DSE_COMPARE_TRIALS} trials per site: {equal}"
+                  + ("" if ok else "  FAILED"))
+            if not ok:
+                failed.append(f"{space_name}: search exit {rc_s}, certify "
+                              f"exit {rc_c}, ref == cuda {equal}")
+            out[space_name].update(
+                genes=genes, search_s=search_s, certify_s=certify_s,
+                campaigns_run=pareto["meta"]["campaigns_run"],
+                evaluations=pareto["evaluations"],
+                certify=b["certify"], cost=b["cost"],
+                exit_codes=[rc_s, rc_c], ref_equal=equal,
+                log=log_s + log_c)
+    launches = _campaign_launches()
+    out["search_launches"] = launches
+    print(f"dse: search and certify launches {launches}")
+    if any(launches[n] == 0 for n in DSE_ROWS):
+        failed.append(f"a row of the DSE never launched: {launches}")
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"dse: phase in {secs:.1f} s (budget {DSE_BUDGET_S} s) on {card}")
+    if secs > DSE_BUDGET_S:
+        failed.append(f"dse phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("dse: " + "; ".join(failed))
+    return out
+
+
+# slice 13: the recurrent families
+REC_PROMPTS = (8, 40, 200, 512)    # prompt lengths served by both families
+REC_GRIFFIN_LONG = 2560            # past recurrentgemma's 2048 window
+REC_GRIFFIN_LAYERS = 8             # depth cut: 2 super-blocks + 2 tail
+REC_CAPACITY = 4
+REC_MAX_NEW = 8
+REC_CHECK_PROMPT = 64              # prefill + REC_CHECK_STEPS vs forward
+REC_CHECK_STEPS = 16
+REC_TOL = 1e-4                     # f32 logits the engine samples from
+                                   # (prefill's last, each decode step):
+                                   # max |err| / max |logit|
+REC_BUDGET_S = 60                  # the phase's share of the limit
+
+
+def _rec_serve(cfg, params, prompts, max_len, one_at_a_time=False,
+               strike=None, **kw):
+    """Serve ``prompts`` through an Engine of capacity REC_CAPACITY (all
+    at once, or one request at a time); ``strike(eng)`` after the third
+    pump.  Returns (streams, engine, seconds)."""
+    from repro_torch.runtime.serving import Engine, Request
+    eng = Engine(cfg, params, capacity=REC_CAPACITY, max_len=max_len, **kw)
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=REC_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    groups = [[r] for r in reqs] if one_at_a_time else [reqs]
+    for group in groups:
+        for r in group:
+            eng.submit(r)
+        steps = 0
+        while eng.executor.busy():
+            eng.step()
+            steps += 1
+            if steps == 3 and strike is not None:
+                strike(eng)
+    torch.cuda.synchronize()
+    return [tuple(r.output) for r in reqs], eng, time.perf_counter() - t0
+
+
+def _rec_model(name, cfg, depth, gen, failed):
+    """One recurrent family on the card: the sampled logits of prefill +
+    decode against forward in f32 and a bf16 control, the bf16 Engine
+    against one-request-at-a-time serving, a state strike healed under
+    rollback, no kernel launched; times."""
+    from repro_torch.core import fault_injection as fi
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # 1. the logits the engine samples from, prefill's last and each decode
+    # step's, against forward over the whole sequence, normwise: f32 (TF32
+    # off) within REC_TOL; a bf16 control must miss it.  Earlier prefill
+    # positions are not held: f32 itself strays there, in forward as much
+    # as in prefill (PERF.md; ``python -m repro_torch.models.witness``)
+    n = REC_CHECK_PROMPT + REC_CHECK_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                         device=DEVICE)
+    P = REC_CHECK_PROMPT
+
+    def sampled(c):
+        with torch.no_grad():
+            lg, cache = api.prefill(c, params, toks[:, :P], n)
+            got = [lg[0, -1:]]
+            for t in range(P, n):
+                step, cache = api.decode_step(c, params, toks[:, t], cache)
+                got.append(step)
+        return torch.cat(got).float()
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        full = api.forward(f32, params, toks).logits[0, P - 1:]
+    scale = float(full.abs().max())
+    rel = float((sampled(f32) - full).abs().max()) / scale
+    rel_bf16 = float((sampled(cfg) - full).abs().max()) / scale
+    ratio = rel / REC_TOL
+    control_misses = rel_bf16 > REC_TOL
+    # 2. the Engine (bf16), all at once against one request at a time
+    lengths = REC_PROMPTS + ((REC_GRIFFIN_LONG,) if cfg.family == "hybrid"
+                             else ())
+    prompts = [torch.randint(0, cfg.vocab_size, (s,), generator=gen,
+                             device=DEVICE).tolist() for s in lengths]
+    max_len = max(lengths) + REC_MAX_NEW + 1
+    with torch.no_grad():
+        _rec_serve(cfg, params, prompts[:1], max_len)         # warm up
+        batched, eng, serve_s = _rec_serve(cfg, params, prompts, max_len)
+        alone, _, _ = _rec_serve(cfg, params, prompts, max_len,
+                                 one_at_a_time=True)
+    same = batched == alone
+    steps = eng.stats.steps
+    # prefill ms at the longest prompt, decode ms/step at full capacity
+    longest = prompts[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        api.prefill(cfg, params, torch.tensor([longest], device=DEVICE),
+                    len(longest) + 1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    bc = api.init_cache(cfg, REC_CAPACITY, 64, device=DEVICE)
+    tok = torch.zeros((REC_CAPACITY,), dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        api.decode_step(cfg, params, tok, bc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REC_CHECK_STEPS):
+            _, bc = api.decode_step(cfg, params, tok, bc)
+        torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / REC_CHECK_STEPS
+    # 3. a strike on the recurrent state under rollback heals
+    leaf = ("tm_s",) if cfg.family == "rwkv" else ("h",)
+
+    def strike(e):
+        e.strike("kv_cache", lambda x, g: fi.flip_bit_at_index(
+            x, 12345 % x.numel(), 30), None, leaf=leaf)
+    short = prompts[:REC_CAPACITY]
+    with torch.no_grad():
+        clean, _, _ = _rec_serve(cfg, params, short, max_len,
+                                 snapshot_every=2, state_scrub="rollback")
+        healed, seng, _ = _rec_serve(cfg, params, short, max_len,
+                                     strike=strike, snapshot_every=2,
+                                     state_scrub="rollback")
+    ev = seng.drain_state_events()
+    heal_ok = healed == clean == batched[:REC_CAPACITY] \
+        and len(ev) == 1 and ev[0]["recovered"]
+    ok = ratio <= 1.0 and control_misses and same and heal_ok
+    print(f"recurrent: {name} ({depth}, d {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}), params in {init_s:.1f} s; prefill "
+          f"{P} + {REC_CHECK_STEPS} decode steps against forward at S "
+          f"{n}, the {REC_CHECK_STEPS + 1} sampled positions: max |err| / "
+          f"max |logit| {scale:.3f} f32 {rel:.3e} (limit {REC_TOL:.0e}), "
+          f"bf16 control {rel_bf16:.3e} (misses the limit: "
+          f"{control_misses});"
+          f" Engine capacity {REC_CAPACITY}, prompts {list(lengths)}, "
+          f"{REC_MAX_NEW} new: streams == one request at a time: {same} "
+          f"({steps} steps, {serve_s:.2f} s); rollback heals the {leaf[0]} "
+          f"strike: {heal_ok} ({len(ev)} event); prefill S "
+          f"{len(longest)} {prefill_ms:.2f} ms, decode "
+          f"{decode_ms:.2f} ms/step at batch {REC_CAPACITY}"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(name)
+    return {"init_s": init_s, "logits_ratio": ratio, "logits_rel": rel,
+            "bf16_control_rel": rel_bf16, "streams_equal": same,
+            "healed": heal_ok, "prefill_ms": prefill_ms,
+            "prefill_len": len(longest), "decode_ms_per_step": decode_ms,
+            "serve_s": serve_s, "steps": steps}
+
+
+def phase_recurrent(card: str) -> dict:
+    """Slice 13: the recurrent families at full width on the card:
+    rwkv6-1.6b in full (24 layers) and recurrentgemma-2b with its depth cut
+    to 8 of 26 layers (two 2:1 super-blocks and the two-block recurrent
+    tail), each through ``_rec_model``.  No hand kernel serves them (the
+    reference runs them as plain jnp): the phase checks that none of rows
+    1-10 launched."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    full = registry.get("recurrentgemma-2b").n_layers
+    models = {
+        "rwkv6-1.6b": (registry.get("rwkv6-1.6b"), "24 layers, in full"),
+        "recurrentgemma-2b": (dataclasses.replace(
+            registry.get("recurrentgemma-2b"), n_layers=REC_GRIFFIN_LAYERS),
+            f"depth cut to {REC_GRIFFIN_LAYERS} of {full} layers"),
+    }
+    for name, (cfg, depth) in models.items():
+        out[name] = _rec_model(name, cfg, depth, gen, failed)
+        out[name]["depth"] = depth
+        torch.cuda.empty_cache()
+    launches = _campaign_launches()
+    none = not any(launches.values())
+    print(f"recurrent: rows 1-10 launched on this path: "
+          f"{ {k: v for k, v in launches.items() if v} or 'none'}")
+    if not none:
+        failed.append(f"a kernel launched on the recurrent path: {launches}")
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"recurrent: phase in {secs:.1f} s (budget {REC_BUDGET_S} s) on "
+          f"{card}")
+    if secs > REC_BUDGET_S:
+        failed.append(f"recurrent phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("recurrent: " + "; ".join(failed))
     return out
 
 
@@ -3537,6 +4029,8 @@ def main() -> None:
     dependable = phase_dependable(cfg, lm_params, prompts, card)
     fleet = phase_fleet(cfg, lm_params, card)
     embed = phase_embed(card)
+    dse = phase_dse(cfg, lm_params, card)
+    recurrent = phase_recurrent(card)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -3578,7 +4072,8 @@ def main() -> None:
                        "backward_per_call": bwd_rows,
                        "campaign": campaign,
                        "dependable": dependable, "fleet": fleet,
-                       "embed": embed}, f, indent=1)
+                       "embed": embed, "dse": dse,
+                       "recurrent": recurrent}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

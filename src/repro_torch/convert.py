@@ -57,6 +57,32 @@ def transformer_params_from_numpy(tree: Dict[str, Any],
     return conv(tree)
 
 
+def rwkv6_params_from_numpy(tree: Dict[str, Any],
+                            device="cuda") -> Dict[str, Any]:
+    """The reference's ``models.rwkv6`` parameter dict (``embed``,
+    ``final_norm``, ``lm_head`` and the stacked ``blocks``) as the port's
+    ``models/rwkv6.py`` takes it: the same keys, shapes and dtypes."""
+    return _params_tree(tree, ("embed", "final_norm", "lm_head", "blocks"),
+                        device)
+
+
+def griffin_params_from_numpy(tree: Dict[str, Any],
+                              device="cuda") -> Dict[str, Any]:
+    """The reference's ``models.griffin`` parameter dict (``rec_blocks``,
+    ``attn_blocks``, ``tail_rec`` where the depth leaves recurrent layers
+    over, ``lm_head`` where the embedding is not tied) as the port's
+    ``models/griffin.py`` takes it."""
+    return _params_tree(tree, ("embed", "final_norm", "rec_blocks",
+                               "attn_blocks", "tail_rec", "lm_head"), device)
+
+
+def _params_tree(tree, known, device):
+    unknown = sorted(set(tree) - set(known))
+    if unknown:
+        raise KeyError(f"unexpected parameter groups {unknown}")
+    return transformer_params_from_numpy(tree, device)
+
+
 def train_state_from_numpy(state, device="cuda"):
     """The reference's ``TrainState`` (params, optimizer state and step,
     numpy leaves in nested dicts) as the port's ``train.steps.TrainState``:

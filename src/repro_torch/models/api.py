@@ -2,8 +2,8 @@
 
 The counterpart of ``repro.models.api``: launchers, the serving engine and
 tests talk to models through these functions, and the config's ``family``
-picks the implementation.  The port has the ``transformer`` family; the
-recurrent families raise ``NotImplementedError`` naming their ROADMAP item.
+picks the implementation: ``transformer``, ``rwkv`` (models/rwkv6.py) or
+``hybrid`` (models/griffin.py).
 
 ``cfg.backend`` is the per-layer rung of the backend selection
 (core/backend.py): ``with_backend(cfg, "ref")`` swaps the W8A8 FFN from the
@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from repro_torch.models import common, transformer
+from repro_torch.models import common, griffin, rwkv6, transformer
 from repro_torch.models.config import ArchConfig
 
 
@@ -46,10 +46,10 @@ def with_policy_map(cfg: ArchConfig, policy_map) -> ArchConfig:
 def _mod(cfg: ArchConfig):
     if cfg.family == "transformer":
         return transformer
-    if cfg.family in ("rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with the recurrent families, "
-            f"ROADMAP.md queue 1, item 16")
+    if cfg.family == "rwkv":
+        return rwkv6
+    if cfg.family == "hybrid":
+        return griffin
     raise ValueError(f"unknown family {cfg.family!r} (cnn goes through "
                      f"models/shipdet.py)")
 
@@ -81,5 +81,5 @@ def prefill(cfg, params, tokens, max_len, ctx=None, embeds=None):
 
 def cache_write_slot(batch_cache, one_cache, slot, n):
     """Splice a single-request prefill cache into row ``slot`` of a batch
-    cache, in place (models/common.py)."""
+    cache, in place, for any family's cache (models/common.py)."""
     return common.cache_write_slot(batch_cache, one_cache, slot, n)

@@ -32,10 +32,10 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.to(torch.float32)
+    acc = torch.promote_types(dt, torch.float32)     # f32, or f64 for f64
+    x = x.to(acc)
     var = torch.mean(x * x, dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps))
-            * (1.0 + scale.to(torch.float32))).to(dt)
+    return ((x * torch.rsqrt(var + eps)) * (1.0 + scale.to(acc))).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,

@@ -86,8 +86,9 @@ def _pdt(cfg: ArchConfig):
 
 
 def _cdt(cfg: ArchConfig):
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
-        else torch.float32
+    """The compute dtype; ``float64`` serves as a precision witness."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.compute_dtype, torch.float32)
 
 
 def _w(cfg: ArchConfig, w):
@@ -217,6 +218,13 @@ def _layers(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, Any]]:
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
+def _cast_layers(cfg: ArchConfig, blocks) -> List[Dict[str, Any]]:
+    """``_layers`` with every weight cast to the compute dtype (the
+    recurrent families cast whole blocks, as the reference does)."""
+    dt = _cdt(cfg)
+    return [{k: t.to(dt) for k, t in bp.items()} for bp in _layers(blocks)]
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -291,13 +299,19 @@ def _block(cfg: ArchConfig, bp, x, positions):
     return _dense_ffn(cfg, bp, x)
 
 
+def _inputs(cfg: ArchConfig, params, tokens, embeds=None):
+    """The token embeddings, or ``embeds`` in their place, in the compute
+    dtype."""
+    return _embed(cfg, params, tokens) if embeds is None \
+        else embeds.to(_cdt(cfg))
+
+
 def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
            embeds=None):
     """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
     norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
     ``remat`` recomputes each block in the backward."""
-    x = _embed(cfg, params, tokens) if embeds is None \
-        else embeds.to(_cdt(cfg))
+    x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for li, bp in enumerate(_layers(params["dense_blocks"])):
         if remat:
@@ -392,8 +406,7 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
     into ``cache`` in place (slot ``length % T`` of each row), advances
     ``length`` and returns (logits (B, V), cache)."""
     _check(cfg, ctx)
-    x = (_embed(cfg, params, token) if embed is None
-         else embed.to(_cdt(cfg)))[:, None, :]
+    x = _inputs(cfg, params, token, embed)[:, None, :]
     B = x.shape[0]
     hd, H = cfg.resolved_head_dim, cfg.n_heads
     pos = cache.length

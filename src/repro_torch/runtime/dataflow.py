@@ -359,8 +359,10 @@ class AdmitStage(Stage):
 
 class PrefillStage(Stage):
     """Per-request prefill: prompt → (single-request cache, first token).
-    Prompts are right-padded to a multiple of ``prefill_pad``: the cache
-    masks past each row's length, so padding is free."""
+    Attention caches mask past each row's length, so a prompt is
+    right-padded to a multiple of ``prefill_pad`` for free; recurrent state
+    takes in every token it sees, so a recurrent config prefills the exact
+    prompt, as the reference does."""
 
     name = "prefill"
 
@@ -375,7 +377,10 @@ class PrefillStage(Stage):
         # reserve cache rows for the token budget, but never truncate the
         # prompt to nothing; generation stops at the cache edge instead
         prompt = req.prompt[: max(1, ex.max_len - req.max_new_tokens)]
-        pad = -(-len(prompt) // ex.prefill_pad) * ex.prefill_pad
+        if ex.cfg.recurrent is not None:
+            pad = len(prompt)
+        else:
+            pad = -(-len(prompt) // ex.prefill_pad) * ex.prefill_pad
         toks = torch.tensor([prompt + [0] * (pad - len(prompt))],
                             dtype=torch.int32, device=ex.device)
         logits, cache1 = ex._prefill(ex.params, toks)
@@ -514,25 +519,15 @@ class DecodeStage(Stage):
         dev = self.tokens.device
         active_mask = np.zeros(ex.capacity, bool)
         active_mask[list(self.active)] = True
-        remaining = torch.as_tensor(self.slot_remaining, device=dev)
-        pos = torch.as_tensor(self.slot_pos, device=dev)
-        active = torch.as_tensor(active_mask, device=dev)
-        tokens, cache = self.tokens, self.cache
-        nxt_steps, fin_steps = [], []
-        for _ in range(ex.multi_step):
-            nxt, cache = ex._decode(ex.params, tokens, cache)
-            remaining = torch.where(active, remaining - 1, remaining)
-            pos = torch.where(active, pos + 1, pos)
-            finished = active & ((remaining <= 0) | (nxt == ex.eos_id)
-                                 | (pos >= ex.max_len - 1))
-            active = active & ~finished
-            tokens = nxt
-            nxt_steps.append(nxt)
-            fin_steps.append(finished.to(torch.int32))
+        tokens, cache, emitted = decode_window_steps(
+            ex._decode, ex.params, self.tokens, self.cache,
+            torch.as_tensor(self.slot_remaining, device=dev),
+            torch.as_tensor(self.slot_pos, device=dev),
+            torch.as_tensor(active_mask, device=dev), ex.multi_step,
+            ex.eos_id, ex.max_len)
         self.tokens, self.cache = tokens, cache
         n = ex.multi_step
-        host = torch.cat(nxt_steps + fin_steps).reshape(
-            2 * n, ex.capacity).cpu().numpy()       # the window's one sync
+        host = emitted.cpu().numpy()                # the window's one sync
         nxt_host, fin_host = host[:n], host[n:].astype(bool)
         for i in range(n):
             if not self.active:
@@ -624,6 +619,28 @@ class ReleaseStage(Stage):
 # ---------------------------------------------------------------------------
 # The executor: stages + cooperative driver + snapshot/rollback
 # ---------------------------------------------------------------------------
+
+
+def decode_window_steps(decode_fn, params, tokens, cache, remaining, pos,
+                        active, n_steps: int, eos_id: int, max_len: int):
+    """``n_steps`` decode steps of every slot with the join/EOS/max-len
+    accounting in device-side masks: the port's form of the reference's
+    jitted window scan (``_decode_window_fn``).  Returns (tokens, cache,
+    emitted), ``emitted`` a (2·n_steps, B) int32 device tensor: each step's
+    next tokens, then each step's finish masks, for one host readback."""
+    nxt_steps, fin_steps = [], []
+    for _ in range(n_steps):
+        nxt, cache = decode_fn(params, tokens, cache)
+        remaining = torch.where(active, remaining - 1, remaining)
+        pos = torch.where(active, pos + 1, pos)
+        finished = active & ((remaining <= 0) | (nxt == eos_id)
+                             | (pos >= max_len - 1))
+        active = active & ~finished
+        tokens = nxt
+        nxt_steps.append(nxt)
+        fin_steps.append(finished.to(torch.int32))
+    emitted = torch.cat(nxt_steps + fin_steps).reshape(2 * n_steps, -1)
+    return tokens, cache, emitted
 
 
 class StreamingExecutor:

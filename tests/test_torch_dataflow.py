@@ -6,7 +6,10 @@ routing and the scrub that catches it, the certify gate, max-len
 truncation at ``multi_step`` 1 and 4, bit-identical decode windows and a
 windowed snapshot rollback — on ``reduced(smollm-135m)`` with the W8A8 FFN
 and f32 compute, from the reference's parameters, with the token streams
-also held against the reference's engine."""
+also held against the reference's engine.  The family cases run the
+recurrent archs of its ``FAMILY_ARCHS`` too (``reduced()``, f32 compute),
+with the reference's hybrid-family failover; a recurrent config prefills
+its exact prompt."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,7 +30,9 @@ from repro.runtime.serving import Engine as JEngine
 from repro.runtime.serving import Request as JRequest
 from repro_torch import tree
 from repro_torch.configs import registry as tregistry
-from repro_torch.convert import transformer_params_from_numpy
+from repro_torch.convert import (griffin_params_from_numpy,
+                                 rwkv6_params_from_numpy,
+                                 transformer_params_from_numpy)
 from repro_torch.core import fault_injection as fi
 from repro_torch.data import pipeline as dp
 from repro_torch.models import api as model_api
@@ -470,3 +475,146 @@ def test_multi_step_snapshot_rollback_still_bit_exact(smollm):
     events = eng.drain_state_events()
     assert len(events) == 1 and events[0]["recovered"]
     assert req.output == golden
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families (tests/test_dataflow.py's FAMILY_ARCHS)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["smollm-135m", "rwkv6-1.6b", "recurrentgemma-2b"]
+_CONVERT = {"rwkv": rwkv6_params_from_numpy,
+            "hybrid": griffin_params_from_numpy}
+
+
+@pytest.fixture(scope="module", params=FAMILY_ARCHS[1:])
+def recurrent(request):
+    """The reference's reduced recurrent config in f32, its parameters in
+    both packages.  ``reduced()`` recurrentgemma has no attention layer, so
+    the reference's one position per batch and the port's one per row
+    (``GriffinCache.length``) agree in these cases, whatever the rows'
+    lengths; with attention layers they agree only where every row sits at
+    the same position (ROADMAP queue 3)."""
+    f32 = dict(compute_dtype="float32")
+    jcfg = dataclasses.replace(jreduced(jregistry.get(request.param)), **f32)
+    cfg = dataclasses.replace(reduced(tregistry.get(request.param)), **f32)
+    jparams = japi.init_params(jcfg, jax.random.key(0))
+    params = _CONVERT[cfg.family](jax.device_get(jparams), device="cpu")
+    return cfg, params, jcfg, jparams
+
+
+def test_recurrent_mid_decode_joins_are_bit_identical(recurrent):
+    cfg, params, jcfg, jparams = recurrent
+    early, late = [[5, 9, 2], [3, 1, 4, 1]], [[2, 7, 1], [8, 8]]
+    outs = []
+    for E, R, c, p in ((Engine, Request, cfg, params),
+                       (JEngine, JRequest, jcfg, jparams)):
+        eng = E(c, p, capacity=2, max_len=96, prefill_pad=8)
+        reqs = [R(uid=i, prompt=list(q), max_new_tokens=8)
+                for i, q in enumerate(early)]
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(3):
+            eng.step()
+        late_reqs = [R(uid=10 + i, prompt=list(q), max_new_tokens=8)
+                     for i, q in enumerate(late)]
+        for r in late_reqs:
+            eng.submit(r)
+        eng.run()
+        outs.append([r.output for r in reqs + late_reqs])
+    for out, p in zip(outs[0], early + late):
+        assert out == greedy_reference(cfg, params, p, 8)
+    assert outs[0] == outs[1]
+
+
+def test_recurrent_drain_barrier_changes_schedule_not_tokens(recurrent):
+    cfg, params, _, _ = recurrent
+    prompts = [[5, 9, 2], [3, 1, 4, 1], [2, 7], [8, 8, 6]]
+    budgets = [2, 8, 2, 8]
+    streamed, s_steps = _serve(Engine, Request, cfg, params, prompts,
+                               budgets)
+    padded, p_steps = _serve(Engine, Request, cfg, params, prompts, budgets,
+                             drain_barrier=True)
+    assert streamed == padded
+    assert p_steps > s_steps
+
+
+def test_recurrent_multi_step_windows_are_bit_identical(recurrent):
+    cfg, params, jcfg, jparams = recurrent
+    prompts = [[5, 9, 2], [3, 1, 4, 1], [2, 7], [8, 8, 6]]
+    budgets = [2, 8, 2, 8]
+    per_step, s1 = _serve(Engine, Request, cfg, params, prompts, budgets)
+    windowed, s4 = _serve(Engine, Request, cfg, params, prompts, budgets,
+                          multi_step=4)
+    assert windowed == per_step
+    assert s4 >= s1
+    assert _serve(JEngine, JRequest, jcfg, jparams, prompts, budgets,
+                  multi_step=4) == (windowed, s4)
+
+
+def test_recurrent_prefill_takes_the_exact_prompt(recurrent):
+    """Recurrent state takes in every token it sees: a recurrent config
+    prefills the prompt unpadded (a transformer's is padded to
+    ``prefill_pad``), and the stream is the reference's."""
+    cfg, params, jcfg, jparams = recurrent
+    prompt = [5, 9, 2, 7, 1]
+    outs, lengths = [], []
+    for E, R, c, p in ((Engine, Request, cfg, params),
+                       (JEngine, JRequest, jcfg, jparams)):
+        eng = E(c, p, capacity=2, max_len=96, prefill_pad=8)
+        ex = eng.executor
+        prefill = ex._prefill
+
+        def spy(p_, toks, prefill=prefill):
+            lengths.append(int(toks.shape[1]))
+            return prefill(p_, toks)
+        ex._prefill = spy
+        req = R(uid=0, prompt=list(prompt), max_new_tokens=6)
+        eng.submit(req)
+        eng.run()
+        outs.append(req.output)
+    assert lengths == [len(prompt), len(prompt)]
+    assert outs[0] == outs[1] == greedy_reference(cfg, params, prompt, 6)
+
+
+def test_failover_bit_exact_hybrid_family():
+    """Fleet failover on the staged executor, hybrid (griffin) family:
+    killing a replica mid-decode changes no released token, and the
+    streams are the reference fleet's."""
+    from repro.core.dependability import Policy as JPolicy
+    from repro.fleet import Fleet as JFleet
+    from repro_torch.core.dependability import Policy
+    from repro_torch.fleet import Fleet, ReplicaState
+    f32 = dict(compute_dtype="float32")
+    jcfg = dataclasses.replace(jreduced(jregistry.get("recurrentgemma-2b")),
+                               **f32)
+    cfg = dataclasses.replace(reduced(tregistry.get("recurrentgemma-2b")),
+                              **f32)
+    jparams = japi.init_params(jcfg, jax.random.key(0))
+    params = griffin_params_from_numpy(jax.device_get(jparams), device="cpu")
+    prompts = [[5, 9, 2], [3, 1, 4, 1], [2, 7]]
+    kw = dict(n_replicas=2, capacity=2, max_len=96, prefill_pad=8)
+    jfleet = JFleet(jcfg, jparams, policy=JPolicy.NONE, **kw)
+    fleet = Fleet(cfg, params, policy=Policy.NONE, **kw)
+    try:
+        def serve(f, R, kill):
+            f.reset()
+            reqs = [R(uid=i, prompt=list(p), max_new_tokens=5)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                assert f.submit(r)
+            if kill:
+                f.tick()
+                f.tick()
+                f.kill_replica(0)
+            f.run()
+            return [list(r.output) for r in reqs]
+
+        golden = serve(fleet, Request, kill=False)
+        replayed = serve(fleet, Request, kill=True)
+        assert fleet.replicas[0].state is ReplicaState.DEAD
+        assert fleet.metrics.failovers > 0
+        assert replayed == golden
+        assert serve(jfleet, JRequest, kill=True) == golden
+    finally:
+        fleet.close()
+        jfleet.close()

@@ -2,8 +2,9 @@
 
 Mirrors every ``smollm-135m`` case of tests/test_fleet.py and
 ``test_fleet_release_gate_lives_in_certify_stage`` of tests/test_dataflow.py
-(the campaign cases are in test_torch_fleet_campaign.py; the recurrent
-family's cases wait for ROADMAP.md item 16).  Both packages' fleets serve
+(the campaign cases are in test_torch_fleet_campaign.py), and the
+``rwkv6-1.6b`` cases of its ``family_fleet`` and of
+``test_proc_fleet_bit_identical_with_failover`` (slow there, and here).  Both packages' fleets serve
 the reference's parameters of reduced(smollm-135m) with the W8A8 FFN and
 f32 compute, and every fault is addressed — a (leaf, index, bit) the test
 names, the same cells in both — so each scenario is held three ways:
@@ -52,7 +53,8 @@ from repro.models.config import reduced as jreduced
 from repro.runtime.serving import Request as JRequest
 from repro_torch import tree
 from repro_torch.configs import registry as tregistry
-from repro_torch.convert import transformer_params_from_numpy
+from repro_torch.convert import (rwkv6_params_from_numpy,
+                                 transformer_params_from_numpy)
 from repro_torch.core import fault_injection as tfi
 from repro_torch.core.dependability import Policy
 from repro_torch.fleet import Fleet, ReplicaState, Router
@@ -718,6 +720,80 @@ def test_proc_fleet_bit_identical_with_failover(params_pair):
                   capacity=2, max_len=96, prefill_pad=8, transport="proc")
     try:
         assert all(r.device == torch.device(CPU) for r in fleet.replicas)
+        assert _proc_serve(fleet, prompts, 4) == golden
+        assert _proc_serve(fleet, prompts, 4, kill=True) == golden
+        assert fleet.metrics.recoveries + fleet.metrics.failovers > 0
+        assert all(r.state is ReplicaState.HEALTHY for r in fleet.replicas)
+    finally:
+        fleet.close()
+    assert not any(r.handle.proc.is_alive() for r in fleet.replicas)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent family (tests/test_fleet.py's family_fleet, rwkv6-1.6b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rwkv_pair():
+    f32 = dict(compute_dtype="float32")
+    jcfg = dataclasses.replace(jreduced(jregistry.get("rwkv6-1.6b")), **f32)
+    cfg = dataclasses.replace(reduced(tregistry.get("rwkv6-1.6b")), **f32)
+    jparams = japi.init_params(jcfg, jax.random.key(0))
+    params = rwkv6_params_from_numpy(jax.device_get(jparams), device=CPU)
+    return cfg, params, jcfg, jparams
+
+
+@pytest.fixture(scope="module")
+def rwkv_fleets(rwkv_pair):
+    """One 2-replica rwkv fleet per package (the reference's family_fleet
+    geometry)."""
+    jf, tf = _fleet_pair(rwkv_pair, n_replicas=2)
+    yield jf, tf
+    jf.close()
+    tf.close()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b"])
+def test_family_fleet_matches_single_engine_reference(rwkv_fleets, rwkv_pair,
+                                                      arch):
+    cfg, params, _, _ = rwkv_pair
+    assert cfg.name == arch + "-reduced"
+    tf, reqs = _both(rwkv_fleets, "none")
+    for r, p in zip(reqs, PROMPTS):
+        assert r.output == greedy_reference(cfg, params, p, N_NEW), r.uid
+    assert tf.metrics.released == len(PROMPTS)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b"])
+def test_family_failover_after_kill_is_bit_exact(rwkv_fleets, arch):
+    jf, tf = rwkv_fleets
+    golden = _streams(tf, _serve(T, tf, "none"))
+    tf, reqs = _both(rwkv_fleets, "none",
+                     mid_run=lambda ns, f: f.kill_replica(0))
+    assert tf.replicas[0].state is ReplicaState.DEAD
+    assert tf.metrics.failovers > 0
+    assert _streams(tf, reqs) == golden
+    assert tf.metrics.released == len(PROMPTS)
+
+
+@pytest.mark.parametrize("arch", [
+    pytest.param("rwkv6-1.6b", marks=pytest.mark.slow)])
+def test_proc_fleet_bit_identical_with_failover_family(rwkv_pair, arch):
+    """The recurrent family's process fleet (slow, as in the reference):
+    3 CPU workers release the in-process fleet's streams, also with one
+    SIGKILLed mid-run."""
+    cfg, params = rwkv_pair[:2]
+    prompts = PROMPTS[:3]
+    ref = Fleet(cfg, params, n_replicas=3, policy=Policy.NONE,
+                capacity=2, max_len=96, prefill_pad=8)
+    try:
+        golden = _proc_serve(ref, prompts, 4)
+    finally:
+        ref.close()
+    fleet = Fleet(cfg, params, n_replicas=3, policy=Policy.NONE,
+                  capacity=2, max_len=96, prefill_pad=8, transport="proc")
+    try:
         assert _proc_serve(fleet, prompts, 4) == golden
         assert _proc_serve(fleet, prompts, 4, kill=True) == golden
         assert fleet.metrics.recoveries + fleet.metrics.failovers > 0

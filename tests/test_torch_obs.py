@@ -323,3 +323,130 @@ def test_config_result_timeline_columns_round_trip():
     md = to_markdown([r])
     assert "det. lat ticks (mean/max)" in md
     assert "| 1.5/3 |" in md and "| 2.0/4 |" in md
+
+
+# ---------------------------------------------------------------------------
+# Engine traces of tests/test_obs.py's TRACE_ARCHS, the recurrent one
+# (smollm-135m's cases are in test_torch_serving_scrub.py)
+# ---------------------------------------------------------------------------
+
+TRACE_ARCHS = ["smollm-135m", "rwkv6-1.6b"]
+
+
+@pytest.fixture(scope="module", params=TRACE_ARCHS[1:])
+def traced_pair(request):
+    """reduced(rwkv6-1.6b) in f32, the reference's parameters in both
+    packages."""
+    import dataclasses
+
+    import jax
+    from repro.configs import registry as jregistry
+    from repro.models import api as japi
+    from repro.models.config import reduced as jreduced
+    from repro_torch.configs import registry as tregistry
+    from repro_torch.convert import rwkv6_params_from_numpy
+    from repro_torch.models.config import reduced
+    jax.config.update("jax_platform_name", "cpu")
+    f32 = dict(compute_dtype="float32")
+    jcfg = dataclasses.replace(jreduced(jregistry.get(request.param)), **f32)
+    cfg = dataclasses.replace(reduced(tregistry.get(request.param)), **f32)
+    jparams = japi.init_params(jcfg, jax.random.key(0))
+    return cfg, rwkv6_params_from_numpy(jax.device_get(jparams),
+                                        device="cpu"), jcfg, jparams
+
+
+def _flip_token_buffer(eng, jax_side):
+    """An addressed flip of bit 3 of slot 0's token, in either package."""
+    if jax_side:
+        toks = eng.tokens
+        eng.strike("decode_state", lambda x, k: x.at[0].set(x[0] ^ 8), None)
+        assert eng.tokens is not toks
+    else:
+        from repro_torch.core import fault_injection as fi
+        eng.strike("decode_state",
+                   lambda x, g: fi.flip_bit_at_index(x, 0, 3), None)
+
+
+def _traced_serve(side, pair, *, multi_step=1, rollback=False, **obs):
+    from repro.runtime.serving import Engine as JEngine
+    from repro.runtime.serving import Request as JRequest
+    from repro_torch.runtime.serving import Engine, Request
+    cfg, params, jcfg, jparams = pair
+    jax_side = side == "jax"
+    E, R = (JEngine, JRequest) if jax_side else (Engine, Request)
+    tracer = (jobs.SpanTracer if jax_side else SpanTracer)()
+    eng = E(*((jcfg, jparams) if jax_side else (cfg, params)),
+            capacity=2, max_len=96, prefill_pad=8, multi_step=multi_step,
+            snapshot_every=2 if rollback else 32,
+            state_scrub="rollback" if rollback else "off", tracer=tracer,
+            **obs)
+    reqs = [R(uid=i, prompt=list(p), max_new_tokens=4)
+            for i, p in enumerate([[5, 9, 2], [3, 1, 4, 1], [2, 7]])]
+    for r in reqs:
+        eng.submit(r)
+    if rollback:
+        eng.step()              # both first requests still decoding
+        _flip_token_buffer(eng, jax_side)
+    eng.run()
+    return tracer, [list(r.output) for r in reqs], eng
+
+
+@pytest.mark.parametrize("multi_step,rollback", [(1, False), (4, False),
+                                                 (2, True)],
+                         ids=["per_step", "multi_step", "rollback"])
+def test_recurrent_traces_are_byte_identical(traced_pair, multi_step,
+                                             rollback):
+    tr_a, out_a, _ = _traced_serve("torch", traced_pair,
+                                   multi_step=multi_step, rollback=rollback)
+    tr_b, out_b, _ = _traced_serve("torch", traced_pair,
+                                   multi_step=multi_step, rollback=rollback)
+    assert out_a == out_b and tr_a.to_bytes() == tr_b.to_bytes()
+    tr_j, out_j, _ = _traced_serve("jax", traced_pair,
+                                   multi_step=multi_step, rollback=rollback)
+    assert out_a == out_j and tr_a.to_bytes() == tr_j.to_bytes()
+    spans = [e for e in tr_a.to_chrome_trace()["traceEvents"]
+             if e["ph"] == "X"]
+    assert {e["name"] for e in spans} == {"admit", "prefill", "decode",
+                                          "certify"}
+    certified = [e for e in spans if e["name"] == "certify"]
+    assert len(certified) == 3
+    assert all(e["args"]["certified"] for e in certified)
+    names = [e["name"] for e in tr_a.events if e["ph"] == "i"]
+    assert ("strike" in names and "rollback" in names) == rollback
+
+
+def test_recurrent_tracing_is_a_pure_observer(traced_pair):
+    from repro_torch.runtime.serving import Engine, Request
+    cfg, params = traced_pair[:2]
+    _, traced, _ = _traced_serve("torch", traced_pair, multi_step=2,
+                                 rollback=True)
+    eng = Engine(cfg, params, capacity=2, max_len=96, prefill_pad=8,
+                 multi_step=2, snapshot_every=2, state_scrub="rollback")
+    assert eng.tracer is None
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=4)
+            for i, p in enumerate([[5, 9, 2], [3, 1, 4, 1], [2, 7]])]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    _flip_token_buffer(eng, False)
+    eng.run()
+    assert [list(r.output) for r in reqs] == traced
+
+
+def test_recurrent_engine_metrics_and_events_equal_reference(traced_pair):
+    reg, jreg = Registry(), jobs.Registry()
+    log, jlog = EventLog(policy="ckpt"), jobs.EventLog(policy="ckpt")
+    _, _, eng = _traced_serve("torch", traced_pair, rollback=True,
+                              metrics=reg, event_log=log)
+    _traced_serve("jax", traced_pair, rollback=True, metrics=jreg,
+                  event_log=jlog)
+    snap = reg.snapshot()
+    assert snap["engine_requests_released_total"]["value"] == 3
+    assert snap["engine_tokens_out_total"]["value"] == eng.stats.tokens_out
+    assert json.dumps(snap, sort_keys=True) \
+        == json.dumps(jreg.snapshot(), sort_keys=True)
+    kinds = [e.kind for e in log]
+    assert kinds.count("strike") == 1
+    assert "detection" in kinds and "rollback" in kinds
+    assert json.dumps(log.to_json(wall=False), sort_keys=True) \
+        == json.dumps(jlog.to_json(wall=False), sort_keys=True)

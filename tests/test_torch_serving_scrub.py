@@ -3,7 +3,8 @@
 The decode-state scrub cases of tests/test_serving.py (rollback restores
 the golden stream after a token-buffer or KV-cache strike, detect raises
 one alarm, no false positives on a clean run, a struck snapshot is
-refused, bad modes are rejected), the storage-scrub cases of
+refused, bad modes are rejected, the recurrent family's in-place state
+covered as well), the storage-scrub cases of
 tests/test_policy_map.py (the golden restore, the detect latch, the derived
 schedule) and the ``Engine`` cases of tests/test_obs.py (traces of two
 same-seed runs byte-identical, per step, windowed and across a rollback;
@@ -33,7 +34,8 @@ from repro.runtime.serving import Engine as JEngine
 from repro.runtime.serving import Request as JRequest
 from repro_torch import tree
 from repro_torch.configs import registry as tregistry
-from repro_torch.convert import transformer_params_from_numpy
+from repro_torch.convert import (rwkv6_params_from_numpy,
+                                 transformer_params_from_numpy)
 from repro_torch.core import fault_injection as fi
 from repro_torch.core.dependability import Policy
 from repro_torch.core.policy_map import PolicyMap, PolicyRule
@@ -131,6 +133,35 @@ def test_state_scrub_rollback_restores_golden_stream(served, strike):
     jout, jeng = _serve_with_scrub("jax", served, "rollback", strike)
     assert jout == out
     assert jeng.stats.replays == 1
+
+
+def test_state_scrub_recurrent_family():
+    """Recurrent caches are rewritten in place every step (not append-only):
+    the post-mutation re-checksum covers them.  rwkv6 (reduced, f32) with
+    an addressed flip in the WKV state: one detection, rolled back, the
+    golden stream, as in the reference."""
+    f32 = dict(compute_dtype="float32")
+    jcfg = dataclasses.replace(jreduced(jregistry.get("rwkv6-1.6b")), **f32)
+    cfg = dataclasses.replace(reduced(tregistry.get("rwkv6-1.6b")), **f32)
+    jparams = japi.init_params(jcfg, jax.random.key(0))
+    pair = (cfg, rwkv6_params_from_numpy(jax.device_get(jparams),
+                                         device="cpu"), jcfg, jparams)
+
+    def hit_state(eng, jax_side):
+        f = (_j_flip if jax_side else _t_flip)(1000, 29)
+        if jax_side:
+            eng.cache = eng.cache._replace(tm_s=f(eng.cache.tm_s, None))
+        else:
+            eng.strike("kv_cache", f, None, leaf=("tm_s",))
+
+    golden, _ = _serve_with_scrub("torch", pair, "off")
+    out, eng = _serve_with_scrub("torch", pair, "rollback", hit_state)
+    assert out == golden
+    ev = eng.drain_state_events()
+    assert len(ev) == 1 and ev[0]["recovered"]
+    jout, jeng = _serve_with_scrub("jax", pair, "rollback", hit_state)
+    assert jout == out
+    assert jeng.stats.replays == eng.stats.replays == 1
 
 
 def test_state_scrub_detect_mode_raises_alarm_only(served):

@@ -240,13 +240,17 @@ def test_unported_paths_name_their_roadmap_item():
         tregistry.get("mixtral-8x7b")
     with pytest.raises(KeyError):
         tregistry.get("no-such-arch")
+    # the recurrent families came in (models/rwkv6.py, models/griffin.py)
     assert tregistry.names() == ["llava-next-34b", "musicgen-large",
-                                 "qwen3-0.6b", "smollm-135m"]
+                                 "qwen3-0.6b", "recurrentgemma-2b",
+                                 "rwkv6-1.6b", "smollm-135m"]
     _, tcfg = small()
     moe = dataclasses.replace(tcfg, moe=TMoEConfig(4, 2, 16))
-    for cfg in (moe, dataclasses.replace(tcfg, family="rwkv")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tapi.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tapi.init_params(moe, torch.Generator(), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        tapi.init_params(dataclasses.replace(tcfg, family="cnn"),
+                         torch.Generator(), device="cpu")
     # the int8 KV cache came in: its cache holds int8 pages and f32 scales
     qkv = dataclasses.replace(tcfg, quant_kv=True)
     cache = tapi.init_cache(qkv, 2, max_len=8, device="cpu")
