@@ -156,6 +156,25 @@ Phases, each of which raises on failure:
    streams of one request at a time, a strike on the recurrent state
    healed under ``state_scrub="rollback"``, and no kernel launched; param
    seconds, prefill ms and decode ms/step; within ``REC_BUDGET_S``.
+18. slice 14, the mixture-of-experts transformers (``phase_moe``), weights
+   drawn on the card, W8A8 FFN and experts, bf16, flash prefill:
+   mixtral-8x7b at full width with 4 of its 32 layers, an ``Engine`` of
+   capacity 4 serving 8 requests with prompts of 8–4,608 tokens (one past
+   the 4,096 window) and 16 new tokens under ``cuda`` and ``ref`` (streams
+   equal; row 4 launched 3·8 times per MoE layer per prefill and decode
+   step, row 9 once per layer per prefill), row 9 against its plain
+   version at (1, 32, S, 128)/(1, 8, S, 128) with the window, and the
+   logits of a 4,608-token prefill and 16 decode steps at batch 4 bit for
+   bit equal under ``cuda`` and ``ref``; kimi-k2 at full width with 2 of
+   its 61 layers (the dense layer and one MoE layer of 384 experts and a
+   shared one), a 512-token prefill and 16 decode steps under ``cuda`` and
+   ``ref`` (streams equal, the sampled logits finite and bit for bit
+   equal, row 4 3·384 + 3 per MoE layer and 3 per dense layer per call),
+   rows 7–10 at head dim 112 against their plain versions, f32 and bf16,
+   out equal across rows 7–9; param seconds, prefill ms, decode ms/step, a
+   profiled decode step of each model, row 4 per call at the expert
+   shapes beside its bound, rows 7–10 beside SDPA; peak device memory
+   under 70 GB; within ``MOE_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -1208,16 +1227,20 @@ def phase_qlinear(cfg, gen):
     return launches
 
 
-def phase_time_matmul(cfg, gen, max_err):
-    """CUDA-event times per call at the FFN shapes, beside the plain
-    version, the bound and ``torch._int_mm`` (the library yardstick for the
+def phase_time_matmul(cfg, gen, max_err, shapes=None,
+                      names=MATMUL_REPLACES):
+    """CUDA-event times per call of each row in ``names`` at each (M, K, N)
+    of ``shapes`` (the FFN shapes by default), beside the plain version,
+    the bound and ``torch._int_mm`` (the library yardstick for the
     accumulator, on the decode rows zero-padded to M = 32; the port never
     calls it).  Returns the rows, each row's call and its library call (or
-    None), which ``matmul_device_times`` times again on the device."""
+    None), which ``matmul_row_device_times`` times again on the device."""
     rows, calls, lib_calls = [], [], []
-    for m, k, n in ffn_shapes(cfg):
+    for m, k, n in ffn_shapes(cfg) if shapes is None else shapes:
         case = MatmulCase(gen, m, k, n)
         for name, (kern, plain) in _matmul_kernels().items():
+            if name not in names:
+                continue
             args = case.args(name)
             max_err[name] = max(max_err[name],
                                 _max_err(kern(*args), plain(*args)))
@@ -1308,12 +1331,10 @@ def phase_time_matmul_cold(cfg, gen):
     return out, steps, calls
 
 
-def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
-                        cold_calls):
+def matmul_row_device_times(rows, calls, lib_calls):
     """Device time per call of each matmul row and of its library call, by
     the profiler; each call of rows 4, 5 and 6 must be exactly one device
-    op, its kernel, and each cold call likewise.  Fills ``rows``; returns
-    the cold device times per call."""
+    op, its kernel.  Fills ``rows`` and prints them."""
     for row, call, lib_call in zip(rows, calls, lib_calls):
         ms, ops, names = _device_ops_seen(call, reps=50, per_run=1)
         want = MATMUL_OPS[row["kernel"]]
@@ -1329,14 +1350,6 @@ def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
         row["device_kernel"] = sorted(names)
         row["library_device_ms"] = None if lib_call is None else \
             _device_ops(lib_call, reps=20)[0]
-    cold_dev = {}
-    for name, run in cold_steps.items():
-        ms, ops, names = _device_ops_seen(run, reps=2, per_run=cold_calls)
-        if name != "_int_mm" and not (0.9 * cold_calls <= ops <= cold_calls
-                                      and len(names) == 1):
-            raise AssertionError(f"cold {name}: {ops} device ops per step "
-                                 f"of {cold_calls} calls ({sorted(names)})")
-        cold_dev[name] = None if ms is None else ms / cold_calls
     print("matmul kernel times per call (CUDA events; device time from the "
           "profiler, by kernel name; each call one device op, the row's "
           "kernel):")
@@ -1351,6 +1364,22 @@ def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
               f"  device {dev:>7s} ms {r['device_kernel']}  plain "
               f"{r['plain_ms']:8.3f} ms  bound {r['bound_ms']:8.5f} ms "
               f"({r['bound_by']})  _int_mm {lib}")
+
+
+def matmul_device_times(rows, calls, lib_calls, cold, cold_steps,
+                        cold_calls):
+    """``matmul_row_device_times``, then each cold step's device time per
+    call, by the profiler; each cold call must be one device op, its
+    kernel.  Returns the cold device times per call."""
+    matmul_row_device_times(rows, calls, lib_calls)
+    cold_dev = {}
+    for name, run in cold_steps.items():
+        ms, ops, names = _device_ops_seen(run, reps=2, per_run=cold_calls)
+        if name != "_int_mm" and not (0.9 * cold_calls <= ops <= cold_calls
+                                      and len(names) == 1):
+            raise AssertionError(f"cold {name}: {ops} device ops per step "
+                                 f"of {cold_calls} calls ({sorted(names)})")
+        cold_dev[name] = None if ms is None else ms / cold_calls
     print("matmul cold W, ms per call: " + ", ".join(
         f"{k} events {cold[k]:.5f} device "
         + ("n/m" if cold_dev[k] is None else f"{cold_dev[k]:.5f}")
@@ -1575,6 +1604,45 @@ def flash_compare_cases(gen):
     return cases
 
 
+def _hold_flash(label, case, kernels, max_err, ratio):
+    """The three forward kernels on ``case`` against their plain versions
+    (``_flash_err``), out torch.equal across the three and two launches,
+    csum equal to the recomputed bit checksum, the check column within
+    1e-4 of rowsum_hd; the worst errors into ``max_err`` (per kernel) and
+    ``ratio`` (per dtype)."""
+    from repro_torch.core.abft import output_row_checksums
+    from repro_torch.kernels.flashattn import kernel as FK
+    got = {name: kern(*case.args(), **case.kw)
+           for name, (kern, _) in kernels.items()}
+    again = FK.flash_attention(*case.args(), **case.kw)
+    torch.cuda.synchronize()
+    out = got["flash_attention"]
+    for name, (_, plain) in kernels.items():
+        want = plain(*case.args(), **case.kw)
+        g, w = ((got[name], want) if name == "flash_attention"
+                else (got[name][0], want[0]))
+        err, r = _flash_err(g, w, case.dtype)
+        max_err[name] = max(max_err[name], err)
+        ratio[case.dtype] = max(ratio[case.dtype], r)
+        if name in ("flash_attention_fwd_lse", "flash_attention_checked"):
+            _flash_err(got[name][1], want[1], torch.float32)
+    _, check, csum = got["flash_attention_checked"]
+    lse_out = got["flash_attention_fwd_lse"][0]
+    if not (torch.equal(out, got["flash_attention_checked"][0])
+            and torch.equal(out, lse_out)):
+        raise AssertionError(f"{label}: the three kernels' out differ")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches differ")
+    if not torch.equal(csum, output_row_checksums(out)):
+        raise AssertionError(f"{label}: csum != bit checksum of out")
+    ref_out = out if case.dtype == torch.float32 else FK.flash_attention(
+        *(t.float() for t in case.args()), **case.kw)
+    rows = ref_out.float().sum(dim=-1)
+    if not bool(((check - rows).abs() <= 1e-4 * (1 + rows.abs())).all()):
+        raise AssertionError(f"{label}: check column off rowsum_hd(out) "
+                             f"by {float((check - rows).abs().max())}")
+
+
 def phase_compare_flash(gen) -> dict:
     """Each attention kernel against its plain version on the card; the
     three kernels' out torch.equal to each other and across two launches;
@@ -1582,44 +1650,12 @@ def phase_compare_flash(gen) -> dict:
     1e-4 (rel and abs) of rowsum_hd of the f32 output (for bf16, of the
     f32 kernel on the same values upcast: the check column is kept in f32
     and never sees out's bf16 rounding)."""
-    from repro_torch.core.abft import output_row_checksums
-    from repro_torch.kernels.flashattn import kernel as FK
     kernels = _flash_kernels()
     max_err = {name: 0.0 for name in FLASH_REPLACES}
     ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = flash_compare_cases(gen)
     for label, case in cases:
-        got = {name: kern(*case.args(), **case.kw)
-               for name, (kern, _) in kernels.items()}
-        again = FK.flash_attention(*case.args(), **case.kw)
-        torch.cuda.synchronize()
-        out = got["flash_attention"]
-        for name, (_, plain) in kernels.items():
-            want = plain(*case.args(), **case.kw)
-            g, w = ((got[name], want) if name == "flash_attention"
-                    else (got[name][0], want[0]))
-            err, r = _flash_err(g, w, case.dtype)
-            max_err[name] = max(max_err[name], err)
-            ratio[case.dtype] = max(ratio[case.dtype], r)
-            if name == "flash_attention_fwd_lse":
-                _flash_err(got[name][1], want[1], torch.float32)
-            if name == "flash_attention_checked":
-                _flash_err(got[name][1], want[1], torch.float32)
-        _, check, csum = got["flash_attention_checked"]
-        lse_out = got["flash_attention_fwd_lse"][0]
-        if not (torch.equal(out, got["flash_attention_checked"][0])
-                and torch.equal(out, lse_out)):
-            raise AssertionError(f"{label}: the three kernels' out differ")
-        if not torch.equal(out, again):
-            raise AssertionError(f"{label}: two launches differ")
-        if not torch.equal(csum, output_row_checksums(out)):
-            raise AssertionError(f"{label}: csum != bit checksum of out")
-        ref_out = out if case.dtype == torch.float32 else FK.flash_attention(
-            *(t.float() for t in case.args()), **case.kw)
-        rows = ref_out.float().sum(dim=-1)
-        if not bool(((check - rows).abs() <= 1e-4 * (1 + rows.abs())).all()):
-            raise AssertionError(f"{label}: check column off rowsum_hd(out) "
-                                 f"by {float((check - rows).abs().max())}")
+        _hold_flash(label, case, kernels, max_err, ratio)
     # the bf16 kernels copy 16-byte chunks: an input 2 bytes off raises
     q = torch.zeros(1 + 2 * 64 * 16, dtype=torch.bfloat16,
                     device=DEVICE)[1:].view(1, 2, 64, 16)
@@ -1837,39 +1873,77 @@ def phase_dependable_attention(fcfg, params):
     return launches
 
 
-def phase_time_flash(gen, max_err):
-    """CUDA-event ms per call of each kernel at the serving shape (1, 9, S,
-    64)/(1, 3, S, 64) bf16, S in 64, 256, 1024, and at the training shape
-    (8, 9, 1024, 64)/(8, 3, 1024, 64), beside its plain version, its bound
-    and, for the kernels that have one, scaled_dot_product_attention (the
-    library yardstick; the port never calls it)."""
+def _flash_time_shapes():
+    """(B, H, KV, S, hd, window) timed on the main path: the serving shape
+    (1, 9, S, 64)/(1, 3, S, 64), S in FLASH_TIME_S, and the training shape
+    (8, 9, 1024, 64)/(8, 3, 1024, 64)."""
+    return [(1, 9, 3, s, 64, None) for s in FLASH_TIME_S] + \
+        [(TRAIN_BATCH, 9, 3, TRAIN_SEQ, 64, None)]
+
+
+def _shape_text(r):
+    window = "" if r["window"] is None else f" window {r['window']}"
+    return (f"({r['B']}, {r['H']}, {r['S']}, {r['hd']})/({r['B']}, "
+            f"{r['KV']}, {r['S']}, {r['hd']}){window}")
+
+
+def phase_time_flash(gen, max_err, shapes=None, names=FLASH_REPLACES,
+                     reps=50):
+    """CUDA-event ms per call of each kernel in ``names`` at each (B, H,
+    KV, S, hd, window) of ``shapes`` (``_flash_time_shapes`` by default),
+    bf16, beside its plain version, its bound and, for the kernels that
+    have one, scaled_dot_product_attention (the library yardstick; the port
+    never calls it; none with a window, which it does not take)."""
     sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
                              is_causal=True, enable_gqa=True)
     rows, calls = [], []
-    for b, s in [(1, s) for s in FLASH_TIME_S] + [(TRAIN_BATCH, TRAIN_SEQ)]:
-        case = FlashCase(gen, b, 9, 3, s, 64, torch.bfloat16)
+    for b, h, kv, s, hd, window in shapes or _flash_time_shapes():
+        case = FlashCase(gen, b, h, kv, s, hd, torch.bfloat16, window=window)
+        args = case.args()
         for name, (kern, plain) in _flash_kernels().items():
-            args = case.args()
-            got, want = kern(*args), plain(*args)
+            if name not in names:
+                continue
+            call = functools.partial(kern, *args, **case.kw)
+            plain_call = functools.partial(plain, *args, **case.kw)
+            got, want = call(), plain_call()
             g, w = (got, want) if name == "flash_attention" \
                 else (got[0], want[0])
             max_err[name] = max(max_err[name],
                                 _flash_err(g, w, torch.bfloat16)[0])
-            ms = _time_ms(lambda: kern(*args), reps=50)
-            plain_ms = _time_ms(lambda: plain(*args), reps=10, warmup=1)
-            lib_ms = None
-            if name != "flash_attention_checked":
-                lib_ms = _time_ms(lambda: sdpa(*args), reps=50)
+            ms = _time_ms(call, reps=reps)
+            plain_ms = _time_ms(plain_call, reps=max(2, reps // 5), warmup=1)
+            lib = None if window is not None \
+                or name == "flash_attention_checked" \
+                else functools.partial(sdpa, *args)
+            lib_ms = None if lib is None else _time_ms(lib, reps=reps)
             bound, by = case.bound_ms(name)
-            rows.append({"B": b, "S": s, "kernel": name, "ms": ms,
+            rows.append({"B": b, "H": h, "KV": kv, "S": s, "hd": hd,
+                         "window": window, "kernel": name, "ms": ms,
                          "device_ms": None, "plain_ms": plain_ms,
                          "bound_ms": bound,
                          "bound_by": by, "library_ms": lib_ms,
                          "library_device_ms": None})
-            calls.append((functools.partial(kern, *args),
-                          None if lib_ms is None
-                          else functools.partial(sdpa, *args)))
+            calls.append((call, lib))
     return rows, calls
+
+
+def flash_device_times(rows, calls, reps=20):
+    """Each forward call's and SDPA's device time from the profiler, filled
+    into ``rows``; prints the rows."""
+    for row, (call, lib) in zip(rows, calls):
+        row["device_ms"] = _device_ms(call, reps=reps, match="flash_fwd")
+        if lib is not None:
+            row["library_device_ms"] = _device_ms(lib, reps=reps, match=None)
+    print("attention kernel times per call, bf16 (CUDA events; device time "
+          "from the profiler):")
+    for r in rows:
+        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (device "
+            f"{r['library_device_ms'] or float('nan'):.4f})")
+        print(f"  {_shape_text(r)} {r['kernel']:24s} {r['ms']:8.4f} ms  "
+              f"device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
+              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa {lib}")
 
 
 def phase_prefill_flash(cfg, fcfg, params):
@@ -1900,8 +1974,7 @@ def phase_prefill_flash(cfg, fcfg, params):
 
 def phase_profile_flash(fcfg, params, rows, calls):
     """The device busy time and idle share of one flash prefill at S = 64
-    and 1024 under torch.profiler; then each kernel call's and SDPA's
-    device time, filled into ``rows``."""
+    and 1024 under torch.profiler; then ``flash_device_times``."""
     from repro_torch.models import api
     out = {}
     for s in (64, 1024):
@@ -1918,20 +1991,7 @@ def phase_profile_flash(fcfg, params, rows, calls):
               f"{w['idle_share']:.3f}, {w['ops']:.0f} device ops/prefill")
         for kname, v in w["top"]:
             print(f"    {v:8.4f} ms  {kname}")
-    for row, (call, lib) in zip(rows, calls):
-        row["device_ms"] = _device_ms(call, reps=20, match="flash_fwd")
-        if lib is not None:
-            row["library_device_ms"] = _device_ms(lib, reps=20, match=None)
-    print("attention kernel times per call at (B, 9, S, 64)/(B, 3, S, 64) "
-          "bf16 (CUDA events; device time from the profiler):")
-    for r in rows:
-        dev = "n/m" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
-        lib = "-" if r["library_ms"] is None else (
-            f"{r['library_ms']:.4f} ms (device "
-            f"{r['library_device_ms'] or float('nan'):.4f})")
-        print(f"  B {r['B']} S {r['S']:5d} {r['kernel']:24s} {r['ms']:8.4f} "
-              f"ms  device {dev:>7s} ms  plain {r['plain_ms']:8.3f} ms  bound "
-              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa {lib}")
+    flash_device_times(rows, calls)
     return out
 
 
@@ -1978,13 +2038,35 @@ def _bwd_check(got, want, dtype):
     return float(err.max()), float((err / lim).max())
 
 
+def _hold_flash_bwd(label, case, gen, ratio) -> float:
+    """Row 10 on ``case`` against its plain version (``_bwd_check``) and
+    across two launches; returns the max abs error, the worst error /
+    limit into ``ratio`` (per dtype)."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    inputs = _bwd_inputs(case, gen)
+    got = FK.flash_attention_bwd(*inputs, **case.kw)
+    again = FK.flash_attention_bwd(*inputs, **case.kw)
+    torch.cuda.synchronize()
+    want = FR.flash_bwd_plain(*inputs, **case.kw)
+    max_err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}")
+        err, r = _bwd_check(g, w, case.dtype)
+        max_err = max(max_err, err)
+        ratio[case.dtype] = max(ratio[case.dtype], r)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two backward launches differ")
+    return max_err
+
+
 def phase_compare_flash_bwd(gen) -> dict:
     """Row 10 against its plain version on the card, f32 and bf16, at the
     attention compare cases and the training shape (8, 9, 1024, 64)/(8, 3,
     1024, 64); two launches torch.equal; the worst error / limit ratio per
     dtype printed."""
-    from repro_torch.kernels.flashattn import kernel as FK
-    from repro_torch.kernels.flashattn import ref as FR
     cases = [(f"train_{tag}", FlashCase(gen, TRAIN_BATCH, 9, 3, TRAIN_SEQ,
                                         64, dt))
              for tag, dt in (("f32", torch.float32),
@@ -1992,20 +2074,7 @@ def phase_compare_flash_bwd(gen) -> dict:
     cases += flash_compare_cases(gen)
     max_err, ratio = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
     for label, case in cases:
-        inputs = _bwd_inputs(case, gen)
-        got = FK.flash_attention_bwd(*inputs, **case.kw)
-        again = FK.flash_attention_bwd(*inputs, **case.kw)
-        torch.cuda.synchronize()
-        want = FR.flash_bwd_plain(*inputs, **case.kw)
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise AssertionError(f"{label}: {name} {g.dtype} "
-                                     f"{tuple(g.shape)}")
-            err, r = _bwd_check(g, w, case.dtype)
-            max_err = max(max_err, err)
-            ratio[case.dtype] = max(ratio[case.dtype], r)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"{label}: two backward launches differ")
+        max_err = max(max_err, _hold_flash_bwd(label, case, gen, ratio))
     print(f"compare: {len(cases)} backward cases (training shape, prefill "
           f"shapes, hd 16-128, GQA, window, non-causal, random) within "
           f"tolerance of the plain version (f32 5e-5, bf16 one step + 5e-5); "
@@ -2233,53 +2302,82 @@ def phase_train_time(tcfg, shape):
             "tokens_per_s": tokens / (ms / 1e3), "peak_gib": peak}, run
 
 
-def phase_time_bwd(gen, max_err):
-    """CUDA-event ms per call of row 10 at (1, 9, 1024, 64) and the
-    training shape (8, 9, 1024, 64), bf16, beside its plain version, its
-    bound and SDPA's backward (the library yardstick, timed on k/v already
-    expanded to 9 heads so that the flash backend takes it; the port never
-    calls it)."""
+def phase_time_bwd(gen, max_err, shapes=None, reps=20):
+    """CUDA-event ms per call of row 10 at each (B, H, KV, S, hd, window)
+    of ``shapes`` (by default (1, 9, 1024, 64) and the training shape (8,
+    9, 1024, 64)), bf16, beside its plain version, its bound and SDPA's
+    backward (the library yardstick, timed on k/v already expanded to H
+    heads so that the flash backend takes it; none with a window; the port
+    never calls it)."""
     from repro_torch.kernels.flashattn import kernel as FK
     from repro_torch.kernels.flashattn import ref as FR
     rows, calls = [], []
-    for b in (1, TRAIN_BATCH):
-        case = FlashCase(gen, b, 9, 3, TRAIN_SEQ, 64, torch.bfloat16)
+    for b, h, kv, s, hd, window in shapes or [
+            (b, 9, 3, TRAIN_SEQ, 64, None) for b in (1, TRAIN_BATCH)]:
+        case = FlashCase(gen, b, h, kv, s, hd, torch.bfloat16, window=window)
         inputs = _bwd_inputs(case, gen)
-        for g, w in zip(FK.flash_attention_bwd(*inputs),
-                        FR.flash_bwd_plain(*inputs)):
+        call = functools.partial(FK.flash_attention_bwd, *inputs, **case.kw)
+        plain_call = functools.partial(FR.flash_bwd_plain, *inputs, **case.kw)
+        for g, w in zip(call(), plain_call()):
             max_err["flash_attention_bwd"] = max(
                 max_err["flash_attention_bwd"],
                 _bwd_check(g, w, torch.bfloat16)[0])
-        ms = _time_ms(lambda: FK.flash_attention_bwd(*inputs), reps=20)
-        plain_ms = _time_ms(lambda: FR.flash_bwd_plain(*inputs), reps=3,
-                            warmup=1)
-        q, k, v, _, _, do = inputs
-        qs, ks, vs = (t.detach().requires_grad_() for t in
-                      (q, k.repeat_interleave(3, dim=1),
-                       v.repeat_interleave(3, dim=1)))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)
+        ms = _time_ms(call, reps=reps)
+        plain_ms = _time_ms(plain_call, reps=3, warmup=1)
+        sdpa_bwd, lib_ms = None, None
+        if window is None:
+            q, k, v, _, _, do = inputs
+            qs, ks, vs = (t.detach().requires_grad_() for t in
+                          (q, k.repeat_interleave(h // kv, dim=1),
+                           v.repeat_interleave(h // kv, dim=1)))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)
 
-        def sdpa_bwd():
-            return torch.autograd.grad(out, (qs, ks, vs), do,
-                                       retain_graph=True)
-        lib_ms = _time_ms(sdpa_bwd, reps=20)
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (qs, ks, vs), do,
+                                           retain_graph=True)
+            lib_ms = _time_ms(sdpa_bwd, reps=reps)
         bound, by = case.bwd_bound_ms()
-        rows.append({"B": b, "kernel": "flash_attention_bwd", "ms": ms,
-                     "device_ms": None, "dq_device_ms": None,
+        rows.append({"B": b, "H": h, "KV": kv, "S": s, "hd": hd,
+                     "window": window, "kernel": "flash_attention_bwd",
+                     "ms": ms, "device_ms": None, "dq_device_ms": None,
                      "dkv_device_ms": None, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                      "library_device_ms": None})
-        calls.append((functools.partial(FK.flash_attention_bwd, *inputs),
-                      sdpa_bwd))
+        calls.append((call, sdpa_bwd))
     return rows, calls
+
+
+def bwd_device_times(rows, calls, reps=10):
+    """Row 10's device time per call (its whole call, the dvec op
+    included, and its dQ and dK/dV kernels apart) and SDPA backward's, from
+    the profiler, filled into ``rows``; prints the rows."""
+    for row, (call, lib) in zip(rows, calls):
+        row["device_ms"] = _device_ms(call, reps=reps, match=None)
+        row["dq_device_ms"] = _device_ms(call, reps=reps, match="flash_bwd_dq")
+        row["dkv_device_ms"] = _device_ms(call, reps=reps,
+                                          match="flash_bwd_dkv")
+        if lib is not None:
+            row["library_device_ms"] = _device_ms(lib, reps=reps, match=None)
+    print("backward per call, bf16 (CUDA events; device time from the "
+          "profiler, dvec op included):")
+
+    def n_m(x):
+        return "n/m" if x is None else f"{x:.4f}"
+    for r in rows:
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (device "
+            f"{n_m(r['library_device_ms'])})")
+        print(f"  {_shape_text(r)} {r['kernel']:20s} {r['ms']:8.4f} ms  "
+              f"device {n_m(r['device_ms']):>7s} ms (dQ "
+              f"{n_m(r['dq_device_ms'])}, dK/dV {n_m(r['dkv_device_ms'])})  "
+              f"plain {r['plain_ms']:8.3f} ms  bound {r['bound_ms']:8.5f} ms "
+              f"({r['bound_by']})  sdpa bwd {lib}")
 
 
 def phase_profile_train(run, rows, calls):
     """One train step under torch.profiler: device busy ms, idle share,
-    device ops per step, top entries; then row 10's and SDPA backward's
-    device time per call, filled into ``rows``: row 10's whole call (the
-    dvec op included) and its dQ and dK/dV kernels apart."""
+    device ops per step, top entries; then ``bwd_device_times``."""
     w = _profile_window(run, reps=1)
     if w is None:
         print("profile train step: the profiler saw no device time "
@@ -2290,26 +2388,7 @@ def phase_profile_train(run, rows, calls):
               f"{w['ops']:.0f} device ops/step")
         for kname, v in w["top"]:
             print(f"    {v:8.4f} ms  {kname}")
-    for row, (call, lib) in zip(rows, calls):
-        row["device_ms"] = _device_ms(call, reps=10, match=None)
-        row["dq_device_ms"] = _device_ms(call, reps=10, match="flash_bwd_dq")
-        row["dkv_device_ms"] = _device_ms(call, reps=10,
-                                          match="flash_bwd_dkv")
-        row["library_device_ms"] = _device_ms(lib, reps=10, match=None)
-    print("backward per call at (B, 9, 1024, 64)/(B, 3, 1024, 64) bf16 "
-          "(CUDA events; device time from the profiler, dvec op "
-          "included):")
-
-    def n_m(x):
-        return "n/m" if x is None else f"{x:.4f}"
-    for r in rows:
-        print(f"  B {r['B']} {r['kernel']:20s} {r['ms']:8.4f} ms  device "
-              f"{n_m(r['device_ms']):>7s} ms (dQ {n_m(r['dq_device_ms'])}, "
-              f"dK/dV {n_m(r['dkv_device_ms'])})  plain "
-              f"{r['plain_ms']:8.3f} ms  bound "
-              f"{r['bound_ms']:8.5f} ms ({r['bound_by']})  sdpa bwd "
-              f"{r['library_ms']:.4f} ms (device "
-              f"{r['library_device_ms'] or float('nan'):.4f})")
+    bwd_device_times(rows, calls)
     return w
 
 
@@ -3940,6 +4019,387 @@ def phase_recurrent(card: str) -> dict:
     return out
 
 
+# slice 14: the mixture-of-experts transformers on one card
+MOE_MIXTRAL_LAYERS = 4             # depth cut: 4 of 32 layers, full width
+MOE_KIMI_LAYERS = 2                # its dense layer and one MoE layer of 61
+MOE_CAPACITY = 4
+MOE_PROMPTS = (8, 40, 200, 512, 1000, 2048, 3000, 4608)   # 4608 > window
+MOE_PREFILL_PAD = 64
+MOE_MAX_NEW = 16
+MOE_KIMI_PROMPT = 512
+MOE_STEPS = 16                     # kimi's decode steps; timed steps of both
+MOE_TIME_REPS = 20                 # row 9 and SDPA calls per timing
+MOE_PEAK_BYTES = 70e9              # torch.cuda.max_memory_allocated limit
+MOE_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse")
+MOE_BUDGET_S = 100                 # the phase's share of the limit
+
+
+def _moe_configs():
+    """(mixtral-8x7b at MOE_MIXTRAL_LAYERS, kimi-k2 at MOE_KIMI_LAYERS),
+    full width, W8A8 FFN and experts, bf16, flash prefill."""
+    from repro_torch.configs import registry
+    kw = dict(quant="w8a8_ffn", attn_impl="flash")
+    return (dataclasses.replace(registry.get("mixtral-8x7b"),
+                                n_layers=MOE_MIXTRAL_LAYERS, **kw),
+            dataclasses.replace(registry.get("kimi-k2-1t-a32b"),
+                                n_layers=MOE_KIMI_LAYERS, **kw))
+
+
+def _moe_row4_per_call(cfg) -> int:
+    """qmatmul_acc launches of one forward call over a token batch (a
+    prefill or a decode step): 3 per dense layer, and per MoE layer 3 per
+    routed expert (every expert, empty ones too) plus 3 for the shared
+    experts' one matrix."""
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.n_dense_layers
+    return 3 * m.n_dense_layers + n_moe * (3 * m.n_experts
+                                           + 3 * (m.n_shared_experts > 0))
+
+
+def _moe_params(cfg):
+    """Seeded weights drawn on the card (a CUDA generator: on the host,
+    mixtral's 6 B parameters at 4 layers would take tens of seconds);
+    returns (params, seconds)."""
+    from repro_torch.models import api
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator(device=DEVICE)
+                             .manual_seed(14), device=DEVICE)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def _moe_row4_at_experts(cfg, gen, tokens, failed):
+    """Row 4 at the routed expert products of one prefill and one decode
+    step, (M, K, N) with M the capacity of the ``tokens`` routed tokens:
+    bit for bit against its plain version and ``torch._int_mm``, CUDA-event
+    and device ms per call beside its bound.  Returns the rows."""
+    from repro_torch.models import transformer as T
+    d, de = cfg.d_model, cfg.moe.d_expert
+    shapes = [(T.capacity(cfg.moe, n), k, nn) for n in tokens
+              for k, nn in ((d, de), (de, d))]
+    err = {"qmatmul_acc": 0}
+    rows, calls, lib_calls = phase_time_matmul(
+        cfg, gen, err, shapes=shapes, names=("qmatmul_acc",))
+    matmul_row_device_times(rows, calls, lib_calls)
+    if err["qmatmul_acc"]:
+        failed.append(f"row 4 at the expert shapes of {cfg.name}: max abs "
+                      f"err {err['qmatmul_acc']}")
+    return rows
+
+
+def _moe_decode_profile(name, cfg, params, tok, cache):
+    """One decode step under the profiler (``_profile_window``, 3 steps):
+    wall and device busy ms, idle share, device ops, the top entries."""
+    from repro_torch.models import api
+    with torch.no_grad():
+        w = _profile_window(lambda: api.decode_step(cfg, params, tok, cache),
+                            reps=3)
+    if w is None:
+        print(f"moe: profile {name} decode step: the profiler saw no device "
+              f"time (not measured)")
+        return None
+    print(f"moe: profile {name} decode step at batch {tok.shape[0]}: wall "
+          f"{w['wall_ms']:.3f} ms, device busy {w['busy_ms']:.3f} ms, idle "
+          f"share {w['idle_share']:.3f}, {w['ops']:.0f} device ops/step")
+    for kname, v in w["top"]:
+        print(f"    {v:8.4f} ms  {kname}")
+    return w
+
+
+def _moe_mixtral(cfg, gen, failed):
+    """mixtral-8x7b: an Engine of capacity MOE_CAPACITY serves
+    MOE_PROMPTS under the ``cuda`` and ``ref`` backends (streams equal,
+    rows 4 and 9 launched as derived: ``_moe_row4_per_call`` per prefill
+    and decode step, n_layers fwd_lse per prefill); the logits of a prefill
+    at the longest prompt and of MOE_STEPS decode steps at batch
+    MOE_CAPACITY bit for bit equal under both (row 4 at the expert shapes
+    through the model); row 9 against ``flash_plain`` at its attention
+    shape with the 4,096 window; prefill ms at the longest prompt, decode
+    ms/step at full capacity, a profiled decode step and row 4 per call at
+    the expert shapes."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    from repro_torch.models import api
+    from repro_torch.runtime.serving import Engine, Request
+    params, init_s = _moe_params(cfg)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                             device=DEVICE).tolist() for n in MOE_PROMPTS]
+    max_len = max(MOE_PROMPTS) + MOE_MAX_NEW + 1
+    runs = {}
+    for backend in ("cuda", "ref"):
+        eng = Engine(api.with_backend(cfg, backend), params,
+                     capacity=MOE_CAPACITY, max_len=max_len,
+                     prefill_pad=MOE_PREFILL_PAD)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=MOE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = _campaign_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            eng.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = _campaign_launches()
+        calls = len(reqs) + eng.stats.steps
+        want = {"qmatmul_acc": _moe_row4_per_call(cfg) * calls
+                if backend == "cuda" else 0,
+                "flash_attention_fwd_lse": cfg.n_layers * len(reqs)}
+        got = {k: after[k] - before[k] for k in want}
+        done = all(len(r.output or ()) == MOE_MAX_NEW for r in reqs)
+        runs[backend] = {"streams": [list(r.output or ()) for r in reqs],
+                         "steps": eng.stats.steps, "wall_s": secs,
+                         "launches": got, "derived": want,
+                         "as_derived": got == want and done}
+    same = runs["cuda"]["streams"] == runs["ref"]["streams"]
+    launched = all(r["as_derived"] for r in runs.values())
+    # the logits of a prefill at the longest prompt (each expert's M = its
+    # capacity) and of MOE_STEPS decode steps at batch MOE_CAPACITY (M = 4),
+    # bit for bit under both backends: ``ref`` forms each integer product
+    # exactly, and the rest of the path is the same code
+    step_toks = torch.randint(0, cfg.vocab_size, (MOE_STEPS, MOE_CAPACITY),
+                              generator=gen, device=DEVICE)
+    logits, timed = {}, {}
+    for backend in ("cuda", "ref"):
+        bcfg = api.with_backend(cfg, backend)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = api.prefill(bcfg, params, torch.tensor(
+                [prompts[-1]], device=DEVICE), max_len)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bc = api.init_cache(cfg, MOE_CAPACITY, max_len, device=DEVICE)
+            steps = []
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for tok in step_toks:
+                step, bc = api.decode_step(bcfg, params, tok, bc)
+                steps.append(step)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        logits[backend] = (lg, torch.stack(steps))
+        timed[backend] = ((t1 - t0) * 1e3, (t3 - t2) * 1e3 / MOE_STEPS)
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(logits["cuda"], logits["ref"]))
+    finite = all(bool(torch.isfinite(t).all()) for t in logits["cuda"])
+    del logits
+    prefill_ms, decode_ms = timed["cuda"]
+    profile = _moe_decode_profile("mixtral-8x7b", api.with_backend(
+        cfg, "cuda"), params, step_toks[0], bc)
+    del params, bc
+    torch.cuda.empty_cache()
+    row4 = _moe_row4_at_experts(cfg, gen, (MOE_CAPACITY, max(MOE_PROMPTS)),
+                                failed)
+    # row 9 at mixtral's attention shape, windowed, and off the 64-row tiles
+    hd, H, KV, W = (cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.swa_window)
+    ratio, seqs = 0.0, (max(MOE_PROMPTS), max(MOE_PROMPTS) - 37)
+    for length in seqs:
+        q = torch.randn((1, H, length, hd), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn((1, KV, length, hd), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        got = FK.flash_attention_fwd_lse(q, k, v, window=W)
+        ref = FR.flash_plain(q, k, v, window=W, emit="lse")
+        ratio = max(ratio, _flash_err(got[0], ref[0], torch.bfloat16)[1],
+                    _flash_err(got[1], ref[1], torch.float32)[1])
+    fl_rows, fl_calls = phase_time_flash(
+        gen, {"flash_attention_fwd_lse": 0.0},
+        shapes=[(1, H, KV, seqs[-1], hd, W)],
+        names=("flash_attention_fwd_lse",), reps=MOE_TIME_REPS)
+    flash_device_times(fl_rows, fl_calls, reps=MOE_TIME_REPS)
+    flash = fl_rows[0]
+    ok = same and launched and bitwise and finite
+    r = runs["cuda"]
+    print(f"moe: mixtral-8x7b (depth cut to {cfg.n_layers} of 32 layers; d "
+          f"{cfg.d_model}, {H}/{KV} heads of {hd}, {cfg.moe.n_experts} "
+          f"experts top-{cfg.moe.top_k} of {cfg.moe.d_expert}, window {W}, "
+          f"vocab {cfg.vocab_size}), W8A8 FFN and experts, bf16, flash; "
+          f"params on the card in {init_s:.2f} s; Engine capacity "
+          f"{MOE_CAPACITY}, prompts {list(MOE_PROMPTS)}, {MOE_MAX_NEW} new: "
+          f"streams cuda == ref: {same} ({r['steps']} steps, cuda "
+          f"{r['wall_s']:.2f} s, ref {runs['ref']['wall_s']:.2f} s); "
+          f"launches cuda {r['launches']}, ref {runs['ref']['launches']} = "
+          f"derived ({_moe_row4_per_call(cfg)} row-4 launches per prefill "
+          f"and decode step): {launched}; logits of a prefill at S "
+          f"{len(prompts[-1])} and {MOE_STEPS} decode steps at batch "
+          f"{MOE_CAPACITY} equal bit for bit under cuda and ref: {bitwise}, "
+          f"finite: {finite}; fwd_lse against flash_plain at "
+          f"(1, {H}, S, {hd})/(1, {KV}, S, {hd}), window {W}, S "
+          f"{list(seqs)}: worst error / limit {ratio:.4f}; prefill S "
+          f"{len(prompts[-1])} {prefill_ms:.2f} ms, decode {decode_ms:.2f} "
+          f"ms/step at batch {MOE_CAPACITY}; row 9 at S {seqs[-1]} "
+          f"{flash['ms']:.4f} ms (device {flash['device_ms']})"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("mixtral-8x7b")
+    return {"layers": cfg.n_layers, "init_s": init_s,
+            "streams_equal": same, "launches_as_derived": launched,
+            "logits_bitwise": bitwise, "finite": finite,
+            "decode_profile": profile, "row4_experts": row4,
+            "runs": {b: {k: v for k, v in run.items() if k != "streams"}
+                     for b, run in runs.items()},
+            "flash_ratio": ratio, "flash_seqs": list(seqs),
+            "row9": flash, "prefill_ms": prefill_ms,
+            "prefill_len": len(prompts[-1]), "decode_ms_per_step": decode_ms,
+            "row4_per_call": _moe_row4_per_call(cfg)}
+
+
+def _moe_kimi(cfg, gen, failed):
+    """kimi-k2-1t-a32b: a MOE_KIMI_PROMPT-token prefill and MOE_STEPS
+    greedy decode steps under ``cuda`` and ``ref`` (streams equal, the
+    sampled logits finite and bit for bit equal, rows 4 and 9 as derived),
+    a profiled decode step and row 4 per call at the expert shapes; rows
+    7-10 at its attention shape (hd 112) against their plain versions, f32
+    and bf16, out equal across rows 7-9; their times beside SDPA's."""
+    from repro_torch.models import api
+    params, init_s = _moe_params(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, MOE_KIMI_PROMPT),
+                         generator=gen, device=DEVICE)
+    runs = {}
+    for backend in ("cuda", "ref"):
+        bcfg = api.with_backend(cfg, backend)
+        before = _campaign_launches()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = api.prefill(bcfg, params, toks,
+                                        MOE_KIMI_PROMPT + MOE_STEPS)
+            out = [logits[:, -1]]
+            tokens = [torch.argmax(logits[:, -1], dim=-1)]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(MOE_STEPS):
+                lg, cache = api.decode_step(bcfg, params, tokens[-1], cache)
+                out.append(lg)
+                tokens.append(torch.argmax(lg, dim=-1))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        after = _campaign_launches()
+        calls = 1 + MOE_STEPS
+        want = {"qmatmul_acc": _moe_row4_per_call(cfg) * calls
+                if backend == "cuda" else 0,
+                "flash_attention_fwd_lse": cfg.n_layers}
+        got = {k: after[k] - before[k] for k in want}
+        runs[backend] = {
+            "stream": torch.stack(tokens, dim=1).cpu().tolist(),
+            "logits": torch.stack(out),
+            "finite": bool(torch.isfinite(torch.stack(out)).all()),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / MOE_STEPS,
+            "launches": got, "as_derived": got == want}
+    same = runs["cuda"]["stream"] == runs["ref"]["stream"]
+    bitwise = torch.equal(runs["cuda"].pop("logits"),
+                          runs["ref"].pop("logits"))
+    finite = all(r["finite"] for r in runs.values())
+    launched = all(r["as_derived"] for r in runs.values())
+    profile = _moe_decode_profile("kimi-k2-1t-a32b", api.with_backend(
+        cfg, "cuda"), params, tokens[-1], cache)
+    del params, cache
+    torch.cuda.empty_cache()
+    row4 = _moe_row4_at_experts(cfg, gen, (1, MOE_KIMI_PROMPT), failed)
+    # rows 7-10 at kimi's attention shape, hd 112
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    kernels = _flash_kernels()
+    max_err = {name: 0.0 for name in (*FLASH_REPLACES, *BWD_REPLACES)}
+    ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bwd_ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for s in (MOE_KIMI_PROMPT, MOE_KIMI_PROMPT - 37):
+        for dt in (torch.float32, torch.bfloat16):
+            case = FlashCase(gen, 1, H, KV, s, hd, dt)
+            label = f"kimi_hd{hd}_S{s}_{dt}"
+            _hold_flash(label, case, kernels, max_err, ratio)
+            max_err["flash_attention_bwd"] = max(
+                max_err["flash_attention_bwd"],
+                _hold_flash_bwd(label, case, gen, bwd_ratio))
+    shape = [(1, H, KV, MOE_KIMI_PROMPT, hd, None)]
+    fl_rows, fl_calls = phase_time_flash(gen, max_err, shapes=shape,
+                                         reps=MOE_TIME_REPS)
+    bwd_rows, bwd_calls = phase_time_bwd(gen, max_err, shapes=shape,
+                                         reps=MOE_TIME_REPS)
+    flash_device_times(fl_rows, fl_calls, reps=MOE_TIME_REPS)
+    bwd_device_times(bwd_rows, bwd_calls)
+    flash = next(r for r in fl_rows
+                 if r["kernel"] == "flash_attention_fwd_lse")
+    ok = same and bitwise and finite and launched
+    r = runs["cuda"]
+    print(f"moe: kimi-k2-1t-a32b (depth cut to {cfg.n_layers} of 61 layers: "
+          f"its dense layer and one MoE layer; d {cfg.d_model}, {H}/{KV} "
+          f"heads of {hd}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+          f"of {cfg.moe.d_expert} + {cfg.moe.n_shared_experts} shared, "
+          f"vocab {cfg.vocab_size}), W8A8 FFN and experts, bf16, flash; "
+          f"params on the card in {init_s:.2f} s; prefill S "
+          f"{MOE_KIMI_PROMPT} {r['prefill_ms']:.2f} ms, decode "
+          f"{r['decode_ms_per_step']:.2f} ms/step ({_moe_row4_per_call(cfg)}"
+          f" row-4 launches per step); streams cuda == ref: {same}; the "
+          f"{1 + MOE_STEPS} sampled logits equal bit for bit: {bitwise}, "
+          f"finite: {finite}; launches cuda {r['launches']}, ref "
+          f"{runs['ref']['launches']} = derived: {launched}; rows 7-9 at "
+          f"(1, {H}, S, {hd})/(1, {KV}, S, {hd}), S {MOE_KIMI_PROMPT} and "
+          f"{MOE_KIMI_PROMPT - 37}: out equal across the three, worst "
+          f"error / limit f32 {ratio[torch.float32]:.4f}, bf16 "
+          f"{ratio[torch.bfloat16]:.4f}; row 10 f32 "
+          f"{bwd_ratio[torch.float32]:.4f}, bf16 "
+          f"{bwd_ratio[torch.bfloat16]:.4f}; row 9 at S {MOE_KIMI_PROMPT} "
+          f"{flash['ms']:.4f} ms (device {flash['device_ms']}), SDPA "
+          f"{flash['library_ms']:.4f} ms (device "
+          f"{flash['library_device_ms']})" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("kimi-k2-1t-a32b")
+    return {"layers": cfg.n_layers, "init_s": init_s,
+            "streams_equal": same, "logits_bitwise": bitwise,
+            "finite": finite, "launches_as_derived": launched,
+            "decode_profile": profile, "row4_experts": row4,
+            "runs": {b: {k: v for k, v in run.items() if k != "stream"}
+                     for b, run in runs.items()},
+            "flash_max_err": max_err,
+            "flash_ratio": {str(k): v for k, v in ratio.items()},
+            "bwd_ratio": {str(k): v for k, v in bwd_ratio.items()},
+            "hd112": fl_rows + bwd_rows,
+            "row4_per_call": _moe_row4_per_call(cfg)}
+
+
+def phase_moe(card: str) -> dict:
+    """Slice 14: the mixture-of-experts transformers at full width on the
+    card, weights drawn on the card: mixtral-8x7b at 4 of 32 layers served
+    by an Engine (``_moe_mixtral``), kimi-k2-1t-a32b at 2 of 61 layers
+    (``_moe_kimi``: its 384 routed experts, the shared expert, the dense
+    layer, and rows 7-10 at head dim 112).  Launch counts are reset at its
+    start and read at its end; the peak device memory is held under
+    MOE_PEAK_BYTES."""
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    mixtral, kimi = _moe_configs()
+    out["mixtral-8x7b"] = _moe_mixtral(mixtral, gen, failed)
+    torch.cuda.empty_cache()
+    out["kimi-k2-1t-a32b"] = _moe_kimi(kimi, gen, failed)
+    torch.cuda.empty_cache()
+    launches = _campaign_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe: launches {launches}; peak device memory {peak / 1e9:.2f} "
+          f"GB (limit {MOE_PEAK_BYTES / 1e9:.0f} GB)")
+    if any(launches[n] == 0 for n in MOE_ROWS):
+        failed.append(f"a row of the path never launched: {launches}")
+    if peak >= MOE_PEAK_BYTES:
+        failed.append(f"peak memory {peak / 1e9:.2f} GB")
+    out.update(launches=launches, peak_bytes=peak)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"moe: phase in {secs:.1f} s (budget {MOE_BUDGET_S} s) on {card}")
+    if secs > MOE_BUDGET_S:
+        failed.append(f"moe phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("moe: " + "; ".join(failed))
+    return out
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -4031,6 +4491,7 @@ def main() -> None:
     embed = phase_embed(card)
     dse = phase_dse(cfg, lm_params, card)
     recurrent = phase_recurrent(card)
+    moe = phase_moe(card)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -4073,7 +4534,7 @@ def main() -> None:
                        "campaign": campaign,
                        "dependable": dependable, "fleet": fleet,
                        "embed": embed, "dse": dse,
-                       "recurrent": recurrent}, f, indent=1)
+                       "recurrent": recurrent, "moe": moe}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,16 +3,19 @@
 The counterpart of ``repro.configs.registry``, holding the configurations
 the port runs: the dense transformers that fit one card, token-input and
 embedding-input (``musicgen-large``, ``llava-next-34b``: the caller's
-``embeds`` stand in for their stub front ends), and the recurrent
-families (``rwkv6-1.6b``, ``recurrentgemma-2b``).  The
-reference's other names resolve to a ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+``embeds`` stand in for their stub front ends), the mixture-of-experts
+transformers on one card (``mixtral-8x7b``, ``kimi-k2-1t-a32b``: the
+meshless MoE path), and the recurrent families (``rwkv6-1.6b``,
+``recurrentgemma-2b``).  The reference's other names resolve to a
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.llava_next_34b import CONFIG as _llava
+from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
 from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
@@ -22,12 +25,9 @@ from repro_torch.models.config import ArchConfig
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c for c in (_smollm, _qwen3, _rwkv6, _musicgen, _llava,
-                        _rgemma)}
+                        _rgemma, _mixtral, _kimi)}
 
 _NOT_YET = {
-    "kimi-k2-1t-a32b": "MoE and expert parallelism: ROADMAP.md queue 1, "
-                       "item 17",
-    "mixtral-8x7b": "MoE and expert parallelism: ROADMAP.md queue 1, item 17",
     "command-r-plus-104b": "a model sharded over several cards: ROADMAP.md "
                            "queue 1, item 17",
     "llama3-405b": "a model sharded over several cards: ROADMAP.md queue 1, "

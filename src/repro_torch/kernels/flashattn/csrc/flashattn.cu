@@ -13,9 +13,17 @@
 //   flash_attention_fwd_lse  (kernel.py:522)  the same out plus lse = m + log l
 // q is (B, H, S, hd), k and v (B, KV, S, hd), all row-major, f32 or bf16;
 // out has q's type; check and lse are (B, H, S) f32, csum (B, H, S) int64
-// holding the uint32 value.  hd is 16, 32, 64 or 128.  Each entry runs one
-// kernel: flash_fwd_mma_kernel<HD, EMIT> for bf16, flash_fwd_kernel<HD,
+// holding the uint32 value.  hd is 16, 32, 64, 112 or 128.  Each entry runs
+// one kernel: flash_fwd_mma_kernel<HD, EMIT> for bf16, flash_fwd_kernel<HD,
 // EMIT> for f32.
+//
+// hd = 112 (kimi-k2's 64 heads over 8 KV heads) is 7 x 16: QK^T takes 7
+// k-steps of m16n8k16, PV 14 n-tiles of 8 (acc[14][4], 56 registers), a
+// row 14 16-byte cp.async chunks.  Shared rows are 112 + 8 bf16 = 240
+// bytes, 60 words: the 8 rows one ldmatrix reads start at banks 0, 28,
+// 24, ..., 4, four words each, so they still fall on distinct banks (no
+// swizzle assumes a power-of-two row).  The f32 kernel's lanes cover
+// columns lane + 32 i for i < 4, and the HD % 32 guards skip 112-127.
 //
 // Bound on an H100 SXM: max(bytes / 3.35 TB/s, 4*B*H*hd*S(S+1)/2 causal
 // FLOPs / 989 TFLOP/s for bf16 or 67 TFLOP/s for f32), each input read once
@@ -651,6 +659,7 @@ int launch(Args a, int hd, int bf16_in, void* stream) {
     case 16: return launch_hd<16, EMIT>(a, bf16_in != 0, st);
     case 32: return launch_hd<32, EMIT>(a, bf16_in != 0, st);
     case 64: return launch_hd<64, EMIT>(a, bf16_in != 0, st);
+    case 112: return launch_hd<112, EMIT>(a, bf16_in != 0, st);
     case 128: return launch_hd<128, EMIT>(a, bf16_in != 0, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

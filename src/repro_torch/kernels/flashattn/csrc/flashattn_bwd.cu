@@ -16,7 +16,8 @@
 // q, out, dO and dq are (B, H, S, hd), k, v, dk and dv (B, KV, S, hd), all
 // row-major, f32 or bf16 (the gradients have the inputs' type); lse and
 // dvec = rowsum(dO * out) are (B, H, S) f32.  dvec is a tensor op in the
-// wrapper, as in the reference (kernel.py:583).  hd is 16, 32, 64 or 128.
+// wrapper, as in the reference (kernel.py:583).  hd is 16, 32, 64, 112 or
+// 128.
 //
 // Bound on an H100 SXM: max(bytes / 3.35 TB/s, 10*B*H*hd*S(S+1)/2 causal
 // FLOPs / 989 TFLOP/s bf16 or 67 TFLOP/s f32): five products per visible
@@ -48,7 +49,7 @@
 //
 //   dK/dV: a block of 4 warps owns 64 keys of one (b, kv-head), 16 per
 //   warp, and loops over the G query heads of the group and, for each, the
-//   query tiles (64 rows; 32 at hd = 128) that can see its keys: the
+//   query tiles (64 rows; 32 at hd 112 and 128) that can see its keys: the
 //   reference's sequential G*nq scan, which also sums the GQA group without
 //   atomics.  Per tile each warp forms S^T = K Q^T and dP^T = V dO^T, keys
 //   as rows, so that P^T and dS^T come out in the A-operand layout of
@@ -75,7 +76,9 @@
 //
 //   Registers.  At hd = 128 the dk and dv accumulators of 16 keys take 128
 //   registers a thread, so the dK/dV query tile is 32 rows there (S^T and
-//   dP^T then take 32; ptxas: 253 registers, no spill).
+//   dP^T then take 32; ptxas: 253 registers, no spill).  At hd = 112 they
+//   take 112, and a 64-row tile's S^T and dP^T would add 64 more, so the
+//   tile is 32 rows there too.
 //
 //   What still holds it back: mma.sync, not wgmma (the warp-group,
 //   asynchronous product that reaches the full tensor-core rate); cp.async
@@ -148,7 +151,7 @@ constexpr int kPad = 8;                        // bf16 of padding per shared row
 
 // dKV: query rows per tile
 template <int HD>
-__host__ __device__ constexpr int mma_qt() { return HD == 128 ? 32 : 64; }
+__host__ __device__ constexpr int mma_qt() { return HD > 64 ? 32 : 64; }
 
 struct Args {
   const void* q;
@@ -858,6 +861,7 @@ int launch(const Args& a, int hd, bool bf16_in, cudaStream_t stream) {
     case 16: return launch_hd<16>(a, bf16_in, stream);
     case 32: return launch_hd<32>(a, bf16_in, stream);
     case 64: return launch_hd<64>(a, bf16_in, stream);
+    case 112: return launch_hd<112>(a, bf16_in, stream);
     case 128: return launch_hd<128>(a, bf16_in, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -11,7 +11,7 @@ bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16 fed by
 double-buffered).  The forward: one template for the three entries, blocks
 of 64 query rows over 64-key tiles.  The backward: dQ blocks of 64 query
 rows over 64-key tiles, dK/dV blocks of 64 keys over the group's query
-tiles (64 rows, 32 at hd = 128).  P (and in the backward dS) enters its
+tiles (64 rows, 32 at hd 112 and 128).  P (and in the backward dS) enters its
 products as a hi + lo bf16 pair: rounded once to bf16 it would leave the
 tolerance (``tests/test_torch_flash_fwd_split.py``,
 ``tests/test_torch_flash_bwd_split.py``).  f32 inputs keep the f32 FMA
@@ -20,7 +20,7 @@ on either path: two launches give the same bits, and the three forward
 entries give the same ``out``.
 
 Layouts as in the reference: q (B, H, S, hd), k/v (B, KV, S, hd), f32 or
-bf16, H a multiple of KV, hd one of 16, 32, 64, 128; ``causal``,
+bf16, H a multiple of KV, hd one of 16, 32, 64, 112, 128; ``causal``,
 ``window`` (keys at most ``window`` positions before the query),
 ``block_q`` and ``block_k`` keywords.  The keywords name the f32
 forward's tiles: it is compiled for 16 query rows per block and 32 keys
@@ -60,7 +60,7 @@ BWD_SOURCE = SOURCE.with_name("flashattn_bwd.cu")
 # out must agree bit for bit, and the backward sums in the order written
 FLAGS = ("-fmad=false",)
 BLOCK_Q, BLOCK_K = 16, 32
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DIMS = [_I] * 8 + [_F, _P]   # b h kv s hd causal window bf16, scale, stream
 _ENTRIES = {
     "flash_attention_launch": [_P] * 4 + _DIMS,

@@ -17,16 +17,23 @@ from typing import Optional
 import torch
 
 
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std^2) drawn from ``gen`` on ``gen.device``, scaled in place:
+    a CPU generator gives the numbers it always gave, whatever device the
+    caller moves them to; a CUDA generator draws on the card, where the f32
+    draw of a large leaf is its only transient copy."""
+    t = torch.randn(shape, generator=gen, device=gen.device)
+    return t.mul_(std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
-    """N(0, 1/fan_in) on the CPU from ``gen`` (so the numbers do not
-    depend on the device the caller moves them to)."""
-    std = 1.0 / math.sqrt(shape[in_axis])
-    return (torch.randn(shape, generator=gen) * std).to(dtype)
+    """N(0, 1/fan_in) from ``gen``, on ``gen.device``."""
+    return _normal(gen, shape, 1.0 / math.sqrt(shape[in_axis]), dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
-    return (torch.randn(shape, generator=gen) * 0.02).to(dtype)
+    return _normal(gen, shape, 0.02, dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -102,7 +102,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
     """The reference's parameter dict, drawn from ``gen`` on the CPU and
     moved to ``device``."""
-    _check(cfg)
     dev = resolve_device(device)
     d, V, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
     W = cfg.recurrent.lru_width or d
@@ -272,7 +271,7 @@ def _schedule(cfg, params):
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for kind, _, bp in _schedule(cfg, params):
@@ -324,7 +323,7 @@ def decode_step(cfg, params, token, cache: GriffinCache, ctx=None,
     """token: (B,) int (or embed (B, d)).  Row b decodes at position
     ``cache.length[b]``; the recurrent state and the KV rings are written
     in place."""
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, token, embed)[:, None, :]
     pos = cache.length
     for kind, i, bp in _schedule(cfg, params):
@@ -343,7 +342,7 @@ def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     """Forward pass that also fills a fresh decode cache: each recurrent
     layer's final state, and each attention layer's last ``Win`` positions
     ring-aligned (position p at slot p % Win)."""
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]

@@ -58,7 +58,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
     """The reference's parameter dict, drawn from ``gen`` on the CPU and
     moved to ``device``."""
-    _check(cfg)
     dev = resolve_device(device)
     d, L, V, ff = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.d_ff
     hd = cfg.recurrent.head_dim
@@ -234,7 +233,7 @@ def _channel_mix(cfg, bp, x, state=None):
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, tokens, embeds)
     for bp in _cast_layers(cfg, params["blocks"]):
         x, _ = _time_mix(cfg, bp, x, use_chunked=True)
@@ -277,7 +276,7 @@ def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
     """token: (B,) int (or embed (B, d)).  Writes each layer's new state
     into ``cache`` in place, advances ``length`` and returns (logits (B, V),
     cache)."""
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, token, embed)[:, None, :]
     for li, bp in enumerate(_cast_layers(cfg, params["blocks"])):
         x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=False,
@@ -293,7 +292,7 @@ def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
 def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     """Chunked forward that also returns the recurrent state as the
     cache."""
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, tokens, embeds)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max_len, device=x.device)

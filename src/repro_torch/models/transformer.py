@@ -1,9 +1,11 @@
-"""Decoder-only transformer LM, dense path, with the W8A8 FFN on the
-hand-written int8 matmul kernels.
+"""Decoder-only transformer LM, dense and mixture-of-experts, with the
+W8A8 FFN on the hand-written int8 matmul kernels.
 
-The counterpart of the dense path of ``repro.models.transformer``: the
-same parameter dict (layers stacked on a leading axis; ``quant="w8a8_ffn"``
-replaces each FFN weight ``name`` by ``name_q`` int8 and ``name_s`` f32
+The counterpart of the single-device paths of ``repro.models.transformer``:
+the same parameter dict (layers stacked on a leading axis in
+``dense_blocks`` and, for a config with ``moe``, ``moe_blocks`` after its
+``n_dense_layers`` leading dense layers; ``quant="w8a8_ffn"`` replaces
+each FFN and expert weight ``name`` by ``name_q`` int8 and ``name_s`` f32
 per-channel scales), the same KV-cache layout (L, B, T, KV, hd) and the
 same arithmetic.  Differences:
 
@@ -47,8 +49,28 @@ same stream in both packages and never faults the card.
 otherwise), quantized as the reference's ``_quantize_kv_rows``; decode
 attention takes the int8 q.k product exactly (``common.decode_attention``).
 
-Not in the port yet (each raises ``NotImplementedError`` naming its
-ROADMAP item): MoE blocks and ``ShardCtx`` (item 17).
+The MoE FFN is the reference's ``_moe_ffn_single``: sort-based capacity
+routing (``_local_route``: f32 router product, softmax, top-k,
+renormalised gates, a stable sort by expert, ``capacity`` slots per
+expert, later assignments dropped first), a gather into an (E, C, d)
+buffer, the expert products, and a combine onto the token rows, plus the
+shared experts through ``_qdot`` (sites ``ffn.ws_g``/``ws_i``/``ws_o``,
+which a policy map reaches; the routed experts it does not reach, as in
+the reference).  Differences by design:
+
+* top-k is a stable descending sort, so a tie goes to the lower expert
+  index as in ``jax.lax.top_k`` (``torch.topk`` promises no order);
+* under W8A8 each expert's int8 product is its own ``dispatch.matmul_acc``
+  (the ``qmatmul_acc`` kernel on the card, 3·E launches per MoE layer per
+  call, empty experts included): the reference's int8 einsum with int32
+  accumulation has no counterpart on the card;
+* the combine sums each token's kept slots in ascending slot order (the
+  order of the reference's sorted buffer), one gather per choice, with no
+  scatter-add: float atomics would sum in an order that changes between
+  runs.
+
+Not in the port yet (raises ``NotImplementedError`` naming its ROADMAP
+item): ``ShardCtx`` and the meshed MoE (item 17).
 """
 from __future__ import annotations
 
@@ -63,22 +85,11 @@ from repro_torch.kernels.flashattn.ops import flash_attn_model
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
 
-_NOT_YET = {
-    "moe": "MoE blocks come with ROADMAP.md queue 1, item 17",
-    "ctx": "sharded execution (ShardCtx) comes with ROADMAP.md queue 1, "
-           "item 17",
-}
-
-
-def _not_yet(what: str):
-    raise NotImplementedError(_NOT_YET[what])
-
-
-def _check(cfg: ArchConfig, ctx=None) -> None:
-    if cfg.moe is not None:
-        _not_yet("moe")
+def _check(ctx) -> None:
     if ctx is not None:
-        _not_yet("ctx")
+        raise NotImplementedError(
+            "sharded execution (ShardCtx) and the meshed MoE come with "
+            "ROADMAP.md queue 1, item 17")
 
 
 def _pdt(cfg: ArchConfig):
@@ -96,34 +107,64 @@ def _w(cfg: ArchConfig, w):
     return w.to(_cdt(cfg))
 
 
+def _n_moe(cfg: ArchConfig) -> int:
+    """The number of MoE layers (after the ``n_dense_layers`` dense ones)."""
+    return 0 if cfg.moe is None else cfg.n_layers - cfg.moe.n_dense_layers
+
+
 # ------------------------- W8A8 (the paper's technique) --------------------
 
 
-def quantize_ffn_weight(w: torch.Tensor):
-    """Per-channel symmetric int8 over the contraction dim (axis -2).
-
-    (..., K, N) → int8 (..., K, N), f32 scale (..., N); stacked (L, K, N)
-    weights keep per-(layer, channel) scales.
-    """
+def _quantize_weight(w: torch.Tensor):
     w = w.to(torch.float32)
     scale = torch.clamp(w.abs().amax(dim=-2), min=1e-8) / 127.0
     w_q = torch.clamp(torch.round(w / scale[..., None, :]), -127, 127)
     return w_q.to(torch.int8), scale
 
 
-_FFN_WEIGHTS = ("wi", "wg", "wd")
+_QUANT_CHUNK = 1 << 28            # f32 elements quantized at a time
+
+
+def quantize_ffn_weight(w: torch.Tensor):
+    """Per-channel symmetric int8 over the contraction dim (axis -2).
+
+    (..., K, N) → int8 (..., K, N), f32 scale (..., N); stacked (L, K, N)
+    and (L, E, K, N) weights keep per-(layer, expert, channel) scales.  A
+    large leaf is quantized a few (K, N) matrices at a time: the scales
+    are per matrix, so the values are the same, and the f32 copy stays
+    small (kimi-k2's routed experts are 17 GB in int8)."""
+    K, N = w.shape[-2:]
+    flat = w.reshape(-1, K, N)
+    w_q = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((flat.shape[0], N), dtype=torch.float32,
+                        device=w.device)
+    step = max(1, _QUANT_CHUNK // (K * N))
+    for i in range(0, flat.shape[0], step):
+        w_q[i:i + step], scale[i:i + step] = _quantize_weight(
+            flat[i:i + step])
+    return w_q.reshape(w.shape), scale.reshape(*w.shape[:-2], N)
+
+
+_FFN_WEIGHTS = ("wi", "wg", "wd", "we_g", "we_i", "we_o", "ws_g", "ws_i",
+                "ws_o")
+
+
+def _quantize_block(bp):
+    out = dict(bp)
+    for name in _FFN_WEIGHTS:
+        if name in out:
+            out[name + "_q"], out[name + "_s"] = \
+                quantize_ffn_weight(out.pop(name))
+    return out
 
 
 def quantize_ffn_params(cfg: ArchConfig, params):
-    """Replace FFN weight leaves with {name}_q int8 + {name}_s f32 scales."""
-    _check(cfg)
+    """Replace FFN and expert weight leaves with {name}_q int8 + {name}_s
+    f32 scales, in both block dicts."""
     p = dict(params)
-    blocks = dict(p["dense_blocks"])
-    for name in _FFN_WEIGHTS:
-        if name in blocks:
-            blocks[name + "_q"], blocks[name + "_s"] = \
-                quantize_ffn_weight(blocks.pop(name))
-    p["dense_blocks"] = blocks
+    for blk in ("dense_blocks", "moe_blocks"):
+        if p.get(blk) is not None:
+            p[blk] = _quantize_block(p[blk])
     return p
 
 
@@ -167,6 +208,24 @@ def _qdot(cfg: ArchConfig, x, bp, name):
     return y.to(x.dtype)
 
 
+def _qeinsum(cfg: ArchConfig, x, bp, name):
+    """The expert products (E, C, K) × (E, K, N) → (E, C, N), W8A8 when
+    quantized: the activations quantized per row once, then one int32
+    accumulator per expert from ``dispatch.matmul_acc`` on ``cfg.backend``
+    (every expert, empty ones too, as the reference's einsum computes
+    every expert), then ``acc.f32 * x_s * w_s``, then a cast."""
+    if name + "_q" not in bp:
+        return torch.bmm(x, _w(cfg, bp[name]))
+    from repro_torch.kernels import dispatch
+    x_q, x_s = _quantize_act(x)                  # (E, C, K), (E, C, 1)
+    w_q = bp[name + "_q"]
+    acc = torch.stack([dispatch.matmul_acc(x_q[e], w_q[e],
+                                           backend=cfg.backend)
+                       for e in range(w_q.shape[0])])
+    y = acc.to(torch.float32) * x_s * bp[name + "_s"][:, None, :]
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Parameter initialization
 # ---------------------------------------------------------------------------
@@ -174,41 +233,74 @@ def _qdot(cfg: ArchConfig, x, bp, name):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
-    """The reference's parameter dict, drawn from ``gen`` on the CPU and
-    moved to ``device``.  Layers stacked on axis 0."""
-    _check(cfg)
+    """The reference's parameter dict, drawn from ``gen`` on its device
+    and moved to ``device``: ``dense_blocks`` for the dense layers,
+    ``moe_blocks`` for the MoE layers (either absent when it has none),
+    each stacked on axis 0.  Blocks are drawn before the embedding, each
+    block's leaves in the reference's order; under W8A8 each FFN and
+    expert weight is quantized as soon as it is drawn, so its bf16 or f32
+    copy never meets the next one."""
     dev = resolve_device(device)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     H, KV, ff, V = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size
-    L = cfg.n_layers
     pdt = _pdt(cfg)
+    quant = cfg.quant == "w8a8_ffn"
+    n_moe = _n_moe(cfg)
 
-    def stack(shape):
-        return common.dense_init(gen, (L,) + shape, in_axis=1, dtype=pdt)
+    def block_params(n, moe):
+        if n == 0:
+            return None
+        p = {}
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=pdt)
+        def put(name, t):
+            t = t.to(dev)
+            if quant and name in _FFN_WEIGHTS:
+                p[name + "_q"], p[name + "_s"] = quantize_ffn_weight(t)
+            else:
+                p[name] = t
 
-    blocks = {"ln1": zeros(L, d), "ln2": zeros(L, d),
-              "wq": stack((d, H * hd)), "wk": stack((d, KV * hd)),
-              "wv": stack((d, KV * hd)), "wo": stack((H * hd, d))}
-    if cfg.qk_norm:
-        blocks["q_norm"], blocks["k_norm"] = zeros(L, hd), zeros(L, hd)
-    if cfg.use_bias:
-        blocks.update(bq=zeros(L, H * hd), bk=zeros(L, KV * hd),
-                      bv=zeros(L, KV * hd))
-    blocks.update(wi=stack((d, ff)), wg=stack((d, ff)), wd=stack((ff, d)))
-    params = {"embed": common.embed_init(gen, (V, d), dtype=pdt),
-              "final_norm": torch.zeros((d,), dtype=pdt),
-              "dense_blocks": blocks}
+        def stack(name, shape):
+            put(name, common.dense_init(gen, (n,) + shape, in_axis=1,
+                                        dtype=pdt))
+
+        for name, width in (("ln1", d), ("ln2", d)):
+            put(name, torch.zeros((n, width), dtype=pdt))
+        stack("wq", (d, H * hd))
+        stack("wk", (d, KV * hd))
+        stack("wv", (d, KV * hd))
+        stack("wo", (H * hd, d))
+        if cfg.qk_norm:
+            put("q_norm", torch.zeros((n, hd), dtype=pdt))
+            put("k_norm", torch.zeros((n, hd), dtype=pdt))
+        if cfg.use_bias:
+            for name, width in (("bq", H * hd), ("bk", KV * hd),
+                                ("bv", KV * hd)):
+                put(name, torch.zeros((n, width), dtype=pdt))
+        if not moe:
+            stack("wi", (d, ff))
+            stack("wg", (d, ff))
+            stack("wd", (ff, d))
+            return p
+        m = cfg.moe
+        put("router", common.dense_init(gen, (n, d, m.n_experts), in_axis=1,
+                                        dtype=pdt).to(torch.float32))
+        stack("we_g", (m.n_experts, d, m.d_expert))
+        stack("we_i", (m.n_experts, d, m.d_expert))
+        stack("we_o", (m.n_experts, m.d_expert, d))
+        if m.n_shared_experts:
+            ds = m.d_expert * m.n_shared_experts
+            stack("ws_g", (d, ds))
+            stack("ws_i", (d, ds))
+            stack("ws_o", (ds, d))
+        return p
+
+    params = {"dense_blocks": block_params(cfg.n_layers - n_moe, False),
+              "moe_blocks": block_params(n_moe, True)}
+    params["embed"] = common.embed_init(gen, (V, d), dtype=pdt).to(dev)
+    params["final_norm"] = torch.zeros((d,), dtype=pdt, device=dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = common.dense_init(gen, (d, V), dtype=pdt)
-    params = {k: ({n: t.to(dev) for n, t in v.items()}
-                  if isinstance(v, dict) else v.to(dev))
-              for k, v in params.items()}
-    if cfg.quant == "w8a8_ffn":
-        params = quantize_ffn_params(cfg, params)
-    return params
+        params["lm_head"] = common.dense_init(gen, (d, V), dtype=pdt).to(dev)
+    return {k: v for k, v in params.items() if v is not None}
 
 
 def _layers(blocks: Dict[str, torch.Tensor]) -> List[Dict[str, Any]]:
@@ -273,6 +365,114 @@ def _dense_ffn(cfg: ArchConfig, bp, x):
     return x + _qdot(cfg, act, bp, "wd")
 
 
+# ------------------------------- MoE ----------------------------------------
+
+
+class Route(NamedTuple):
+    """``_local_route``'s maps over the (E·C,) buffer rows, and ``tslot``
+    (n, top_k): each token's buffer rows in ascending order, E·C where
+    the choice was dropped."""
+    gather_idx: torch.Tensor     # (E·C,) int64 token row of each buffer row
+    gates: torch.Tensor          # (E·C,) f32
+    filled: torch.Tensor         # (E·C,) bool
+    aux: torch.Tensor            # () f32 load-balance loss
+    z_loss: torch.Tensor         # () f32
+    tslot: torch.Tensor          # (n, top_k) int64
+
+
+def capacity(m, n: int) -> int:
+    """Buffer rows per expert for ``n`` routed tokens (Python arithmetic on
+    a static n, as the reference)."""
+    return max(int(m.top_k * n * m.capacity_factor / m.n_experts), 4)
+
+
+def _local_route(h: torch.Tensor, router_w: torch.Tensor, m,
+                 cap: int) -> Route:
+    """Sort-based capacity routing of the (n, d) tokens ``h`` over all
+    ``m.n_experts`` experts, the reference's ``_local_route`` with every
+    expert local.  The router product is f32 (never TF32: a flipped near
+    tie sends a token elsewhere); top-k is a stable descending sort (a tie
+    to the lower index, as ``jax.lax.top_k``); the sort by expert is stable
+    (``jnp.argsort``), so within an expert earlier tokens keep their slots
+    and later ones are dropped.  Dropped assignments go to an overflow row
+    E·C, sliced off, so no write falls out of range."""
+    n = h.shape[0]
+    E, k = m.n_experts, m.top_k
+    dev = h.device
+    logits = h.to(torch.float32) @ router_w.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                        # (n, E)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)             # renormalise
+
+    flat_e = top_i.reshape(-1)                                  # (n·k,)
+    flat_t = torch.arange(n, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sg = flat_e[order], flat_t[order], top_p.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(E + 1, device=dev))
+    pos = torch.arange(n * k, device=dev) - starts[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, E * cap)           # overflow row
+    gather_idx = torch.zeros(E * cap + 1, dtype=torch.int64, device=dev)
+    gates = torch.zeros(E * cap + 1, dtype=torch.float32, device=dev)
+    filled = torch.zeros(E * cap + 1, dtype=torch.bool, device=dev)
+    gather_idx[slot] = st
+    gates[slot] = sg
+    filled[slot] = keep
+    # each token's buffer rows: slot of assignment i sits at order^-1[i]
+    tslot = torch.empty_like(slot)
+    tslot[order] = slot
+    tslot = torch.sort(tslot.reshape(n, k), dim=-1).values
+    # aux-loss ingredients (load balance over the global expert set)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_i, E).to(torch.float32).mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return Route(gather_idx[:-1], gates[:-1], filled[:-1], aux, z_loss,
+                 tslot)
+
+
+def _combine(out: torch.Tensor, route: Route) -> torch.Tensor:
+    """The (E·C, d) gated expert rows onto the (n, d) token rows: each
+    token's kept rows added in ascending buffer order, the order in which
+    the reference's scatter-add meets them; a dropped choice adds an exact
+    zero.  Gathers only, so two runs sum in the same order."""
+    rows = torch.cat([out, out.new_zeros((1, out.shape[1]))])
+    combined = rows[route.tslot[:, 0]]
+    for j in range(1, route.tslot.shape[1]):
+        combined = combined + rows[route.tslot[:, j]]
+    return combined
+
+
+def _moe_ffn(cfg: ArchConfig, bp, x):
+    """The reference's ``_moe_ffn_single``: (x + routed + shared, aux,
+    z_loss) for x (B, S, d); all B·S tokens share the experts' capacity."""
+    m = cfg.moe
+    B, S, d = x.shape
+    n = B * S
+    h = common.rms_norm(x.reshape(n, d), bp["ln2"], cfg.norm_eps)
+    cap = capacity(m, n)
+    route = _local_route(h, bp["router"], m, cap)
+    buf = torch.where(route.filled[:, None], h[route.gather_idx], 0)
+    buf = buf.reshape(m.n_experts, cap, d)
+    act = F.silu(_qeinsum(cfg, buf, bp, "we_g")) * \
+        _qeinsum(cfg, buf, bp, "we_i")
+    out = _qeinsum(cfg, act, bp, "we_o").reshape(-1, d) * \
+        route.gates[:, None]
+    combined = _combine(out, route)
+    if m.n_shared_experts:
+        sact = F.silu(_qdot(cfg, h, bp, "ws_g")) * _qdot(cfg, h, bp, "ws_i")
+        combined = combined + _qdot(cfg, sact, bp, "ws_o")
+    return x + combined.reshape(B, S, d).to(x.dtype), route.aux, route.z_loss
+
+
+def _ffn(cfg: ArchConfig, bp, x, moe: bool):
+    """The block's FFN half: (x, aux, z_loss), aux and z None when dense."""
+    if moe:
+        return _moe_ffn(cfg, bp, x)
+    return _dense_ffn(cfg, bp, x), None, None
+
+
 def _logits(cfg: ArchConfig, params, x):
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -294,9 +494,18 @@ class ForwardOut(NamedTuple):
     z_loss: torch.Tensor
 
 
-def _block(cfg: ArchConfig, bp, x, positions):
+def _block(cfg: ArchConfig, bp, x, positions, moe):
     x, _, _ = _attention(cfg, bp, x, positions)
-    return _dense_ffn(cfg, bp, x)
+    return _ffn(cfg, bp, x, moe)
+
+
+def _blocks(params):
+    """Every layer as (block dict, is MoE): the dense layers, then the MoE
+    layers, as the KV cache numbers them."""
+    return [(bp, moe) for blk, moe in (("dense_blocks", False),
+                                       ("moe_blocks", True))
+            if params.get(blk) is not None
+            for bp in _layers(params[blk])]
 
 
 def _inputs(cfg: ArchConfig, params, tokens, embeds=None):
@@ -310,44 +519,55 @@ def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
            embeds=None):
     """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
     norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
-    ``remat`` recomputes each block in the backward."""
+    ``remat`` recomputes each block in the backward.  Returns (logits,
+    aux, z_loss), the last two summed over the MoE layers."""
     x = _inputs(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for li, bp in enumerate(_layers(params["dense_blocks"])):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    zl = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, (bp, moe) in enumerate(_blocks(params)):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block, cfg, bp, x, positions, use_reentrant=False)
-            continue
-        x, k, v = _attention(cfg, bp, x, positions)
-        if keep_kv is not None:
-            keep_kv(li, k, v)
-        x = _dense_ffn(cfg, bp, x)
-    return _logits(cfg, params, x)
+            x, a, z = torch.utils.checkpoint.checkpoint(
+                _block, cfg, bp, x, positions, moe, use_reentrant=False)
+        else:
+            x, k, v = _attention(cfg, bp, x, positions)
+            if keep_kv is not None:
+                keep_kv(li, k, v)
+            x, a, z = _ffn(cfg, bp, x, moe)
+        if moe:
+            aux, zl = aux + a, zl + z
+    return _logits(cfg, params, x), aux, zl
 
 
 def _remat(cfg: ArchConfig, params) -> bool:
     """Recompute blocks when ``cfg.remat`` asks and a gradient will flow."""
     return (cfg.remat != "none" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in params["dense_blocks"].values()))
+            and any(t.requires_grad for blk in ("dense_blocks", "moe_blocks")
+                    for t in (params.get(blk) or {}).values()))
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
             embeds=None) -> ForwardOut:
-    """tokens: (B, S) int (or embeds (B, S, d)) → logits (B, S, V)."""
-    _check(cfg, ctx)
-    logits = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
-                    embeds=embeds)
-    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return ForwardOut(logits, zero, zero)
+    """tokens: (B, S) int (or embeds (B, S, d)) → logits (B, S, V), and the
+    MoE layers' mean aux and z losses (zero for a dense config)."""
+    _check(ctx)
+    logits, aux, zl = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
+                             embeds=embeds)
+    denom = max(_n_moe(cfg), 1)
+    return ForwardOut(logits, aux / denom, zl / denom)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, ctx=None):
-    """(mean next-token CE, {"ce", "aux", "z"}) of ``batch`` ("tokens",
-    "labels", optional "mask"); dense, so aux and z are zero."""
+    """(mean next-token CE plus, for MoE, ``aux_loss``·aux +
+    ``router_z_loss``·z, {"ce", "aux", "z"}) of ``batch`` ("tokens",
+    "labels", optional "mask")."""
     out = forward(cfg, params, batch["tokens"], ctx,
                   embeds=batch.get("embeds"))
     loss = common.cross_entropy_loss(out.logits, batch["labels"],
                                      batch.get("mask"))
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss * out.aux_loss \
+            + cfg.moe.router_z_loss * out.z_loss
     return loss, {"ce": loss, "aux": out.aux_loss, "z": out.z_loss}
 
 
@@ -382,7 +602,6 @@ def cache_len(cfg: ArchConfig, max_len: int) -> int:
 
 def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
                device="cuda") -> KVCache:
-    _check(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, B, cache_len(cfg, max_len), cfg.n_kv_heads,
              cfg.resolved_head_dim)
@@ -405,7 +624,7 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
     """token: (B,) int (or embed (B, d)).  Writes each layer's new K/V row
     into ``cache`` in place (slot ``length % T`` of each row), advances
     ``length`` and returns (logits (B, V), cache)."""
-    _check(cfg, ctx)
+    _check(ctx)
     x = _inputs(cfg, params, token, embed)[:, None, :]
     B = x.shape[0]
     hd, H = cfg.resolved_head_dim, cfg.n_heads
@@ -414,7 +633,7 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
     rows = torch.arange(B, device=x.device)
     slot = (pos % T).long()
     valid = torch.clamp(pos + 1, max=T)
-    for li, bp in enumerate(_layers(params["dense_blocks"])):
+    for li, (bp, moe) in enumerate(_blocks(params)):
         q, k, v = _qkv(cfg, bp, x, pos[:, None])
         if cache.k_s is not None:                    # int8 KV cache
             k_q, k_sc = _quantize_kv_rows(k[:, 0])   # (B, KV, hd), (B, KV)
@@ -431,7 +650,7 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
             cache.v[li, rows, slot] = v[:, 0].to(cache.v.dtype)
             o = common.decode_attention(q, cache.k[li], cache.v[li], valid)
         x = x + (o.reshape(B, 1, H * hd) @ _w(cfg, bp["wo"])).to(x.dtype)
-        x = _dense_ffn(cfg, bp, x)
+        x = _ffn(cfg, bp, x, moe)[0]        # MoE: the B rows route as one batch
     cache.length.add_(1)
     return _logits(cfg, params, x).reshape(B, -1), cache
 
@@ -441,7 +660,7 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
     """Full-sequence forward that also fills a fresh KV cache in the same
     pass; ``embeds`` (B, S, d) takes the place of the token embedding.
     Returns (logits (B, S, V), cache)."""
-    _check(cfg, ctx)
+    _check(ctx)
     src = tokens if embeds is None else embeds
     B, S = src.shape[:2]
     cache = init_cache(cfg, B, max_len, device=src.device)
@@ -469,6 +688,6 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
             write(page, q)
             write(scales, sc)
 
-    logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds)
+    logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds)[0]
     cache.length.fill_(S)
     return logits, cache

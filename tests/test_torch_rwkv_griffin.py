@@ -394,3 +394,38 @@ def test_spliced_rows_decode_as_alone(family):
         for row in range(2):
             np.testing.assert_allclose(lg[row].numpy(),
                                        alone[row][t].numpy(), **TOL)
+
+
+def test_griffin_engine_joins_a_shorter_prompt_as_alone():
+    """``GriffinCache.length`` keeps one position per row, by design (the
+    reference's single batch position, maxed by ``cache_write_slot``, is a
+    defect the port does not copy): on a config with an attention layer, a
+    request that joins a live batch with a shorter prompt streams what it
+    streams when served alone, and so does the request it joined."""
+    from repro_torch.runtime.serving import Engine, Request
+    cfg = griffin_cfg()
+    assert griffin._counts(cfg)[2] > 0                   # attention layers
+    params = griffin.init_params(cfg, _gen(0), device="cpu")
+    long_p = _tokens(cfg, (13,), seed=5).tolist()
+    short_p = _tokens(cfg, (4,), seed=6).tolist()
+
+    def serve(prompts, join_after=0):
+        eng = Engine(cfg, params, capacity=2, max_len=48)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=8)
+                for i, p in enumerate(prompts)]
+        eng.submit(reqs[0])
+        for _ in range(join_after):
+            eng.step()
+        if len(reqs) > 1:            # joins while the first one decodes
+            assert eng.active and 1 < len(reqs[0].output) < 8
+            eng.submit(reqs[1])
+        steps = 0
+        while (eng.queue or eng.active) and steps < 100:
+            eng.step()
+            steps += 1
+        return [tuple(r.output) for r in reqs]
+
+    batched = serve([long_p, short_p], join_after=3)
+    assert batched[0] == serve([long_p])[0]
+    assert batched[1] == serve([short_p])[0]
+    assert all(len(s) == 8 for s in batched)

@@ -236,18 +236,28 @@ def test_swa_ring_buffer_decode_long():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tregistry.get("mixtral-8x7b")
+    # the sharded archs and a ShardCtx wait for item 17
+    for name in ("command-r-plus-104b", "llama3-405b"):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            tregistry.get(name)
     with pytest.raises(KeyError):
         tregistry.get("no-such-arch")
-    # the recurrent families came in (models/rwkv6.py, models/griffin.py)
-    assert tregistry.names() == ["llava-next-34b", "musicgen-large",
+    # the recurrent families came in (models/rwkv6.py, models/griffin.py),
+    # and the MoE transformers on one card (slice 14)
+    assert tregistry.names() == ["kimi-k2-1t-a32b", "llava-next-34b",
+                                 "mixtral-8x7b", "musicgen-large",
                                  "qwen3-0.6b", "recurrentgemma-2b",
                                  "rwkv6-1.6b", "smollm-135m"]
+    assert tregistry.get("mixtral-8x7b").moe.n_experts == 8
+    assert tregistry.get("kimi-k2-1t-a32b").moe.n_shared_experts == 1
     _, tcfg = small()
     moe = dataclasses.replace(tcfg, moe=TMoEConfig(4, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.init_params(moe, torch.Generator(), device="cpu")
+    mp = tapi.init_params(moe, torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert "moe_blocks" in mp and "dense_blocks" not in mp
+    _, mt = tokens(moe, (1, 4))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tapi.forward(moe, mp, mt, ctx=object())
     with pytest.raises(ValueError, match="unknown family"):
         tapi.init_params(dataclasses.replace(tcfg, family="cnn"),
                          torch.Generator(), device="cpu")
