@@ -175,6 +175,32 @@ Phases, each of which raises on failure:
    profiled decode step of each model, row 4 per call at the expert
    shapes beside its bound, rows 7–10 beside SDPA; peak device memory
    under 70 GB; within ``MOE_BUDGET_S``.
+19. slice 15, the dense transformers no earlier phase drives
+   (``phase_dense``), weights drawn on the card, W8A8 FFN, bf16, flash
+   prefill: command-r-plus-104b and llama3-405b at full width with 4
+   layers each, qwen3-0.6b in full; a 2,048-token prefill and 16 decode
+   steps at batch 4 after it (the prompt's cache in every row: each step
+   attends to the 2,048 prefilled positions and the steps before) under
+   ``cuda`` and ``ref``, their logits bit for bit equal and finite, row 4
+   launched 3·L per call and row 9 L per prefill, row 9 against its plain
+   version at each prefill's attention shape; then llama3-405b trained at
+   full width with 2 of its 126 layers (Adafactor, remat full, batch 1 ×
+   1,024): the first Adafactor update of its (2, 16,384, 53,248) FFN leaf
+   within one bf16 step of the same rule in float64 on the same gradient,
+   two runs of 3 steps from clones of one state, losses ``==`` and
+   finite, final parameters torch.equal, row 9 launched 2·L and row 10 L
+   per step, row 4 never; row
+   10 at (1, 128, 1024, 128)/(1, 8, 1024, 128) bf16 against its plain
+   version and timed beside SDPA's backward; param seconds, prefill ms,
+   decode ms/step, ms per train step, peak device memory under 70 GB;
+   within ``DENSE_BUDGET_S``;
+20. slice 15, an MoE model trained (``phase_moe_train``): mixtral-8x7b
+   at full width with 2 of its 32 layers (AdamW, its remat, batch 1 ×
+   4,608, the last 512 queries past its 4,096 window) through the same
+   two runs from clones, after its MoE layer's backward taken 5 times on
+   one input, torch.equal each time at top-2 and top-8; row 10 at its
+   windowed attention shape against its plain version; peak device memory
+   under 70 GB; within ``MOE_TRAIN_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -203,6 +229,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import json
+import math
 import os
 import random
 import re
@@ -2274,7 +2301,9 @@ def _train_step_fixture(tcfg, shape):
     step = steps.make_train_step(tcfg)
 
     def run():
-        float(step(state, batch)[1]["loss"])     # the loop's own readback
+        nonlocal state
+        state, metrics = step(state, batch)
+        float(metrics["loss"])                   # the loop's own readback
     return run
 
 
@@ -3876,11 +3905,7 @@ def _rec_model(name, cfg, depth, gen, failed):
     rollback, no kernel launched; times."""
     from repro_torch.core import fault_injection as fi
     from repro_torch.models import api
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator().manual_seed(0),
-                             device=DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = _card_params(cfg, 0)
     # 1. the logits the engine samples from, prefill's last and each decode
     # step's, against forward over the whole sequence, normwise: f32 (TF32
     # off) within REC_TOL; a bf16 control must miss it.  Earlier prefill
@@ -3957,7 +3982,8 @@ def _rec_model(name, cfg, depth, gen, failed):
         and len(ev) == 1 and ev[0]["recovered"]
     ok = ratio <= 1.0 and control_misses and same and heal_ok
     print(f"recurrent: {name} ({depth}, d {cfg.d_model}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}), params in {init_s:.1f} s; prefill "
+          f"vocab {cfg.vocab_size}), params on the card in {init_s:.2f} s; "
+          f"prefill "
           f"{P} + {REC_CHECK_STEPS} decode steps against forward at S "
           f"{n}, the {REC_CHECK_STEPS + 1} sampled positions: max |err| / "
           f"max |logit| {scale:.3f} f32 {rel:.3e} (limit {REC_TOL:.0e}), "
@@ -3980,10 +4006,12 @@ def _rec_model(name, cfg, depth, gen, failed):
 
 
 def phase_recurrent(card: str) -> dict:
-    """Slice 13: the recurrent families at full width on the card:
-    rwkv6-1.6b in full (24 layers) and recurrentgemma-2b with its depth cut
-    to 8 of 26 layers (two 2:1 super-blocks and the two-block recurrent
-    tail), each through ``_rec_model``.  No hand kernel serves them (the
+    """Slice 13: the recurrent families at full width on the card, weights
+    drawn on the card (slice 15; every check compares the port with itself,
+    so none depends on which values were drawn): rwkv6-1.6b in full (24
+    layers) and recurrentgemma-2b with its depth cut to 8 of 26 layers (two
+    2:1 super-blocks and the two-block recurrent tail), each through
+    ``_rec_model``.  No hand kernel serves them (the
     reference runs them as plain jnp): the phase checks that none of rows
     1-10 launched."""
     from repro_torch.configs import registry
@@ -4045,18 +4073,20 @@ def _moe_configs():
                                 n_layers=MOE_KIMI_LAYERS, **kw))
 
 
-def _moe_row4_per_call(cfg) -> int:
-    """qmatmul_acc launches of one forward call over a token batch (a
+def _row4_per_call(cfg) -> int:
+    """qmatmul_acc launches of one W8A8 forward call over a token batch (a
     prefill or a decode step): 3 per dense layer, and per MoE layer 3 per
     routed expert (every expert, empty ones too) plus 3 for the shared
     experts' one matrix."""
     m = cfg.moe
+    if m is None:
+        return 3 * cfg.n_layers
     n_moe = cfg.n_layers - m.n_dense_layers
     return 3 * m.n_dense_layers + n_moe * (3 * m.n_experts
                                            + 3 * (m.n_shared_experts > 0))
 
 
-def _moe_params(cfg):
+def _card_params(cfg, seed):
     """Seeded weights drawn on the card (a CUDA generator: on the host,
     mixtral's 6 B parameters at 4 layers would take tens of seconds);
     returns (params, seconds)."""
@@ -4064,7 +4094,7 @@ def _moe_params(cfg):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator(device=DEVICE)
-                             .manual_seed(14), device=DEVICE)
+                             .manual_seed(seed), device=DEVICE)
     torch.cuda.synchronize()
     return params, time.perf_counter() - t0
 
@@ -4110,7 +4140,7 @@ def _moe_decode_profile(name, cfg, params, tok, cache):
 def _moe_mixtral(cfg, gen, failed):
     """mixtral-8x7b: an Engine of capacity MOE_CAPACITY serves
     MOE_PROMPTS under the ``cuda`` and ``ref`` backends (streams equal,
-    rows 4 and 9 launched as derived: ``_moe_row4_per_call`` per prefill
+    rows 4 and 9 launched as derived: ``_row4_per_call`` per prefill
     and decode step, n_layers fwd_lse per prefill); the logits of a prefill
     at the longest prompt and of MOE_STEPS decode steps at batch
     MOE_CAPACITY bit for bit equal under both (row 4 at the expert shapes
@@ -4122,7 +4152,7 @@ def _moe_mixtral(cfg, gen, failed):
     from repro_torch.kernels.flashattn import ref as FR
     from repro_torch.models import api
     from repro_torch.runtime.serving import Engine, Request
-    params, init_s = _moe_params(cfg)
+    params, init_s = _card_params(cfg, 14)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen,
                              device=DEVICE).tolist() for n in MOE_PROMPTS]
     max_len = max(MOE_PROMPTS) + MOE_MAX_NEW + 1
@@ -4143,7 +4173,7 @@ def _moe_mixtral(cfg, gen, failed):
         secs = time.perf_counter() - t0
         after = _campaign_launches()
         calls = len(reqs) + eng.stats.steps
-        want = {"qmatmul_acc": _moe_row4_per_call(cfg) * calls
+        want = {"qmatmul_acc": _row4_per_call(cfg) * calls
                 if backend == "cuda" else 0,
                 "flash_attention_fwd_lse": cfg.n_layers * len(reqs)}
         got = {k: after[k] - before[k] for k in want}
@@ -4223,7 +4253,7 @@ def _moe_mixtral(cfg, gen, failed):
           f"streams cuda == ref: {same} ({r['steps']} steps, cuda "
           f"{r['wall_s']:.2f} s, ref {runs['ref']['wall_s']:.2f} s); "
           f"launches cuda {r['launches']}, ref {runs['ref']['launches']} = "
-          f"derived ({_moe_row4_per_call(cfg)} row-4 launches per prefill "
+          f"derived ({_row4_per_call(cfg)} row-4 launches per prefill "
           f"and decode step): {launched}; logits of a prefill at S "
           f"{len(prompts[-1])} and {MOE_STEPS} decode steps at batch "
           f"{MOE_CAPACITY} equal bit for bit under cuda and ref: {bitwise}, "
@@ -4245,7 +4275,7 @@ def _moe_mixtral(cfg, gen, failed):
             "flash_ratio": ratio, "flash_seqs": list(seqs),
             "row9": flash, "prefill_ms": prefill_ms,
             "prefill_len": len(prompts[-1]), "decode_ms_per_step": decode_ms,
-            "row4_per_call": _moe_row4_per_call(cfg)}
+            "row4_per_call": _row4_per_call(cfg)}
 
 
 def _moe_kimi(cfg, gen, failed):
@@ -4256,7 +4286,7 @@ def _moe_kimi(cfg, gen, failed):
     7-10 at its attention shape (hd 112) against their plain versions, f32
     and bf16, out equal across rows 7-9; their times beside SDPA's."""
     from repro_torch.models import api
-    params, init_s = _moe_params(cfg)
+    params, init_s = _card_params(cfg, 14)
     toks = torch.randint(0, cfg.vocab_size, (1, MOE_KIMI_PROMPT),
                          generator=gen, device=DEVICE)
     runs = {}
@@ -4280,7 +4310,7 @@ def _moe_kimi(cfg, gen, failed):
             t2 = time.perf_counter()
         after = _campaign_launches()
         calls = 1 + MOE_STEPS
-        want = {"qmatmul_acc": _moe_row4_per_call(cfg) * calls
+        want = {"qmatmul_acc": _row4_per_call(cfg) * calls
                 if backend == "cuda" else 0,
                 "flash_attention_fwd_lse": cfg.n_layers}
         got = {k: after[k] - before[k] for k in want}
@@ -4333,7 +4363,7 @@ def _moe_kimi(cfg, gen, failed):
           f"vocab {cfg.vocab_size}), W8A8 FFN and experts, bf16, flash; "
           f"params on the card in {init_s:.2f} s; prefill S "
           f"{MOE_KIMI_PROMPT} {r['prefill_ms']:.2f} ms, decode "
-          f"{r['decode_ms_per_step']:.2f} ms/step ({_moe_row4_per_call(cfg)}"
+          f"{r['decode_ms_per_step']:.2f} ms/step ({_row4_per_call(cfg)}"
           f" row-4 launches per step); streams cuda == ref: {same}; the "
           f"{1 + MOE_STEPS} sampled logits equal bit for bit: {bitwise}, "
           f"finite: {finite}; launches cuda {r['launches']}, ref "
@@ -4359,7 +4389,7 @@ def _moe_kimi(cfg, gen, failed):
             "flash_ratio": {str(k): v for k, v in ratio.items()},
             "bwd_ratio": {str(k): v for k, v in bwd_ratio.items()},
             "hd112": fl_rows + bwd_rows,
-            "row4_per_call": _moe_row4_per_call(cfg)}
+            "row4_per_call": _row4_per_call(cfg)}
 
 
 def phase_moe(card: str) -> dict:
@@ -4398,6 +4428,487 @@ def phase_moe(card: str) -> dict:
     if failed:
         raise AssertionError("moe: " + "; ".join(failed))
     return out
+
+
+# slice 15: every registry name on one card
+DENSE_MODELS = (("command-r-plus-104b", 4), ("llama3-405b", 4),
+                ("qwen3-0.6b", None))     # (name, depth cut; None: in full)
+DENSE_PROMPT = 2048                # the prefill's S
+DENSE_BATCH = 4                    # the decode steps' batch
+DENSE_STEPS = 16
+DENSE_TRAIN_LAYERS = 2             # llama3-405b training: 2 of 126 layers
+DENSE_TRAIN_SEQ = 1024             # batch 1 x 1,024
+TRAIN_RUN_STEPS = 3                # steps per run; two runs from one state
+FLOAT64_ROWS = 2048                # the Adafactor hold's rows per block
+DENSE_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse", "flash_attention_bwd")
+DENSE_BUDGET_S = 100               # the phase's share of the limit
+MOE_TRAIN_LAYERS = 2               # mixtral-8x7b training: 2 of 32 layers
+MOE_TRAIN_SEQ = 4608               # the last 512 queries meet the window
+MOE_BWD_REPEATS = 5                # one MoE layer's backward, repeated
+MOE_TRAIN_ROWS = ("flash_attention_fwd_lse", "flash_attention_bwd")
+MOE_TRAIN_BUDGET_S = 40            # the phase's share of the limit
+
+
+def _dense_model(name, cfg, depth, gen, failed):
+    """One dense transformer at full width, W8A8 FFN, bf16, flash prefill,
+    weights drawn on the card: a DENSE_PROMPT-token prefill and DENSE_STEPS
+    decode steps at batch DENSE_BATCH after it (the prompt's cache spliced
+    into every row, so each step attends to the DENSE_PROMPT prefilled
+    positions and the steps before) under ``cuda`` and ``ref``, the
+    prefill's logits and every step's torch.equal across the two (``ref``
+    forms each integer product exactly, the rest is the same code), finite;
+    rows 4 (``_row4_per_call`` per call under ``cuda``, none under ``ref``)
+    and 9 (one per layer per prefill) launched as derived; row 9 against
+    its plain version at the prefill's attention shape; param seconds,
+    prefill ms, decode ms/step and the peak device memory of the model."""
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.kernels.flashattn import ref as FR
+    from repro_torch.models import api
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _card_params(cfg, 15)
+    S, L = DENSE_PROMPT, cfg.n_layers
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device=DEVICE)
+    step_toks = torch.randint(0, cfg.vocab_size, (DENSE_STEPS, DENSE_BATCH),
+                              generator=gen, device=DEVICE)
+    with torch.no_grad():
+        api.prefill(cfg, params, toks[:, :64], 64)              # warm up
+    runs, logits = {}, {}
+    for backend in ("cuda", "ref"):
+        bcfg = api.with_backend(cfg, backend)
+        before = _campaign_launches()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, one = api.prefill(bcfg, params, toks, S + DENSE_STEPS)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache = api.init_cache(cfg, DENSE_BATCH, S + DENSE_STEPS,
+                                   device=DEVICE)
+            for row in range(DENSE_BATCH):
+                api.cache_write_slot(cache, one, row, S)
+            del one
+            steps = []
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for tok in step_toks:
+                step, cache = api.decode_step(bcfg, params, tok, cache)
+                steps.append(step)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        after = _campaign_launches()
+        want = {"qmatmul_acc": _row4_per_call(cfg) * (1 + DENSE_STEPS)
+                if backend == "cuda" else 0,
+                "flash_attention_fwd_lse": L}
+        got = {k: after[k] - before[k] for k in want}
+        logits[backend] = (lg, torch.stack(steps))
+        runs[backend] = {"prefill_ms": (t1 - t0) * 1e3,
+                         "decode_ms_per_step": (t3 - t2) * 1e3 / DENSE_STEPS,
+                         "launches": got, "as_derived": got == want}
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(logits["cuda"], logits["ref"]))
+    finite = all(bool(torch.isfinite(t).all()) for t in logits["cuda"])
+    launched = all(r["as_derived"] for r in runs.values())
+    del logits, lg, steps, cache, params
+    torch.cuda.empty_cache()
+    # row 9 at the prefill's attention shape, and off the 64-row tiles
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    ratio = 0.0
+    for length in (S, S - 37):
+        q = torch.randn((1, H, length, hd), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn((1, KV, length, hd), generator=gen,
+                            device=DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        got = FK.flash_attention_fwd_lse(q, k, v)
+        ref = FR.flash_plain(q, k, v, emit="lse")
+        ratio = max(ratio, _flash_err(got[0], ref[0], torch.bfloat16)[1],
+                    _flash_err(got[1], ref[1], torch.float32)[1])
+    peak = torch.cuda.max_memory_allocated()
+    ok = bitwise and finite and launched
+    r = runs["cuda"]
+    print(f"dense: {name} ({depth}; d {cfg.d_model}, {H}/{KV} heads of "
+          f"{hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), W8A8 FFN, bf16, "
+          f"flash; params on the card in {init_s:.2f} s; prefill S {S} "
+          f"{r['prefill_ms']:.2f} ms, decode {r['decode_ms_per_step']:.2f} "
+          f"ms/step at batch {DENSE_BATCH} after the {S}-token prompt (ref "
+          f"{runs['ref']['prefill_ms']:.2f}"
+          f" ms, {runs['ref']['decode_ms_per_step']:.2f} ms/step); the logits "
+          f"of the prefill and {DENSE_STEPS} steps equal bit for bit under "
+          f"cuda and ref: {bitwise}, finite: {finite}; launches cuda "
+          f"{r['launches']}, ref {runs['ref']['launches']} = derived "
+          f"({_row4_per_call(cfg)} row-4 launches per call): {launched}; "
+          f"fwd_lse against flash_plain at (1, {H}, S, {hd})/(1, {KV}, S, "
+          f"{hd}), S {[S, S - 37]}: worst error / limit {ratio:.4f}; peak "
+          f"device memory {peak / 1e9:.2f} GB" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(name)
+    return {"layers": L, "depth": depth, "init_s": init_s,
+            "prefill_len": S, "decode_context": [S, S + DENSE_STEPS - 1],
+            "prefill_ms": r["prefill_ms"],
+            "decode_ms_per_step": r["decode_ms_per_step"],
+            "ref_prefill_ms": runs["ref"]["prefill_ms"],
+            "ref_decode_ms_per_step": runs["ref"]["decode_ms_per_step"],
+            "launches": r["launches"], "launches_as_derived": launched,
+            "logits_bitwise": bitwise, "finite": finite,
+            "flash_ratio": ratio, "peak_bytes": peak,
+            "row4_per_call": _row4_per_call(cfg)}
+
+
+def _train_batches(cfg, seq):
+    """TRAIN_RUN_STEPS seeded batches of 1 x ``seq`` tokens, on the card."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.config import ShapeConfig
+    stream = TokenStream(cfg, ShapeConfig("train", seq, 1, "train"))
+    return [{k: torch.from_numpy(v).to(DEVICE)
+             for k, v in stream.batch_at(i).items()}
+            for i in range(TRAIN_RUN_STEPS)]
+
+
+def _adafactor_first_update(cfg, seq):
+    """A closure over the drawn parameters: the port's first Adafactor
+    update (``Optimizer.update`` at step 0) of the FFN leaf
+    ``dense_blocks/wi``, (L, d, d_ff) at full width, held against the same
+    rule in float64 on the same gradient, the loss's on step 0's batch.  At
+    step 0 the state drops out (β = 1 − 1^-0.8 = 0): per layer, vr and vc
+    are the row and column means of g² + ε, u = g / max(sqrt(vr ⊗ vc /
+    max(mean(vr), ε)), ε); over the whole leaf u is scaled down to an RMS
+    of at most 1, then times −lr.  Every element of the bf16 update must
+    be within one bf16 step of the float64 value's magnitude (the f32
+    rule's own error is ~1e-6 of it, and rounding to bf16 moves it by at
+    most half a step).  The float64 side goes FLOAT64_ROWS rows at a
+    time."""
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    lr, eps = 3e-4, 1e-30            # make_optimizer's Adafactor, clip 1
+
+    def run(params):
+        batch = _train_batches(cfg, seq)[0]
+        wi = params["dense_blocks"]["wi"].detach().requires_grad_()
+        live = dict(params, dense_blocks=dict(params["dense_blocks"], wi=wi))
+        loss, _ = api.loss_fn(cfg, live, batch)
+        g, = torch.autograd.grad(loss, [wi])
+        wi, loss = wi.detach(), float(loss.detach())
+        del live
+        opt = optim.make_optimizer(cfg.optimizer)
+        u = opt.update({"wi": g}, opt.init({"wi": wi}), {"wi": wi},
+                       torch.zeros((), dtype=torch.int32, device=DEVICE)
+                       )[0]["wi"]
+        L, R, C = g.shape
+        blocks = [(i, slice(r, r + FLOAT64_ROWS)) for i in range(L)
+                  for r in range(0, R, FLOAT64_ROWS)]
+        vr = torch.empty((L, R), dtype=torch.float64, device=DEVICE)
+        vc = torch.zeros((L, C), dtype=torch.float64, device=DEVICE)
+        for i, rs in blocks:
+            g2 = g[i, rs].double().square_().add_(eps)
+            vr[i, rs] = g2.mean(-1)
+            vc[i] += g2.sum(-2)
+        vc /= R
+        den = torch.clamp(vr.mean(-1), min=eps)
+
+        def u64(i, rs):                 # before the clip and the −lr
+            r = vr[i, rs, None] * vc[i, None, :]
+            r.div_(den[i]).sqrt_().clamp_(min=eps)
+            return torch.div(g[i, rs].double(), r, out=r)
+
+        sq = 0.0
+        for i, rs in blocks:
+            x = u64(i, rs).view(-1)
+            sq += float(torch.dot(x, x))
+        urms = math.sqrt(sq / g.numel())
+        scale = -lr / max(urms, 1.0)
+        worst, past = 0.0, 0
+        for i, rs in blocks:
+            w = u64(i, rs).mul_(scale)
+            step = torch.exp2(torch.floor(torch.log2(
+                w.abs().clamp(min=2.0 ** -126))) - 7)
+            r = (u[i, rs].double() - w).abs_().div_(step)
+            worst = max(worst, float(r.max()))
+            past += int((r > 1).sum())
+        rms = float(u.float().square().mean().sqrt())
+        print(f"dense: llama3-405b's first Adafactor update of "
+              f"dense_blocks/wi {tuple(g.shape)} (loss {loss:.6f} on step "
+              f"0's batch): RMS of the normalised update before its clip "
+              f"{urms:.4f}, after it {rms / lr:.4f} × lr {lr}; against "
+              f"float64 on the same gradient: worst error / one bf16 step "
+              f"{worst:.4f}, {past} elements past it")
+        return {"adafactor_first_update": {
+            "leaf": "dense_blocks/wi", "shape": list(g.shape), "loss": loss,
+            "rms_before_clip": urms, "update_rms": rms,
+            "worst_over_bf16_step": worst, "past": past}}
+    return run
+
+
+def _train_twice(cfg, host_params, batches):
+    """Two runs of train steps (``make_train_step``, which writes the
+    state in place; the config's own optimizer), each from a clone of one
+    state: the parameters drawn on the card and kept on the host, so that
+    the card holds one state at a time beside its gradients, the
+    optimizer's ``init`` and step 0; each clone is made before the timer
+    starts.
+    Returns per run the losses (read back each step, as the FT loop reads
+    them), the seconds and the launches, and whether the two runs' final
+    parameters are torch.equal (the first run's kept on the host)."""
+    from repro_torch import tree
+    from repro_torch.train import optim, steps
+    opt = optim.make_optimizer(cfg.optimizer)
+    step = steps.make_train_step(cfg, opt)
+    runs, first, same = [], None, None
+    for r in range(2):
+        params = tree.map(lambda t: t.to(DEVICE, copy=True), host_params)
+        state = steps.TrainState(params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=DEVICE))
+        del params
+        before = _campaign_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = _campaign_launches()
+        runs.append({"losses": losses, "seconds": secs,
+                     "ms_per_step": secs * 1e3 / len(batches),
+                     "launches": {k: after[k] - before[k] for k in after}})
+        if r == 0:
+            first = tree.map(lambda t: t.to("cpu", copy=True), state.params)
+        else:
+            same = all(torch.equal(a.to(DEVICE), b) for a, b in zip(
+                tree.leaves(first), tree.leaves(state.params)))
+        del state, metrics
+        torch.cuda.empty_cache()
+    return runs, same
+
+
+def _train_model(label, name, cfg, depth, seq, failed, before_runs=None):
+    """Draw ``cfg``'s parameters on the card, call ``before_runs(params)``,
+    keep them on the host, then ``_train_twice`` on TRAIN_RUN_STEPS
+    batches of 1 x ``seq``: the two runs' losses ``==``, finite, final
+    parameters torch.equal; rows 9 (2·L per step: the forward and its
+    recompute) and 10 (L per step) launched as derived, row 4 never (no
+    W8A8 in training)."""
+    from repro_torch import tree
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = _card_params(cfg, 15)
+    extra = before_runs(params) if before_runs else {}
+    host = tree.map(lambda t: t.to("cpu", copy=True), params)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    batches = _train_batches(cfg, seq)
+    runs, same = _train_twice(cfg, host, batches)
+    del host
+    L, n = cfg.n_layers, TRAIN_RUN_STEPS
+    want = {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * L * n,
+            "flash_attention_bwd": L * n}
+    launched = all({k: r["launches"][k] for k in want} == want
+                   for r in runs)
+    a, b = (r["losses"] for r in runs)
+    replay = a == b
+    finite = all(math.isfinite(x) for x in a + b)
+    peak = torch.cuda.max_memory_allocated()
+    ok = replay and same and finite and launched
+    print(f"{label}: {name} training ({depth}; {n_params / 1e9:.2f} G "
+          f"parameters, "
+          f"{cfg.param_dtype}, {cfg.optimizer}, remat {cfg.remat}, flash, "
+          f"batch 1 x {seq}): params on the card in {init_s:.2f} s; two runs "
+          f"of {n} steps from clones of one state: losses "
+          f"{[f'{x:.6f}' for x in a]} == {[f'{x:.6f}' for x in b]}: "
+          f"{replay}, finite: {finite}; final parameters equal: {same}; "
+          f"{runs[0]['ms_per_step']:.1f} / {runs[1]['ms_per_step']:.1f} "
+          f"ms/step; launches per run {runs[0]['launches']} = derived "
+          f"{want}: {launched}; peak device memory {peak / 1e9:.2f} GB"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(f"{name} training")
+    return {"layers": L, "depth": depth, "seq": seq, "params": n_params,
+            "init_s": init_s, "runs": runs, "losses_equal": replay,
+            "params_equal": same, "finite": finite,
+            "launches_as_derived": launched, "peak_bytes": peak, **extra}
+
+
+def _phase_end(label, out, failed, launches_needed, peak, budget, t_phase,
+               card):
+    """A phase's closing checks: every row of its path launched, the peak
+    device memory under MOE_PEAK_BYTES, the time within its budget."""
+    launches = _campaign_launches()
+    print(f"{label}: launches {launches}; peak device memory "
+          f"{peak / 1e9:.2f} GB (limit {MOE_PEAK_BYTES / 1e9:.0f} GB)")
+    if any(launches[n] == 0 for n in launches_needed):
+        failed.append(f"a row of the path never launched: {launches}")
+    if peak >= MOE_PEAK_BYTES:
+        failed.append(f"peak memory {peak / 1e9:.2f} GB")
+    secs = time.perf_counter() - t_phase
+    out.update(launches=launches, peak_bytes=peak, seconds=secs)
+    print(f"{label}: phase in {secs:.1f} s (budget {budget} s) on {card}")
+    if secs > budget:
+        failed.append(f"{label} phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return out
+
+
+def phase_dense(card: str) -> dict:
+    """Slice 15: the dense transformers the earlier phases do not drive,
+    at full width, weights drawn on the card: command-r-plus-104b and
+    llama3-405b with 4 layers each and qwen3-0.6b in full, each served
+    through ``_dense_model``; then llama3-405b trained (``_train_model``:
+    2 of 126 layers, Adafactor, remat full, batch 1 x 1,024, after its first
+    Adafactor update of a full-width FFN leaf is held against float64 by
+    ``_adafactor_first_update``), and row 10
+    at its attention shape, (1, 128, 1024, 128)/(1, 8, 1024, 128) bf16,
+    against its plain version and timed beside SDPA's backward.  Launch
+    counts are reset at its start and read at its end; the peak device
+    memory is held under MOE_PEAK_BYTES."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    peak = 0
+    for name, layers in DENSE_MODELS:
+        full = registry.get(name)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                                  quant="w8a8_ffn", attn_impl="flash")
+        depth = (f"{full.n_layers} layers, in full" if layers is None else
+                 f"depth cut to {layers} of {full.n_layers} layers")
+        out[name] = _dense_model(name, cfg, depth, gen, failed)
+        peak = max(peak, out[name]["peak_bytes"])
+        torch.cuda.empty_cache()
+    full = registry.get("llama3-405b")
+    tcfg = dataclasses.replace(full, n_layers=DENSE_TRAIN_LAYERS,
+                               attn_impl="flash")
+    out["llama3-405b train"] = res = _train_model(
+        "dense", "llama3-405b", tcfg, f"depth cut to {DENSE_TRAIN_LAYERS} of "
+        f"{full.n_layers} layers", DENSE_TRAIN_SEQ, failed,
+        before_runs=_adafactor_first_update(tcfg, DENSE_TRAIN_SEQ))
+    first = res["adafactor_first_update"]
+    if first["worst_over_bf16_step"] > 1:
+        failed.append(f"llama3-405b's first Adafactor update off float64: "
+                      f"{first}")
+    peak = max(peak, out["llama3-405b train"]["peak_bytes"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # row 10 at the training path's attention shape
+    H, KV, hd = tcfg.n_heads, tcfg.n_kv_heads, tcfg.resolved_head_dim
+    ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    case = FlashCase(gen, 1, H, KV, DENSE_TRAIN_SEQ, hd, torch.bfloat16)
+    max_err = {"flash_attention_bwd": _hold_flash_bwd(
+        "llama3_train", case, gen, ratio)}
+    shape = [(1, H, KV, DENSE_TRAIN_SEQ, hd, None)]
+    bwd_rows, bwd_calls = phase_time_bwd(gen, max_err, shapes=shape,
+                                         reps=MOE_TIME_REPS)
+    bwd_device_times(bwd_rows, bwd_calls)
+    row = bwd_rows[0]
+    print(f"dense: row 10 at (1, {H}, {DENSE_TRAIN_SEQ}, {hd})/(1, {KV}, "
+          f"{DENSE_TRAIN_SEQ}, {hd}) bf16: error / limit "
+          f"{ratio[torch.bfloat16]:.4f}, two launches equal; "
+          f"{row['ms']:.4f} ms (device {row['device_ms']}), SDPA backward "
+          f"{row['library_ms']:.4f} ms (device {row['library_device_ms']}), "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+    out["row10"] = dict(row, bwd_ratio=ratio[torch.bfloat16],
+                        max_abs_err=max_err["flash_attention_bwd"])
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    return _phase_end("dense", out, failed, DENSE_ROWS, peak,
+                      DENSE_BUDGET_S, t_phase, card)
+
+
+def _moe_backward_repeats(cfg, gen):
+    """A closure over the drawn parameters: MoE layer 0's ``_moe_ffn``
+    backward, MOE_BWD_REPEATS times on one seeded bf16 input of
+    MOE_TRAIN_SEQ tokens and one cotangent, at the config's top-k and with
+    every expert chosen (top-8: a token's eight contributions, summed in
+    another order, would show in the bits); the gradients of the input and
+    of every weight the layer reads must be torch.equal each time."""
+    from repro_torch.models import transformer as T
+
+    def run(params):
+        bp = T._layers(params["moe_blocks"])[0]
+        names = [n for n in ("ln2", "router", "we_g", "we_i", "we_o",
+                             "ws_g", "ws_i", "ws_o") if n in bp]
+        x = torch.randn((1, MOE_TRAIN_SEQ, cfg.d_model), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        dy = torch.randn(x.shape, generator=gen,
+                         device=DEVICE).to(torch.bfloat16)
+        equal = {}
+        for k in sorted({cfg.moe.top_k, cfg.moe.n_experts}):
+            kcfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, top_k=k))
+            first, same = None, True
+            for _ in range(MOE_BWD_REPEATS):
+                live = dict(bp, **{n: bp[n].detach().requires_grad_()
+                                   for n in names})
+                xi = x.detach().requires_grad_()
+                y, aux, z = T._moe_ffn(kcfg, live, xi)
+                grads = torch.autograd.grad(
+                    (y, aux, z), [xi] + [live[n] for n in names],
+                    (dy, torch.ones_like(aux), torch.ones_like(z)))
+                if first is None:
+                    first = grads
+                else:
+                    same = same and all(torch.equal(a, b)
+                                        for a, b in zip(first, grads))
+            equal[f"top{k}"] = same
+            del first, grads
+        print(f"moe_train: MoE layer 0's backward ({MOE_TRAIN_SEQ} tokens, "
+              f"bf16; gradients of the input and of {names}) "
+              f"{MOE_BWD_REPEATS} times on one input: torch.equal each time "
+              f"{equal}")
+        return {"moe_backward_equal": equal}
+    return run
+
+
+def phase_moe_train(card: str) -> dict:
+    """Slice 15: an MoE model trained on the card: mixtral-8x7b at full
+    width, 2 of 32 layers, bf16, flash (its 4,096 window: the last 512 of
+    4,608 queries meet it), AdamW, its own remat, batch 1 x 4,608, through
+    ``_train_model`` (two runs of steps from clones of one state,
+    losses ``==``, final parameters torch.equal, rows 9 and 10 as
+    derived), after MoE layer 0's backward taken MOE_BWD_REPEATS times
+    (``_moe_backward_repeats``); row 10 at its attention shape with the
+    window against its plain version.  It drives the step function, not
+    ``runtime/ft_loop.run``: the loop saves a checkpoint at step 0, and one
+    of 2-layer mixtral with its AdamW moments is ~32 GB of disk per save
+    (the SmolLM train phase drives the loop with its recovery and resume
+    drills).  Launch counts are reset at its start and read at its end;
+    the peak device memory is held under MOE_PEAK_BYTES."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    full = registry.get("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS,
+                              attn_impl="flash")
+    res = _train_model("moe_train", "mixtral-8x7b", cfg, f"depth cut to "
+                       f"{MOE_TRAIN_LAYERS} of {full.n_layers} layers",
+                       MOE_TRAIN_SEQ, failed,
+                       before_runs=_moe_backward_repeats(cfg, gen))
+    if not all(res["moe_backward_equal"].values()):
+        failed.append(f"MoE backward not repeatable: "
+                      f"{res['moe_backward_equal']}")
+    out["mixtral-8x7b train"] = res
+    peak = res["peak_bytes"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # row 10 at the training path's attention shape, with the window
+    ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    case = FlashCase(gen, 1, cfg.n_heads, cfg.n_kv_heads, MOE_TRAIN_SEQ,
+                     cfg.resolved_head_dim, torch.bfloat16,
+                     window=cfg.swa_window)
+    err = _hold_flash_bwd("mixtral_train", case, gen, ratio)
+    print(f"moe_train: row 10 at (1, {cfg.n_heads}, {MOE_TRAIN_SEQ}, "
+          f"{cfg.resolved_head_dim})/(1, {cfg.n_kv_heads}, {MOE_TRAIN_SEQ}, "
+          f"{cfg.resolved_head_dim}) bf16, window {cfg.swa_window}: error / "
+          f"limit {ratio[torch.bfloat16]:.4f}, two launches equal")
+    out["row10"] = {"bwd_ratio": ratio[torch.bfloat16], "max_abs_err": err}
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    return _phase_end("moe_train", out, failed, MOE_TRAIN_ROWS, peak,
+                      MOE_TRAIN_BUDGET_S, t_phase, card)
 
 
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
@@ -4492,6 +5003,8 @@ def main() -> None:
     dse = phase_dse(cfg, lm_params, card)
     recurrent = phase_recurrent(card)
     moe = phase_moe(card)
+    dense = phase_dense(card)
+    moe_train = phase_moe_train(card)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -4534,7 +5047,8 @@ def main() -> None:
                        "campaign": campaign,
                        "dependable": dependable, "fleet": fleet,
                        "embed": embed, "dse": dse,
-                       "recurrent": recurrent, "moe": moe}, f, indent=1)
+                       "recurrent": recurrent, "moe": moe, "dense": dense,
+                       "moe_train": moe_train}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,21 @@
 """Architecture registry: ``get(name)`` resolves here.
 
 The counterpart of ``repro.configs.registry``, holding the configurations
-the port runs: the dense transformers that fit one card, token-input and
+the port runs, every name of the reference's: the dense transformers,
+token-input (``command-r-plus-104b`` and ``llama3-405b`` among them: their
+``fsdp_params`` hint waits for sharding, ROADMAP.md queue 1, item 17) and
 embedding-input (``musicgen-large``, ``llava-next-34b``: the caller's
 ``embeds`` stand in for their stub front ends), the mixture-of-experts
-transformers on one card (``mixtral-8x7b``, ``kimi-k2-1t-a32b``: the
-meshless MoE path), and the recurrent families (``rwkv6-1.6b``,
-``recurrentgemma-2b``).  The reference's other names resolve to a
-``NotImplementedError`` naming the ROADMAP item that brings them.
+transformers (``mixtral-8x7b``, ``kimi-k2-1t-a32b``: the meshless MoE
+path), and the recurrent families (``rwkv6-1.6b``, ``recurrentgemma-2b``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs.command_r_plus_104b import CONFIG as _cmdr
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
+from repro_torch.configs.llama3_405b import CONFIG as _llama3
 from repro_torch.configs.llava_next_34b import CONFIG as _llava
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
 from repro_torch.configs.musicgen_large import CONFIG as _musicgen
@@ -24,24 +26,14 @@ from repro_torch.configs.smollm_135m import CONFIG as _smollm
 from repro_torch.models.config import ArchConfig
 
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in (_smollm, _qwen3, _rwkv6, _musicgen, _llava,
-                        _rgemma, _mixtral, _kimi)}
-
-_NOT_YET = {
-    "command-r-plus-104b": "a model sharded over several cards: ROADMAP.md "
-                           "queue 1, item 17",
-    "llama3-405b": "a model sharded over several cards: ROADMAP.md queue 1, "
-                   "item 17",
-}
+    c.name: c for c in (_smollm, _qwen3, _cmdr, _llama3, _rwkv6, _musicgen,
+                        _llava, _rgemma, _mixtral, _kimi)}
 
 
 def get(name: str) -> ArchConfig:
-    if name in ARCHS:
-        return ARCHS[name]
-    if name in _NOT_YET:
-        raise NotImplementedError(
-            f"arch {name!r} is not in the port yet: {_NOT_YET[name]}")
-    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    return ARCHS[name]
 
 
 def names():

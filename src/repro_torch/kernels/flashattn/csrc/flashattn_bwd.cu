@@ -56,6 +56,20 @@
 //   dv += P^T dO and dk += dS^T Q.  Grid (B*KV, ceil(S/64)): key tile 0,
 //   which the most causal query tiles see, first.
 //
+//   The tensor cores' f32 accumulation comes out short on long sums: over
+//   llama3-405b's G * S = 16 * 1024 products per dk and dv element (2,048
+//   mma steps into one accumulator) the mean error of |dk| and |dv| was
+//   -2.4e-5 and -2.5e-5 relative to a float64 witness, against -3e-6 and
+//   -5e-6 for the plain version, and 14 elements left chip_smoke.py's
+//   limit (python -m repro_torch.kernels.flashattn.bwd_witness, an H100).
+//   So dk and dv are flushed every kFlushTiles query tiles into f32
+//   totals with round-to-nearest adds, in a fixed order: at most 64 mma
+//   steps (128 at 64-row tiles) feed an accumulator between flushes,
+//   whatever G and S.  The totals, each thread's own fragment's, live in
+//   an f32 workspace the wrapper allocates (64 KB a block at hd 128): held
+//   in shared memory they would double the block's 70 KB and halve the
+//   blocks an SM runs (mixtral-8x7b's windowed shape took 1.4x as long).
+//
 //   ldmatrix without .trans reads the A operands (Q, dO; K, V) and the B
 //   operands of S and dP (K^T, V^T; Q^T, dO^T), whose k index runs along a
 //   shared row; with .trans it reads the B operands of the three gradient
@@ -76,7 +90,7 @@
 //
 //   Registers.  At hd = 128 the dk and dv accumulators of 16 keys take 128
 //   registers a thread, so the dK/dV query tile is 32 rows there (S^T and
-//   dP^T then take 32; ptxas: 253 registers, no spill).  At hd = 112 they
+//   dP^T then take 32; ptxas: 254 registers, no spill).  At hd = 112 they
 //   take 112, and a 64-row tile's S^T and dP^T would add 64 more, so the
 //   tile is 32 rows there too.
 //
@@ -123,7 +137,9 @@
 // take it dynamically, after cudaFuncSetAttribute.
 //
 // The C entry launches both kernels of the inputs' type on the given
-// stream and returns the first CUDA error (0 on success).
+// stream and returns the first CUDA error (0 on success).  For bf16 inputs
+// acc is an f32 workspace of flash_attention_bwd_workspace_floats(b, kv, s,
+// hd) floats, the dK/dV kernel's totals; f32 inputs do not read it.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -148,6 +164,12 @@ constexpr int kMmaBQ = 16 * kWarps;            // dQ: query rows per block
 constexpr int kMmaBK = 64;                     // dQ: keys per tile
 constexpr int kMmaBKV = 16 * kWarps;           // dKV: keys per block
 constexpr int kPad = 8;                        // bf16 of padding per shared row
+constexpr int kFlushTiles = 16;                // dKV: query tiles per flush
+// bf16 dKV: the f32 totals of dk and dv per block of kMmaBKV keys, every
+// thread's accumulator fragments of both
+__host__ __device__ constexpr long long dkv_totals(int hd) {
+  return 2LL * (hd / 8) * 4 * kThreads;
+}
 
 // dKV: query rows per tile
 template <int HD>
@@ -163,6 +185,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
+  float* acc;          // bf16 dK/dV: the f32 totals (the C entry's acc)
   int b, h, kv, s;
   int causal;
   int window;          // < 0: no window
@@ -716,6 +739,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bkv / a.kv, kvh = bkv % a.kv, groups = a.h / a.kv;
   const int k_lo = blockIdx.y * kMmaBKV;
   const size_t k_off = static_cast<size_t>(bkv) * a.s * HD;
+  // the block's f32 totals of dk and dv in the workspace, each thread's own
+  // fragment: element (n, e) of dk at [(n * 4 + e) * 2][thread], of dv at
+  // [(n * 4 + e) * 2 + 1][thread]
+  float* tot = a.acc + (static_cast<size_t>(bkv) * gridDim.y + blockIdx.y) *
+                           dkv_totals(HD);
 
   // the query tiles that can see this block's keys: from the tile holding
   // row k_lo when causal, up to row k_lo + kMmaBKV - 1 + window when
@@ -751,6 +779,28 @@ __global__ void __launch_bounds__(kThreads)
   // query columns of each n-tile: col and col + 1
   const int r0 = k_lo + warp * 16 + (lane >> 2), col = (lane & 3) * 2;
   float dk[kDT][4] = {}, dv[kDT][4] = {};
+  for (int j = 0; j < 2 * kDT * 4; ++j) tot[j * kThreads + threadIdx.x] = 0.f;
+  // dk and dv added into the totals with round-to-nearest f32 adds and
+  // zeroed; on the last tile the sums stay in dk and dv for the store
+  auto flush = [&](bool last) {
+#pragma unroll
+    for (int n = 0; n < kDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* tk = tot + (n * 4 + e) * 2 * kThreads + threadIdx.x;
+        float* tv = tk + kThreads;
+        const float k_sum = __fadd_rn(*tk, dk[n][e]);
+        const float v_sum = __fadd_rn(*tv, dv[n][e]);
+        if (last) {
+          dk[n][e] = k_sum;
+          dv[n][e] = v_sum;
+        } else {
+          *tk = k_sum;
+          *tv = v_sum;
+          dk[n][e] = dv[n][e] = 0.f;
+        }
+      }
+  };
 
   for (int it = 0; it < n_it; ++it) {
     if (it + 1 < n_it) {                      // the next tile's copy
@@ -815,6 +865,10 @@ __global__ void __launch_bounds__(kThreads)
         mma(dk[n + 1], dlo, qb[2], qb[3]);
       }
     }
+    if (it + 1 == n_it)
+      flush(true);
+    else if ((it + 1) % kFlushTiles == 0)
+      flush(false);
     __syncthreads();                          // done reading this buffer
   }
   store_rows<HD>(static_cast<bf16*>(a.dk) + k_off, dk, r0, col, a.s);
@@ -871,9 +925,17 @@ int launch(const Args& a, int hd, bool bf16_in, cudaStream_t stream) {
 
 extern "C" {
 
+// the floats of the bf16 path's workspace (the launch entry's acc) at these
+// sizes: the totals of every key block of every (batch, kv head)
+long long flash_attention_bwd_workspace_floats(int b, int kv, int s, int hd) {
+  return static_cast<long long>(b) * kv * ((s + kMmaBKV - 1) / kMmaBKV) *
+         dkv_totals(hd);
+}
+
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dvec, void* dq, void* dk, void* dv,
+                               void* acc,
                                int b, int h, int kv, int s, int hd, int causal,
                                int window, int bf16, float scale,
                                void* stream) {
@@ -887,6 +949,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
+  a.acc = static_cast<float*>(acc);
+  if (bf16 && acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   a.b = b;
   a.h = h;
   a.kv = kv;

@@ -43,6 +43,7 @@ A CUDA tensor reaches the kernel or an exception, never the plain version.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 import pathlib
@@ -67,7 +68,7 @@ _ENTRIES = {
     "flash_attention_checked_launch": [_P] * 6 + _DIMS,
     "flash_attention_fwd_lse_launch": [_P] * 5 + _DIMS,
 }
-_BWD_ENTRIES = {"flash_attention_bwd_launch": [_P] * 9 + _DIMS}
+_BWD_ENTRIES = {"flash_attention_bwd_launch": [_P] * 10 + _DIMS}
 
 
 def build() -> Tuple[pathlib.Path, str]:
@@ -89,7 +90,10 @@ def _lib():
 
 @functools.lru_cache(maxsize=1)
 def _bwd_lib():
-    return cuda_lib.load(BWD_SOURCE, _BWD_ENTRIES, FLAGS)
+    lib = cuda_lib.load(BWD_SOURCE, _BWD_ENTRIES, FLAGS)
+    size = lib.flash_attention_bwd_workspace_floats     # (b, kv, s, hd)
+    size.argtypes, size.restype = [_I] * 4, ctypes.c_longlong
+    return lib
 
 
 def _dims(q, k, v, causal, window):
@@ -221,10 +225,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    window=window, block_k=block_k)
     dvec = ref.bwd_dvec(do, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the bf16 dK/dV kernel's f32 totals, sized by its source
+    acc = None if q.dtype != torch.bfloat16 else torch.empty(
+        _bwd_lib().flash_attention_bwd_workspace_floats(
+            B, k.shape[1], S, q.shape[-1]),
+        dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *dims)
+            None if acc is None else acc.data_ptr(), *dims)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -100,8 +100,8 @@ def _attn_block_params(gen, n, cfg, pdt):
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
-    """The reference's parameter dict, drawn from ``gen`` on the CPU and
-    moved to ``device``."""
+    """The reference's parameter dict, drawn from ``gen`` on its device
+    (a CPU generator draws what it always drew) and moved to ``device``."""
     dev = resolve_device(device)
     d, V, ff = cfg.d_model, cfg.vocab_size, cfg.d_ff
     W = cfg.recurrent.lru_width or d

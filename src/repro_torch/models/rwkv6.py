@@ -56,8 +56,8 @@ def _acc_dtype(dt: torch.dtype) -> torch.dtype:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
-    """The reference's parameter dict, drawn from ``gen`` on the CPU and
-    moved to ``device``."""
+    """The reference's parameter dict, drawn from ``gen`` on its device
+    (a CPU generator draws what it always drew) and moved to ``device``."""
     dev = resolve_device(device)
     d, L, V, ff = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.d_ff
     hd = cfg.recurrent.head_dim

@@ -6,7 +6,9 @@ of pure functions over a parameter pytree (``repro_torch.tree``): ``update``
 returns new update and state trees and mutates nothing, as the reference's
 (so a snapshot taken by the checkpointer, or a state kept for a replay,
 never changes under the caller).  Arithmetic in f32 in the reference's
-order; updates cast back to each parameter's dtype.
+order; updates cast back to each parameter's dtype.  ``apply_`` writes the
+same values into the state and its parameters in place, as the reference's
+donated buffers take them: the train step (``train.steps``) runs it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,68 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
     name: str
+    apply_: Callable[[Any, Any, Any, torch.Tensor], None]
+
+
+def _optimizer(name, init, leaf, split, join,
+               elementwise=False) -> Optimizer:
+    """An ``Optimizer`` from its rule for one parameter.
+
+    ``leaf(g, s, p, step)`` returns the parameter's update, in its dtype,
+    and its new state, a dict of f32 tensors that ``leaf`` allocated;
+    ``split(state, path)`` is the parameter's state dict, holding the
+    state's own tensors; ``join(structure, states)`` is the state tree of
+    the per-parameter dicts.  ``update`` is functional.  ``apply_`` is its
+    in-place twin, the train step's: parameter by parameter it adds the
+    update into the parameter and copies the new state over the old, so
+    that no second copy of the parameters or of the state is ever held (a
+    model whose parameters, gradients and state fill most of the card
+    trains on it); the values are ``update``'s bit for bit.  An
+    ``elementwise`` rule runs there a stacked leaf in blocks of whole
+    slices of its leading axis, as many as fit in ``_BLOCK`` elements (one
+    at least): the same values, a block's temporaries, and one block for a
+    leaf that fits (each block costs the rule's launches again)."""
+    def update(grads, state, params, step):
+        ups, states = [], []
+        for path, p in tree.leaves_with_paths(params):
+            u, s = leaf(_at(grads, path), split(state, path), p, step)
+            ups.append(u)
+            states.append(s)
+        structure = tree.structure(params)
+        return tree.unflatten(structure, ups), join(structure, states)
+
+    def apply_(grads, state, params, step):
+        for path, p in tree.leaves_with_paths(params):
+            g, old = _at(grads, path), split(state, path)
+            for i in _blocks(p) if elementwise and p.dim() > 2 else (...,):
+                u, new = leaf(g[i], {k: t[i] for k, t in old.items()}, p[i],
+                              step)
+                p[i].add_(u)
+                for k, t in new.items():
+                    old[k][i].copy_(t)
+
+    return Optimizer(init, update, name, apply_)
+
+
+# elements per block of an elementwise rule in place (512 MB of f32): a
+# leaf that fits runs whole, a larger one as many slices as fit
+_BLOCK = 1 << 27
+
+
+def _blocks(p: torch.Tensor):
+    n = max(1, _BLOCK * p.shape[0] // max(p.numel(), 1))
+    return [slice(i, i + n) for i in range(0, p.shape[0], n)]
+
+
+def _keyed(*keys):
+    """(split, join) of a state that holds one params-shaped tree per key."""
+    def split(state, path):
+        return {k: _at(state[k], path) for k in keys}
+
+    def join(structure, states):
+        return {k: tree.unflatten(structure, [s[k] for s in states])
+                for k in keys}
+    return split, join
 
 
 def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
@@ -34,16 +98,30 @@ def global_norm(t) -> torch.Tensor:
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
-def clip_by_global_norm(t, max_norm: float):
-    """(t scaled to global norm at most ``max_norm``, the norm before)."""
+def clip_by_global_norm_(t, max_norm: float) -> torch.Tensor:
+    """Scale every leaf of ``t`` in place so that the global norm is at
+    most ``max_norm``; returns the norm before."""
     norm = global_norm(t)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree.map(lambda g: g * scale.to(g.dtype), t), norm
+    for g in tree.leaves(t):
+        g.mul_(scale.to(g.dtype))
+    return norm
+
+
+def clip_by_global_norm(t, max_norm: float):
+    """(t scaled to global norm at most ``max_norm``, the norm before)."""
+    t = tree.map(torch.clone, t)
+    return t, clip_by_global_norm_(t, max_norm)
 
 
 def _step_t(step: torch.Tensor) -> torch.Tensor:
     return step.to(torch.float32) + 1.0
 
+
+# Each rule below computes the reference's expression in the reference's
+# order; it writes in place only into tensors it allocated itself, so that a
+# full-width FFN or embedding leaf holds at most three f32 temporaries
+# beside its new state, where the expressions written out hold five or six.
 
 # ---------------------------------------------------------------------------
 # AdamW
@@ -56,26 +134,28 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree.map(_f32_zeros, params),
                 "v": tree.map(_f32_zeros, params)}
 
-    def update(grads, state, params, step):
+    def leaf(g, s, p, step):
         t = _step_t(step)
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
-        ups, ms, vs = [], [], []
-        for g, m, v, p in zip(tree.leaves(grads), tree.leaves(state["m"]),
-                              tree.leaves(state["v"]), tree.leaves(params)):
-            g = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
-                + weight_decay * p.to(torch.float32)
-            ups.append((-lr * u).to(p.dtype))
-            ms.append(m)
-            vs.append(v)
-        s = tree.structure(params)
-        return tree.unflatten(s, ups), {"m": tree.unflatten(s, ms),
-                                        "v": tree.unflatten(s, vs)}
+        g = g.to(torch.float32)
+        m = b1 * s["m"]
+        m.add_((1 - b1) * g)                     # b1·m + (1 − b1)·g
+        v = b2 * s["v"]
+        v.add_((1 - b2) * g * g)                 # b2·v + (1 − b2)·g·g
+        del g
+        den = v / bc2
+        den.sqrt_()
+        den.add_(eps)                            # sqrt(v / bc2) + eps
+        u = m / bc1
+        u.div_(den)
+        del den
+        u.add_(weight_decay * p.to(torch.float32))
+        u.mul_(-lr)
+        return u.to(p.dtype), {"m": m, "v": v}
 
-    return Optimizer(init, update, "adamw")
+    return _optimizer("adamw", init, leaf, *_keyed("m", "v"),
+                      elementwise=True)
 
 
 # ---------------------------------------------------------------------------
@@ -101,38 +181,41 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         return tree.unflatten(tree.structure(params),
                               [st(p) for p in tree.leaves(params)])
 
-    def update(grads, state, params, step):
+    def leaf(g, s, p, step):
         t = _step_t(step)
         beta = 1.0 - t ** (-decay)
-        structure = tree.structure(params)
-        ups, ns = [], []
-        for path, p in tree.leaves_with_paths(params):
-            g = _at(grads, path).to(torch.float32)
-            s = _at(state, path)
-            g2 = g * g + eps
-            if _factored(p):
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rms = torch.sqrt(
-                    vr[..., :, None] * vc[..., None, :]
-                    / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
-                                  [..., None], min=eps))
-                u = g / torch.clamp(rms, min=eps)
-                new_s = {"vr": vr, "vc": vc}
-            else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g / torch.sqrt(v + eps)
-                new_s = {"v": v}
-            # update clipping (RMS of update ≤ clip_threshold)
-            urms = torch.sqrt(torch.mean(u * u))
-            u = u / torch.clamp(urms / clip_threshold, min=1.0)
-            if weight_decay:
-                u = u + weight_decay * p.to(torch.float32)
-            ups.append((-lr * u).to(p.dtype))
-            ns.append(new_s)
-        return tree.unflatten(structure, ups), tree.unflatten(structure, ns)
+        g = g.to(torch.float32)
+        g2 = g * g
+        g2.add_(eps)
+        if _factored(p):
+            vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
+            vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            del g2
+            # rms = sqrt(vr ⊗ vc / mean(vr)), then u = g / max(rms, eps)
+            u = vr[..., :, None] * vc[..., None, :]
+            u.div_(torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
+                               [..., None], min=eps))
+            u.sqrt_()
+            u.clamp_(min=eps)
+            torch.div(g, u, out=u)
+            new = {"vr": vr, "vc": vc}
+        else:
+            v = beta * s["v"] + (1 - beta) * g2
+            u = g / torch.sqrt(v + eps)
+            new = {"v": v}
+        del g
+        # update clipping (RMS of update ≤ clip_threshold)
+        urms = torch.sqrt(torch.mean(u * u))
+        u.div_(torch.clamp(urms / clip_threshold, min=1.0))
+        if weight_decay:
+            u.add_(weight_decay * p.to(torch.float32))
+        u.mul_(-lr)
+        return u.to(p.dtype), new
 
-    return Optimizer(init, update, "adafactor")
+    def join(structure, states):
+        return tree.unflatten(structure, states)
+
+    return _optimizer("adafactor", init, leaf, _at, join)
 
 
 def _at(t, path):
@@ -145,13 +228,11 @@ def sgdm(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
     def init(params):
         return {"m": tree.map(_f32_zeros, params)}
 
-    def update(grads, state, params, step):
-        m = tree.map(lambda g, mm: momentum * mm + g.to(torch.float32),
-                     grads, state["m"])
-        updates = tree.map(lambda mm, p: (-lr * mm).to(p.dtype), m, params)
-        return updates, {"m": m}
+    def leaf(g, s, p, step):
+        m = momentum * s["m"] + g.to(torch.float32)
+        return (-lr * m).to(p.dtype), {"m": m}
 
-    return Optimizer(init, update, "sgdm")
+    return _optimizer("sgdm", init, leaf, *_keyed("m"), elementwise=True)
 
 
 def make_optimizer(name: str, lr: float = 3e-4) -> Optimizer:

@@ -5,10 +5,16 @@ The counterpart of the single-device part of ``repro.train.steps``.
 ``torch.autograd.grad`` of ``models.api.loss_fn`` takes the place of
 ``jax.value_and_grad``, a Python loop over ``cfg.grad_accum`` microbatches
 the reference's ``lax.scan`` (gradients accumulated in f32), then the
-global-norm clip and the optimizer update.  Nothing is updated in place:
-the step returns a new ``TrainState``, and the state it was given stays
-valid (the fault-tolerant loop keeps it for a replay).  The sharding specs,
-``input_specs`` and ``abstract_train_state`` come with parallelism
+global-norm clip and the optimizer update.  The step takes the state as
+the reference's jitted step takes a donated one: it clips its gradients in
+place and writes the new parameters and optimizer state into the given
+state's tensors (``Optimizer.apply_``, bit for bit the functional
+``Optimizer.update``), so that no second copy of a state is ever held and a
+model whose parameters, gradients and optimizer state fill most of the card
+trains on one.  It returns a ``TrainState`` of those tensors and a new step
+counter.  A caller that keeps a state (to replay from it, or to compare two
+runs) clones it first: ``tree.map(torch.clone, state)``.  The sharding
+specs, ``input_specs`` and ``abstract_train_state`` come with parallelism
 (ROADMAP.md queue 1, item 17).
 """
 from __future__ import annotations
@@ -80,12 +86,11 @@ def make_train_step(cfg: ArchConfig,
                 loss = loss + l_i
             grads = tree.map(lambda g: g / n_micro, grads)
             loss = loss / n_micro
-        grads, gnorm = optim_mod.clip_by_global_norm(grads, grad_clip)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params, state.step)
-        params = tree.map(torch.add, state.params, updates)
+        gnorm = optim_mod.clip_by_global_norm_(grads, grad_clip)
+        optimizer.apply_(grads, state.opt_state, state.params, state.step)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
-        return TrainState(params, opt_state, state.step + 1), metrics
+        return TrainState(state.params, state.opt_state,
+                          state.step + 1), metrics
 
     return train_step
 

@@ -203,7 +203,7 @@ def test_remat_changes_no_value_and_counts_recompute(remat, monkeypatch):
     _, ts = start_state(configs()[0])
     _, tb = batch_of(tcfg)
     step = tsteps.make_train_step(tcfg)
-    new, metrics = step(ts, tb)
+    new, metrics = step(tree.map(torch.clone, ts), tb)
     L = tcfg.n_layers
     assert calls == {"fwd": (1 if remat == "none" else 2) * L, "bwd": L}
     ref_new, ref_metrics = tsteps.make_train_step(base_cfg)(ts, tb)
@@ -237,19 +237,71 @@ def test_train_steps_track_reference(grad_accum):
     _assert_trees_close(ts.params, js.params, dict(rtol=1e-3, atol=1e-5))
 
 
+def _functional(opt):
+    """``opt`` with its ``apply_`` done by its functional ``update``: the
+    new parameters p + u and the new state computed aside, then copied
+    into the state's tensors."""
+    def apply_(grads, state, params, step):
+        ups, new = opt.update(grads, state, params, step)
+        for p, u in zip(tree.leaves(params), tree.leaves(ups)):
+            p.copy_(torch.add(p, u))
+        for old, n in zip(tree.leaves(state), tree.leaves(new)):
+            old.copy_(n)
+    return opt._replace(apply_=apply_)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+@pytest.mark.parametrize("opt", ["adamw", "adafactor", "sgdm"])
+def test_in_place_step_equals_the_functional_update(opt, grad_accum,
+                                                   monkeypatch):
+    """Three train steps (gradients clipped in place, parameters and
+    optimizer state written in place by ``Optimizer.apply_``, AdamW and SGD
+    a stacked leaf one slice at a time, as a leaf past ``_BLOCK`` elements
+    per slice runs) equal three steps whose update is the optimizer's
+    functional ``update`` added to the parameters, bit for bit, and write
+    into the given state's own tensors."""
+    monkeypatch.setattr(toptim, "_BLOCK", 1)
+    _, tcfg = configs(optimizer=opt, grad_accum=grad_accum,
+                      param_dtype="bfloat16")
+    ts = tsteps.init_train_state(tcfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    aside = tree.map(torch.clone, ts)
+    own = [t.data_ptr() for t in tree.leaves(ts)]
+    rule = toptim.make_optimizer(opt)
+    step = tsteps.make_train_step(tcfg, rule)
+    fstep = tsteps.make_train_step(tcfg, _functional(rule))
+    shape = ShapeConfig("t", seq_len=16, global_batch=4, kind="train")
+    stream = tpipe.TokenStream(tcfg, shape, seed=1)
+    for i in range(3):
+        b = {k: torch.from_numpy(v) for k, v in stream.batch_at(i).items()}
+        ts, m = step(ts, b)
+        aside, fm = fstep(aside, b)
+        assert torch.equal(m["loss"], fm["loss"])
+        assert torch.equal(m["grad_norm"], fm["grad_norm"])
+    assert int(ts.step) == 3
+    for a, b in zip(tree.leaves(ts), tree.leaves(aside)):
+        assert torch.equal(a, b)
+    assert [t.data_ptr() for t in tree.leaves(ts)][:-1] == own[:-1]
+
+
 def test_train_step_is_deterministic_and_pure():
+    """Steps from two clones of one state on one batch give the same loss
+    and state bit for bit, and the step writes into nothing but the state
+    it is given: a third clone, kept aside, stays as it was."""
     _, tcfg = configs()
     _, ts = start_state(configs()[0])
     _, tb = batch_of(tcfg)
     before = [t.clone() for t in tree.leaves(ts)]
     step = tsteps.make_train_step(tcfg)
-    a, ma = step(ts, tb)
-    b, mb = step(ts, tb)
+    a, ma = step(tree.map(torch.clone, ts), tb)
+    b, mb = step(tree.map(torch.clone, ts), tb)
     assert torch.equal(ma["loss"], mb["loss"])
     for x, y in zip(tree.leaves(a), tree.leaves(b)):
         assert torch.equal(x, y)
     for x, y in zip(tree.leaves(ts), before):
         assert torch.equal(x, y)
+    assert not all(torch.equal(x, y) for x, y in zip(tree.leaves(a.params),
+                                                     tree.leaves(ts.params)))
 
 
 def test_eval_step_matches_loss():

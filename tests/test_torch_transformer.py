@@ -236,18 +236,16 @@ def test_swa_ring_buffer_decode_long():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    # the sharded archs and a ShardCtx wait for item 17
+    # every reference arch resolves, the two dense giants included; a
+    # ShardCtx still waits for item 17
     for name in ("command-r-plus-104b", "llama3-405b"):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            tregistry.get(name)
+        assert tregistry.get(name).fsdp_params
     with pytest.raises(KeyError):
         tregistry.get("no-such-arch")
-    # the recurrent families came in (models/rwkv6.py, models/griffin.py),
-    # and the MoE transformers on one card (slice 14)
-    assert tregistry.names() == ["kimi-k2-1t-a32b", "llava-next-34b",
-                                 "mixtral-8x7b", "musicgen-large",
-                                 "qwen3-0.6b", "recurrentgemma-2b",
-                                 "rwkv6-1.6b", "smollm-135m"]
+    assert tregistry.names() == jregistry.names() == [
+        "command-r-plus-104b", "kimi-k2-1t-a32b", "llama3-405b",
+        "llava-next-34b", "mixtral-8x7b", "musicgen-large", "qwen3-0.6b",
+        "recurrentgemma-2b", "rwkv6-1.6b", "smollm-135m"]
     assert tregistry.get("mixtral-8x7b").moe.n_experts == 8
     assert tregistry.get("kimi-k2-1t-a32b").moe.n_shared_experts == 1
     _, tcfg = small()
