@@ -91,8 +91,8 @@ Phases, each of which raises on failure:
    7, 8 launched under ``cuda`` and no kernel under ``ref`` or ``torch``;
    trials/s per workload and policy; the phase within
    ``CAMPAIGN_BUDGET_S``;
-12. slice 11: dependable serving at full width (SmolLM-135M at 15 of its
-   30 layers since slice 13, W8A8 FFN, bf16, flash prefill, capacity 8,
+12. slice 11: dependable serving at full width (SmolLM-135M at 8 of its
+   30 layers, W8A8 FFN, bf16, flash prefill, capacity 8,
    16 requests of 32 new tokens) under
    ``PolicyMap.uniform(ABFT)`` (scrubs ``detect``) and ``uniform(CKPT)``
    (``rollback``, the storage scrub every pump), the int8 KV cache off and
@@ -110,7 +110,7 @@ Phases, each of which raises on failure:
    to the CPU's; the phase within ``DEP_BUDGET_S``; it runs after the
    timings and profiles of 13;
 14. slice 12, the serving fleet at full width (``phase_fleet``:
-   SmolLM-135M at 15 of its 30 layers since slice 13, W8A8 FFN, bf16,
+   SmolLM-135M at 8 of its 30 layers, W8A8 FFN, bf16,
    flash prefill, capacity 8, 12 requests of
    16 new tokens, prompts of 8-512 tokens): NONE, ABFT (under
    ``PolicyMap.uniform(ABFT)``), DMR and CKPT fleets of 3 replicas serve
@@ -200,7 +200,20 @@ Phases, each of which raises on failure:
    two runs from clones, after its MoE layer's backward taken 5 times on
    one input, torch.equal each time at top-2 and top-8; row 10 at its
    windowed attention shape against its plain version; peak device memory
-   under 70 GB; within ``MOE_TRAIN_BUDGET_S``.
+   under 70 GB; within ``MOE_TRAIN_BUDGET_S``;
+21. slice 16, sharded execution (``phase_shard``) under NCCL at world size
+   1 in this process, a (1, 1) ("data", "model") mesh and a ``ShardCtx``
+   (every collective a one-rank NCCL call): mixtral-8x7b at full width with
+   2 of its 32 layers (W8A8 FFN and experts, bf16, flash, FSDP, EP), a
+   4,608-token prefill and 16 decode steps, the logits torch.equal to
+   ``ctx=None``; one train run of 3 steps from the host-held start of
+   phase 20's two runs, losses ``==`` and parameters torch.equal to its
+   first; qwen3-0.6b in full: a 1,024-token prefill, 16 decode steps and a
+   train step, each torch.equal to ``ctx=None``; rows 4, 9 and 10 launched
+   as often as on the unsharded path; each kind of collective issued as
+   often as ``_shard_collectives`` derives from the spec table and the
+   code's sums; ms per decode step and per train step with and without the
+   ctx; within ``SHARD_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -2657,7 +2670,7 @@ DEP_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum", "flash_attention_fwd_lse")
 DEP_CAMPAIGN_TRIALS = 8            # per serving campaign configuration
 DEP_TIMING_STEPS = 10              # decode steps per timing round
 DEP_BUDGET_S = 180                 # the phase's share of the limit
-DEP_LAYERS = 15                    # depth cut: 15 of 30 layers (slice 13)
+DEP_LAYERS = 8                     # depth cut: 8 of 30 layers, full width
 
 
 def _dep_kw(name):
@@ -2983,7 +2996,7 @@ FLEET_REPLICAS = 3
 FLEET_SCRUB_EVERY = 4
 FLEET_ROUNDS = 2                   # timing rounds of each policy's clean run
 FLEET_PROC_ROUNDS = 1              # timed rounds of the proc fleet
-FLEET_LAYERS = 15                  # depth cut: 15 of 30 layers (slice 13)
+FLEET_LAYERS = 8                   # depth cut: 8 of 30 layers, full width
 FLEET_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum",
               "flash_attention_fwd_lse")
 FLEET_CAMPAIGN_TRIALS = 16         # per fleet campaign configuration
@@ -3172,7 +3185,7 @@ def _fleet_campaigns(failed, out):
 
 def phase_fleet(cfg, params, card: str) -> dict:
     """Slice 12: the dependable serving fleet at full width (SmolLM-135M
-    with its depth cut to FLEET_LAYERS of 30 layers since slice 13, W8A8
+    with its depth cut to FLEET_LAYERS of 30 layers, W8A8
     FFN, bf16, flash prefill, capacity 8, 12 requests of 16 new
     tokens, prompts of 8-512 tokens): (1) NONE, 3 replicas in process,
     streams equal to one Engine's; (2) ABFT under PolicyMap.uniform(ABFT),
@@ -4652,7 +4665,7 @@ def _train_twice(cfg, host_params, batches):
     from repro_torch import tree
     from repro_torch.train import optim, steps
     opt = optim.make_optimizer(cfg.optimizer)
-    step = steps.make_train_step(cfg, opt)
+    step = steps.make_train_step(cfg, optimizer=opt)
     runs, first, same = [], None, None
     for r in range(2):
         params = tree.map(lambda t: t.to(DEVICE, copy=True), host_params)
@@ -4679,16 +4692,19 @@ def _train_twice(cfg, host_params, batches):
                 tree.leaves(first), tree.leaves(state.params)))
         del state, metrics
         torch.cuda.empty_cache()
-    return runs, same
+    return runs, same, first
 
 
-def _train_model(label, name, cfg, depth, seq, failed, before_runs=None):
+def _train_model(label, name, cfg, depth, seq, failed, before_runs=None,
+                 keep=None):
     """Draw ``cfg``'s parameters on the card, call ``before_runs(params)``,
     keep them on the host, then ``_train_twice`` on TRAIN_RUN_STEPS
     batches of 1 x ``seq``: the two runs' losses ``==``, finite, final
     parameters torch.equal; rows 9 (2·L per step: the forward and its
     recompute) and 10 (L per step) launched as derived, row 4 never (no
-    W8A8 in training)."""
+    W8A8 in training).  ``keep`` (a dict) receives the config, the host
+    start, the first run's final parameters (on the host), the batches and
+    the second run's record (its timing warm)."""
     from repro_torch import tree
     torch.cuda.reset_peak_memory_stats()
     params, init_s = _card_params(cfg, 15)
@@ -4698,8 +4714,11 @@ def _train_model(label, name, cfg, depth, seq, failed, before_runs=None):
     del params
     torch.cuda.empty_cache()
     batches = _train_batches(cfg, seq)
-    runs, same = _train_twice(cfg, host, batches)
-    del host
+    runs, same, first = _train_twice(cfg, host, batches)
+    if keep is not None:          # the sharded phase's start and reference
+        keep.update(cfg=cfg, host=host, first=first, batches=batches,
+                    run=runs[1])
+    del host, first
     L, n = cfg.n_layers, TRAIN_RUN_STEPS
     want = {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * L * n,
             "flash_attention_bwd": L * n}
@@ -4861,7 +4880,7 @@ def _moe_backward_repeats(cfg, gen):
     return run
 
 
-def phase_moe_train(card: str) -> dict:
+def phase_moe_train(card: str, keep=None) -> dict:
     """Slice 15: an MoE model trained on the card: mixtral-8x7b at full
     width, 2 of 32 layers, bf16, flash (its 4,096 window: the last 512 of
     4,608 queries meet it), AdamW, its own remat, batch 1 x 4,608, through
@@ -4887,7 +4906,8 @@ def phase_moe_train(card: str) -> dict:
     res = _train_model("moe_train", "mixtral-8x7b", cfg, f"depth cut to "
                        f"{MOE_TRAIN_LAYERS} of {full.n_layers} layers",
                        MOE_TRAIN_SEQ, failed,
-                       before_runs=_moe_backward_repeats(cfg, gen))
+                       before_runs=_moe_backward_repeats(cfg, gen),
+                       keep=keep)
     if not all(res["moe_backward_equal"].values()):
         failed.append(f"MoE backward not repeatable: "
                       f"{res['moe_backward_equal']}")
@@ -4909,6 +4929,322 @@ def phase_moe_train(card: str) -> dict:
     peak = max(peak, torch.cuda.max_memory_allocated())
     return _phase_end("moe_train", out, failed, MOE_TRAIN_ROWS, peak,
                       MOE_TRAIN_BUDGET_S, t_phase, card)
+
+
+# slice 16: sharded execution on torch.distributed, NCCL at world size 1
+SHARD_MOE_PROMPT = 4608            # mixtral's prefill: 512 queries past its window
+SHARD_DENSE_PROMPT = 1024          # qwen3-0.6b's prefill and train sequence
+SHARD_STEPS = 16                   # decode steps after each prefill
+SHARD_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse", "flash_attention_bwd")
+SHARD_BUDGET_S = 45                # the phase's share of the limit
+
+
+def _shard_collectives(cfg, kind, specs, calls=1):
+    """Each kind's count of the collectives that ``calls`` calls of
+    ``kind`` ("prefill", "decode" or "train", a step) issue under a
+    ShardCtx on the (1, 1) ("data", "model") mesh.  The gathers come from
+    the parameters' spec table ``specs`` (``param_specs``) and the model's
+    own leaf groups (``_ATTN_LEAVES``, ``_FFN_LEAVES``): each entry that
+    names an axis is one gather where its layer uses the leaf, but for the
+    model dim of a leaf that runs tensor-parallel (attention's in a
+    prefill or a train step, the FFN's and the experts' always); decode
+    attention and the ends (the embedding, the head) gather theirs whole.
+    What the table cannot give is written here: the code's sums, one per
+    row-parallel product (attention's ``wo`` outside decode, the FFN's
+    ``wd`` and the shared experts' ``ws_o``, two under W8A8: the absmax's
+    MAX and the int32 sum), the expert combine's sum and the aux/z
+    ``pmean`` of a MoE layer, the CE's sum over the batch, and the
+    prefill's K/V heads gathered for the cache.  At one shard the decode
+    softmax is the unsharded one, with no flash-decoding reductions.  In a
+    train step each forward gather's adjoint is a reduce-scatter and each
+    sum's a sum, the blocks' recompute under remat re-issues their gathers,
+    attention's sum and, where shared experts follow it, the expert
+    combine's sum (PyTorch's checkpoint recomputes a block only up to the
+    last tensor its backward saves), then one sum per parameter whose
+    spec leaves an axis out, one per set of axes in the global norm, and
+    Adafactor's means over sharded dims (``optim.adafactor``)."""
+    from repro_torch import tree
+    from repro_torch.models.transformer import _ATTN_LEAVES, _FFN_LEAVES
+    from repro_torch.parallel.sharding import entry_axes
+
+    def gathers(spec, keep_model):
+        return sum(1 for e in spec if entry_axes(e) and not (
+            keep_model and entry_axes(e) == ("model",)))
+
+    m, L = cfg.moe, cfg.n_layers
+    n_moe = 0 if m is None else L - m.n_dense_layers
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    ends = gathers(specs["embed"], False) + gathers(specs[head], False)
+    attn_tp = attn_whole = ffn_g = 0   # a forward's gathers of the blocks
+    for blk, n in (("dense_blocks", L - n_moe), ("moe_blocks", n_moe)):
+        for k, spec in specs.get(blk, {}).items():
+            if k in _ATTN_LEAVES:
+                attn_tp += n * gathers(spec, True)
+                attn_whole += n * gathers(spec, False)
+            elif k in _FFN_LEAVES or blk == "moe_blocks":
+                ffn_g += n * gathers(spec, True)
+    prod = 2 if cfg.quant == "w8a8_ffn" else 1
+    moe_r = 0 if m is None else 2 + (m.n_shared_experts > 0) * prod
+    ffn_r = (L - n_moe) * prod + n_moe * moe_r
+    if kind == "decode":
+        out = {"all_gather": ends + attn_whole + ffn_g, "all_reduce": ffn_r,
+               "reduce_scatter": 0}
+    elif kind == "prefill":
+        out = {"all_gather": ends + attn_tp + ffn_g + 2 * L,
+               "all_reduce": L + ffn_r, "reduce_scatter": 0}
+    else:
+        blk_g, blk_r = attn_tp + ffn_g, L + ffn_r
+        shared = 0 if m is None else n_moe * (m.n_shared_experts > 0)
+        re_g, re_r = (blk_g, L + shared) if cfg.remat != "none" else (0, 0)
+        named = [{a for e in sp for a in entry_axes(e)}
+                 for sp in tree.leaves(specs)]
+        opt_r = 0                      # Adafactor's means over shards
+        for sp in tree.leaves(specs) if cfg.optimizer == "adafactor" else ():
+            on = [bool(entry_axes(e)) for e in sp]
+            if any(on):                # the update's RMS; vr, vc, mean(vr)
+                opt_r += 1 + (on[-1] + 2 * on[-2] if len(on) >= 2 else 0)
+        out = {"all_gather": ends + blk_g + re_g,
+               "reduce_scatter": ends + blk_g,
+               "all_reduce": (1 + blk_r + re_r) + (1 + blk_r)
+               + sum(a != {"data", "model"} for a in named)
+               + len({frozenset(a) for a in named if a}) + opt_r}
+    out = {k: v * calls for k, v in out.items()}
+    return dict(out, all_to_all=0, send_recv=0)
+
+
+def _add(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def _shard_serve(label, cfg, params, prompt, ctx, gen, failed):
+    """A ``prompt``-token prefill and SHARD_STEPS decode steps at batch 1,
+    under ``ctx=None`` and under ``ctx`` on the parameters' shards
+    (``shard_tree``): the logits torch.equal, finite; rows 4 and 9 launched
+    as often under both and as derived; the collectives as
+    ``_shard_collectives`` derives (none without the ctx); the prefill ms
+    and the decode ms/step of each."""
+    from repro_torch.models import api
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import param_specs, shard_tree
+    specs = param_specs(cfg, params, ctx.dp, ctx.model, ctx.mesh)
+    local = shard_tree(params, specs, ctx.mesh)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen,
+                         device=DEVICE)
+    step_toks = torch.randint(0, cfg.vocab_size, (SHARD_STEPS, 1),
+                              generator=gen, device=DEVICE)
+    runs = {}
+    for name, c, p in (("none", None, params), ("ctx", ctx, local)):
+        before = _campaign_launches()
+        C.reset_counts()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = api.prefill(cfg, p, toks, prompt + SHARD_STEPS, c)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            steps = []
+            for tok in step_toks:
+                step, cache = api.decode_step(cfg, p, tok, cache, c)
+                steps.append(step)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        after = _campaign_launches()
+        counts = C.counts()
+        runs[name] = {"logits": (lg, torch.stack(steps)),
+                      "prefill_ms": (t1 - t0) * 1e3,
+                      "decode_ms_per_step": (t2 - t1) * 1e3 / SHARD_STEPS,
+                      "launches": {k: after[k] - before[k]
+                                   for k in SHARD_ROWS[:2]},
+                      "collectives": counts}
+        del cache, lg, steps
+    equal = all(torch.equal(a, b) for a, b in zip(runs["none"]["logits"],
+                                                  runs["ctx"]["logits"]))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in runs["ctx"]["logits"])
+    want_l = {"qmatmul_acc": _row4_per_call(cfg) * (1 + SHARD_STEPS),
+              "flash_attention_fwd_lse": cfg.n_layers}
+    launched = runs["ctx"]["launches"] == runs["none"]["launches"] == want_l
+    want_c = _add(_shard_collectives(cfg, "prefill", specs),
+                  _shard_collectives(cfg, "decode", specs, calls=SHARD_STEPS))
+    none_c = {k: 0 for k in want_c}
+    counted = (runs["ctx"]["collectives"] == want_c
+               and runs["none"]["collectives"] == none_c)
+    ok = equal and finite and launched and counted
+    r, n = runs["ctx"], runs["none"]
+    print(f"shard: {label} serving, a {prompt}-token prefill and "
+          f"{SHARD_STEPS} decode steps at batch 1: logits under the ctx "
+          f"torch.equal to ctx=None: {equal}, finite: {finite}; launches "
+          f"{r['launches']} = ctx=None's = derived: {launched}; collectives "
+          f"{r['collectives']} = derived {want_c} (none without the ctx): "
+          f"{counted}; prefill {r['prefill_ms']:.2f} ms (ctx=None "
+          f"{n['prefill_ms']:.2f}), decode {r['decode_ms_per_step']:.3f} "
+          f"ms/step (ctx=None {n['decode_ms_per_step']:.3f})"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(f"{label} serving")
+    for v in runs.values():
+        del v["logits"]
+    del local, specs
+    return {"runs": runs, "logits_equal": equal, "finite": finite,
+            "launches_as_unsharded": launched,
+            "collectives_as_derived": counted,
+            "collectives_derived": want_c}
+
+
+def _shard_train(label, cfg, host, batches, ctx, want, failed):
+    """Train steps under ``ctx`` from the host-held start ``host`` on the
+    parameters' shards (``shard_tree``; the config's optimizer, its state
+    from ``init``), each batch this rank's slice (``shard_batch``):
+    losses ``==`` and final parameters torch.equal to ``want`` (the
+    unsharded run: "losses", "params" on the host, "launches", "ms");
+    rows 9 and 10 launched as often; the collectives as derived."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import shard_tree
+    from repro_torch.train import optim, steps
+    opt = optim.make_optimizer(cfg.optimizer)
+    specs = steps.train_state_specs(cfg, host, ctx.dp, ctx.model,
+                                    cfg.optimizer, ctx.mesh)
+    params = shard_tree(host, specs.params, ctx.mesh)
+    state = steps.TrainState(params, opt.init(params), torch.zeros(
+        (), dtype=torch.int32, device=DEVICE))
+    del params
+    step = steps.make_train_step(cfg, ctx, optimizer=opt)
+    local = [shard_batch({k: v.cpu().numpy() for k, v in b.items()},
+                         ctx.mesh, ctx.dp) for b in batches]
+    before = _campaign_launches()
+    C.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in local:
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(local)
+    after = _campaign_launches()
+    launches = {k: after[k] - before[k] for k in SHARD_ROWS}
+    collectives = C.counts()
+    same = all(torch.equal(a, b.to(DEVICE)) for a, b in zip(
+        tree.leaves(state.params), tree.leaves(want["params"])))
+    replay = losses == want["losses"]
+    launched = launches == {k: want["launches"][k] for k in SHARD_ROWS}
+    want_c = _shard_collectives(cfg, "train", specs.params, calls=len(local))
+    counted = collectives == want_c
+    ok = replay and same and launched and counted
+    print(f"shard: {label} training under the ctx, {len(local)} steps from "
+          f"the unsharded run's start: losses {[f'{x:.6f}' for x in losses]}"
+          f" == ctx=None's: {replay}; parameters torch.equal: {same}; "
+          f"launches {launches} = ctx=None's: {launched}; collectives "
+          f"{collectives} = derived {want_c}: {counted}; {ms:.1f} ms/step "
+          f"(ctx=None {want['ms']:.1f})" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(f"{label} training")
+    del state, metrics
+    return {"losses": losses, "losses_equal": replay, "params_equal": same,
+            "launches": launches, "launches_as_unsharded": launched,
+            "collectives": collectives, "collectives_derived": want_c,
+            "collectives_as_derived": counted, "ms_per_step": ms,
+            "unsharded_ms_per_step": want["ms"]}
+
+
+def phase_shard(card: str, start: dict) -> dict:
+    """Slice 16: the sharded paths under NCCL at world size 1, in this
+    process, on a (1, 1) ("data", "model") mesh: mixtral-8x7b at full width
+    with 2 of its 32 layers (W8A8 FFN and experts, bf16, flash, FSDP, EP)
+    served (``_shard_serve``: a SHARD_MOE_PROMPT-token prefill and
+    SHARD_STEPS decode steps) and trained (``_shard_train``: the steps of
+    phase 20's first run from its host-held ``start``, against that run);
+    then qwen3-0.6b in full served (a SHARD_DENSE_PROMPT-token prefill)
+    and trained one step (bf16 compute, AdamW, remat, flash) from clones
+    of one host-held state, ``ctx=None`` first (after a step outside the
+    timer).  Each group's communicator is set up before the first timed
+    run.  Every collective is a
+    one-rank NCCL call: copies, so each result must be the unsharded
+    path's bit for bit.  Launch counts are reset at its start and read at
+    its end; the process group is torn down at its end."""
+    import dataclasses as dc
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import Mesh, process_group
+    from repro_torch.models.shard import ShardCtx
+    from repro_torch.parallel import collectives as C
+    from repro_torch.train import optim, steps
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    with process_group(DEVICE):
+        mesh = Mesh((1, 1), ("data", "model"))
+        ctx = ShardCtx(mesh, ("data",), "model")
+        # each group's NCCL communicator is set up on its first call: make
+        # those calls here, outside every timed run
+        for axes in (("data",), ("model",), ("data", "model")):
+            C.all_reduce(torch.zeros(1, device=DEVICE), mesh, axes)
+        torch.cuda.synchronize()
+        tcfg = start["cfg"]
+        scfg = dc.replace(tcfg, quant="w8a8_ffn")
+        params, _ = _card_params(scfg, 21)
+        out["mixtral-8x7b serve"] = _shard_serve(
+            "mixtral-8x7b (2 of 32 layers, W8A8, FSDP, EP)", scfg, params,
+            SHARD_MOE_PROMPT, ctx, gen, failed)
+        del params
+        torch.cuda.empty_cache()
+        run = start["run"]
+        out["mixtral-8x7b train"] = _shard_train(
+            "mixtral-8x7b (2 of 32 layers, bf16, AdamW)", tcfg,
+            start["host"], start["batches"], ctx,
+            {"losses": run["losses"], "params": start["first"],
+             "launches": run["launches"], "ms": run["ms_per_step"]}, failed)
+        for k in ("host", "first"):
+            start.pop(k)
+        torch.cuda.empty_cache()
+        full = registry.get("qwen3-0.6b")
+        qcfg = dc.replace(full, quant="w8a8_ffn", attn_impl="flash")
+        params, _ = _card_params(qcfg, 22)
+        out["qwen3-0.6b serve"] = _shard_serve(
+            "qwen3-0.6b (28 layers, in full, W8A8)", qcfg, params,
+            SHARD_DENSE_PROMPT, ctx, gen, failed)
+        del params
+        tcfg = dc.replace(full, attn_impl="flash")
+        params, _ = _card_params(tcfg, 23)
+        host = tree.map(lambda t: t.to("cpu", copy=True), params)
+        del params
+        batches = _train_batches(tcfg, SHARD_DENSE_PROMPT)[:1]
+        opt = optim.make_optimizer(tcfg.optimizer)
+        params = tree.map(lambda t: t.to(DEVICE, copy=True), host)
+        state = steps.TrainState(params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=DEVICE))
+        del params
+        step = steps.make_train_step(tcfg, optimizer=opt)
+        warm = tree.map(torch.clone, state)     # a step outside the timer
+        step(warm, batches[0])
+        del warm
+        before = _campaign_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[0])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _campaign_launches()
+        want = {"losses": [loss], "ms": ms,
+                "params": tree.map(lambda t: t.to("cpu", copy=True),
+                                   state.params),
+                "launches": {k: after[k] - before[k] for k in SHARD_ROWS}}
+        del state, metrics
+        torch.cuda.empty_cache()
+        out["qwen3-0.6b train"] = _shard_train(
+            "qwen3-0.6b (28 layers, in full, AdamW)", tcfg, host, batches,
+            ctx, want, failed)
+        del host, want
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    return _phase_end("shard", out, failed, SHARD_ROWS, peak,
+                      SHARD_BUDGET_S, t_phase, card)
 
 
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
@@ -5004,7 +5340,10 @@ def main() -> None:
     recurrent = phase_recurrent(card)
     moe = phase_moe(card)
     dense = phase_dense(card)
-    moe_train = phase_moe_train(card)
+    start = {}
+    moe_train = phase_moe_train(card, start)
+    shard = phase_shard(card, start)
+    del start
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -5048,7 +5387,7 @@ def main() -> None:
                        "dependable": dependable, "fleet": fleet,
                        "embed": embed, "dse": dse,
                        "recurrent": recurrent, "moe": moe, "dense": dense,
-                       "moe_train": moe_train}, f, indent=1)
+                       "moe_train": moe_train, "shard": shard}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

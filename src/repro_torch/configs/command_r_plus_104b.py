@@ -1,9 +1,9 @@
 """Command R+ 104B — dense GQA, no biases, large vocab.
 [hf:CohereForAI/c4ai-command-r-v01 family; unverified]
 
-A copy of ``repro/configs/command_r_plus_104b.py``.  ``fsdp_params`` is a
-sharding hint that nothing in the port reads yet (ROADMAP.md queue 1,
-item 17)."""
+A copy of ``repro/configs/command_r_plus_104b.py``.  ``fsdp_params``
+shards each weight's non-TP dim over the dp axes under a ``ShardCtx``
+(``parallel/sharding.py``)."""
 from repro_torch.models.config import ArchConfig
 
 CONFIG = ArchConfig(

@@ -1,7 +1,8 @@
 """Llama 3 405B — dense GQA, 128k vocab. [arXiv:2407.21783; unverified]
 
-A copy of ``repro/configs/llama3_405b.py``.  ``fsdp_params`` is a sharding
-hint that nothing in the port reads yet (ROADMAP.md queue 1, item 17)."""
+A copy of ``repro/configs/llama3_405b.py``.  ``fsdp_params`` shards each
+weight's non-TP dim over the dp axes under a ``ShardCtx``
+(``parallel/sharding.py``)."""
 from repro_torch.models.config import ArchConfig
 
 CONFIG = ArchConfig(

@@ -3,11 +3,12 @@
 The counterpart of ``repro.configs.registry``, holding the configurations
 the port runs, every name of the reference's: the dense transformers,
 token-input (``command-r-plus-104b`` and ``llama3-405b`` among them: their
-``fsdp_params`` hint waits for sharding, ROADMAP.md queue 1, item 17) and
+``fsdp_params`` shards weights over dp under a ``ShardCtx``) and
 embedding-input (``musicgen-large``, ``llava-next-34b``: the caller's
 ``embeds`` stand in for their stub front ends), the mixture-of-experts
 transformers (``mixtral-8x7b``, ``kimi-k2-1t-a32b``: the meshless MoE
-path), and the recurrent families (``rwkv6-1.6b``, ``recurrentgemma-2b``).
+path, and the meshed one under a ``ShardCtx``), and the recurrent families
+(``rwkv6-1.6b``, ``recurrentgemma-2b``).
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ The counterpart of ``vote``, ``agree``, ``dmr_apply``, ``tmr_apply`` and
 ``_bitwise_majority3`` in ``repro.core.redundancy``; replicas are tensors
 or pytrees of them (``repro_torch.tree``).  Bitwise majority of three,
 maj(a,b,c) = (a&b) | (b&c) | (a&c), applied to the bit patterns, is exact
-and branch-free for every dtype.  The spatial form (``replicated_vote``,
-one replica per device) comes with the parallelism slice.
+and branch-free for every dtype.  ``replicated_vote`` is the spatial form:
+one replica per rank of a mesh axis of size 3.
 """
 from __future__ import annotations
 
@@ -75,3 +75,22 @@ def tmr_apply(f: Callable, *args,
     """Run ``f`` three times, each optionally perturbed by an injector,
     and vote."""
     return vote(_replicas(f, args, injectors))
+
+
+def replicated_vote(f: Callable, mesh, axis: str = "replica") -> Callable:
+    """Spatial TMR: each rank along ``axis`` (size 3) computes ``f`` in
+    full; every leaf of the result is all-gathered over the axis and
+    majority-voted bit for bit on every rank.  Returns a function with
+    ``f``'s signature; its inputs must be the same on the three ranks."""
+    if mesh.shape[axis] != 3:
+        raise ValueError(f"replicated_vote needs a {axis!r} axis of size 3, "
+                         f"the mesh has {mesh.shape}")
+    from repro_torch.parallel import collectives as C
+
+    def gather_vote(leaf: torch.Tensor) -> torch.Tensor:
+        allr = C.all_gather(leaf.detach()[None], mesh, axis, dim=0)
+        return _bitwise_majority3(allr[0], allr[1], allr[2])
+
+    def voted(*args):
+        return tree.map(gather_vote, f(*args))
+    return voted

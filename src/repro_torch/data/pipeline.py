@@ -6,9 +6,9 @@ Philox with the reference's key and counter, so the port's batches are bit
 for bit the reference's and a restore from a checkpoint continues on the
 same data with no loader state to persist.  ``n_hosts``/``host_id``
 default to one host.  ``prefetch`` streams batches through a bounded
-``Channel`` from a producer thread (the dataflow executor's threaded
-driver).  ``shard_batch`` (ROADMAP.md queue 1, item 17) is not in the port
-yet.
+``Channel`` from a producer thread, as the dataflow executor's stages
+do.  ``shard_batch`` gives each rank of a mesh its slice of a host
+batch.
 """
 from __future__ import annotations
 
@@ -110,3 +110,19 @@ def prefetch(source, start_step: int = 0, depth: int = 2):
             driver.close()
 
     return _Iter()
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, dp_axes,
+                device=None) -> Dict[str, "torch.Tensor"]:
+    """This rank's slice of a host batch, the batch dim over ``dp_axes``
+    (the reference's ``NamedSharding(mesh, P(dp_axes, None, ...))``), as
+    torch tensors on ``device`` (by default the mesh's)."""
+    import torch
+    from repro_torch.parallel.sharding import P, local_slices
+    device = mesh.device if device is None else torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        sl = local_slices(P(dp_axes), v.shape, mesh, name=f"batch[{k!r}]")
+        out[k] = torch.from_numpy(np.ascontiguousarray(v[sl])).to(device)
+    return out

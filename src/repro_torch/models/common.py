@@ -59,7 +59,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    x1, x2 = x.to(torch.promote_types(x.dtype, torch.float32)).chunk(
+        2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -87,16 +88,17 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
         q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
                    for t in (q, k, v))
     scale = 1.0 / math.sqrt(hd)
-    qc = q.reshape(B, n, chunk, KV, G, hd).to(torch.float32)
-    kc = k.reshape(B, n, chunk, KV, hd).to(torch.float32)
-    vc = v.reshape(B, n, chunk, KV, hd).to(torch.float32)
+    dt = torch.promote_types(q.dtype, torch.float32)   # f64: the witness
+    qc = q.reshape(B, n, chunk, KV, G, hd).to(dt)
+    kc = k.reshape(B, n, chunk, KV, hd).to(dt)
+    vc = v.reshape(B, n, chunk, KV, hd).to(dt)
     idx = torch.arange(chunk, device=q.device)
     outs = []
     for qi in range(n):
         q_i = qc[:, qi]
-        m = torch.full((B, chunk, KV, G), NEG_INF, device=q.device)
-        l_sum = torch.zeros((B, chunk, KV, G), device=q.device)
-        acc = torch.zeros((B, chunk, KV, G, hd), device=q.device)
+        m = torch.full((B, chunk, KV, G), NEG_INF, dtype=dt, device=q.device)
+        l_sum = torch.zeros((B, chunk, KV, G), dtype=dt, device=q.device)
+        acc = torch.zeros((B, chunk, KV, G, hd), dtype=dt, device=q.device)
         for kj in range(qi + 1):
             s = torch.einsum("bqkgh,bckh->bqkgc", q_i, kc[:, kj]) * scale
             q_pos = qi * chunk + idx
@@ -110,7 +112,7 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
             alpha = torch.exp(m - m_new)
             l_sum = l_sum * alpha + p.sum(dim=-1)
             # p rounded to the compute dtype, as the reference casts it
-            p = p.to(q.dtype).to(torch.float32)
+            p = p.to(q.dtype).to(dt)
             acc = acc * alpha[..., None] + torch.einsum(
                 "bqkgc,bckh->bqkgh", p, vc[:, kj])
             m = m_new
@@ -132,7 +134,8 @@ def int8_scores(q_q: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: torch.Tensor,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None, *,
+                     t0: int = 0, reduce=None) -> torch.Tensor:
     """Single-token attention over a (ring-buffered) KV cache.
 
     q (B, 1, H, hd), caches (B, T, KV, hd), cur_len (B,) valid slots.
@@ -140,12 +143,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     quantized per (b, kv, g) row, the scores are the exact int32 product
     (``int8_scores``) rescaled by q's and each row's k scale, and V is
     dequantized page-wide to q's dtype, as in the reference.
+
+    Flash-decoding: a cache whose time dim is sharded over more than one
+    rank passes this rank's slots (the first at global slot ``t0``) and
+    ``reduce(t, op)``, the "max" or "sum" over the shards; the softmax is
+    then written out, exp(s − max) over its sum, with the row max and the
+    sum made global before P is formed, and the partial P·V are summed.
     """
     B, T, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd).to(torch.float32)
+    acc = torch.promote_types(q.dtype, torch.float32)   # f64: the witness
+    qg = q.reshape(B, KV, G, hd).to(acc)
     if k_scale is not None:
         q_s = torch.clamp(qg.abs().amax(dim=-1), min=1e-8) / 127.0
         q_q = torch.clamp(torch.round(qg / q_s[..., None]), -127,
@@ -156,13 +166,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         v_cache = (v_cache.to(torch.float32)
                    * v_scale[..., None]).to(q.dtype)
     else:
-        s = torch.einsum("bkgh,btkh->bkgt", qg,
-                         k_cache.to(torch.float32)) * scale
-    valid = torch.arange(T, device=q.device)[None, :] \
+        s = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.to(acc)) * scale
+    valid = (torch.arange(T, device=q.device) + t0)[None, :] \
         < cur_len.reshape(-1).expand(B)[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype).to(torch.float32)
-    out = torch.einsum("bkgt,btkh->bkgh", p, v_cache.to(torch.float32))
+    if reduce is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        m = reduce(s.amax(dim=-1, keepdim=True), "max")
+        p = torch.exp(s - m)
+        p = p / reduce(p.sum(dim=-1, keepdim=True), "sum")
+    p = p.to(v_cache.dtype).to(acc)
+    out = torch.einsum("bkgt,btkh->bkgh", p, v_cache.to(acc))
+    if reduce is not None:
+        out = reduce(out, "sum")
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -191,16 +208,23 @@ def cache_write_slot(batch_cache, one_cache, slot: int, n: int):
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       psum=None, n_shards: int = 1) -> torch.Tensor:
     """Mean next-token CE.  logits (B, S, V) any float dtype, upcast to
     f32; labels (B, S) int; ``mask`` (B, S) weights the tokens.  The gold
     logit is a gather whose backward adds one term into each zeroed row,
-    so it is exact in any order."""
-    logits = logits.to(torch.float32)
+    so it is exact in any order.  A batch sharded over ``n_shards`` equal
+    slices passes ``psum``, the sum over them: the mean is then the mean
+    of the slices' means (the masked one the global sums' quotient)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is not None:
-        mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        mask = mask.to(logits.dtype)
+        num, den = torch.sum(nll * mask), torch.sum(mask)
+        if psum is not None:
+            num, den = psum(num), psum(den)
+        return num / torch.clamp(den, min=1.0)
+    loss = torch.mean(nll)
+    return loss if psum is None else psum(loss) / n_shards

@@ -41,9 +41,9 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.shard import cross_entropy, sharded
 from repro_torch.models.transformer import (ForwardOut, _cast_layers,
-                                            _cdt, _check, _inputs, _logits,
-                                            _pdt)
+                                            _cdt, _inputs, _logits, _pdt)
 
 RGLRU_C = 8.0
 
@@ -271,15 +271,19 @@ def _schedule(cfg, params):
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
-    _check(ctx)
-    x = _inputs(cfg, params, tokens, embeds)
+    """Under ``ctx`` the tokens, the logits and ``params`` are this rank's;
+    each layer's weights are gathered whole just before it runs (no
+    tensor parallelism inside the recurrence)."""
+    sh = sharded(cfg, ctx)
+    x = _inputs(cfg, params, tokens, embeds, sh)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for kind, _, bp in _schedule(cfg, params):
+        bp = bp if sh is None else sh.layer(bp)
         if kind == "rec":
             x, _ = _rec_block(cfg, bp, x)
         else:
             x, _, _ = _attn_full(cfg, bp, x, positions)
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, sh)
     z = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, z, z)
 
@@ -287,8 +291,8 @@ def forward(cfg: ArchConfig, params, tokens, ctx=None,
 def loss_fn(cfg, params, batch, ctx=None):
     out = forward(cfg, params, batch["tokens"], ctx,
                   embeds=batch.get("embeds"))
-    loss = common.cross_entropy_loss(out.logits, batch["labels"],
-                                     batch.get("mask"))
+    loss = cross_entropy(sharded(cfg, ctx), out.logits, batch["labels"],
+                         batch.get("mask"))
     return loss, {"ce": loss}
 
 
@@ -322,11 +326,21 @@ def decode_step(cfg, params, token, cache: GriffinCache, ctx=None,
                 embed=None):
     """token: (B,) int (or embed (B, d)).  Row b decodes at position
     ``cache.length[b]``; the recurrent state and the KV rings are written
-    in place."""
-    _check(ctx)
-    x = _inputs(cfg, params, token, embed)[:, None, :]
+    in place.  Under ``ctx`` the tokens and ``cache`` are this rank's
+    (``cache_specs``): the recurrent width's slices are gathered for the
+    step and written back after it."""
+    sh = sharded(cfg, ctx)
+    if sh is None:
+        return _decode(cfg, params, token, cache, embed, None)
+    return sh.on_full_cache(
+        cache, lambda full: _decode(cfg, params, token, full, embed, sh))
+
+
+def _decode(cfg, params, token, cache: GriffinCache, embed, sh):
+    x = _inputs(cfg, params, token, embed, sh)[:, None, :]
     pos = cache.length
     for kind, i, bp in _schedule(cfg, params):
+        bp = bp if sh is None else sh.layer(bp)
         if kind == "rec":
             x, (cv, hh) = _rec_block(cfg, bp, x,
                                      state=(cache.conv[i], cache.h[i]))
@@ -335,15 +349,16 @@ def decode_step(cfg, params, token, cache: GriffinCache, ctx=None,
         else:
             x = _attn_decode(cfg, bp, x, cache.k[i], cache.v[i], pos)
     cache.length.add_(1)
-    return _logits(cfg, params, x)[:, 0], cache
+    return _logits(cfg, params, x, sh)[:, 0], cache
 
 
 def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     """Forward pass that also fills a fresh decode cache: each recurrent
     layer's final state, and each attention layer's last ``Win`` positions
-    ring-aligned (position p at slot p % Win)."""
-    _check(ctx)
-    x = _inputs(cfg, params, tokens, embeds)
+    ring-aligned (position p at slot p % Win).  Under ``ctx``, this rank's
+    slices of that cache (``cache_specs``)."""
+    sh = sharded(cfg, ctx)
+    x = _inputs(cfg, params, tokens, embeds, sh)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     cache = init_cache(cfg, B, max_len, device=x.device)
@@ -351,6 +366,7 @@ def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     Tc = min(win, S)
     idx = (torch.arange(Tc, device=x.device) + (S - Tc)) % win
     for kind, i, bp in _schedule(cfg, params):
+        bp = bp if sh is None else sh.layer(bp)
         if kind == "rec":
             x, (cv, hh) = _rec_block(cfg, bp, x)
             cache.conv[i].copy_(cv)
@@ -360,4 +376,5 @@ def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
             cache.k[i][:, idx] = k[:, S - Tc:].to(cache.k.dtype)
             cache.v[i][:, idx] = v[:, S - Tc:].to(cache.v.dtype)
     cache.length.fill_(S)
-    return _logits(cfg, params, x), cache
+    logits = _logits(cfg, params, x, sh)
+    return logits, (cache if sh is None else sh.local_cache(cache))

@@ -35,9 +35,9 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.shard import cross_entropy, sharded
 from repro_torch.models.transformer import (ForwardOut, _cast_layers,
-                                            _cdt, _check, _inputs, _logits,
-                                            _pdt)
+                                            _cdt, _inputs, _logits, _pdt)
 
 LORA_R = 16          # ddlerp low-rank dim
 DECAY_LORA_R = 32
@@ -233,12 +233,16 @@ def _channel_mix(cfg, bp, x, state=None):
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
-    _check(ctx)
-    x = _inputs(cfg, params, tokens, embeds)
+    """Under ``ctx`` the tokens, the logits and ``params`` are this rank's;
+    each layer's weights are gathered whole just before it runs (no
+    tensor parallelism inside the recurrence)."""
+    sh = sharded(cfg, ctx)
+    x = _inputs(cfg, params, tokens, embeds, sh)
     for bp in _cast_layers(cfg, params["blocks"]):
+        bp = bp if sh is None else sh.layer(bp)
         x, _ = _time_mix(cfg, bp, x, use_chunked=True)
         x, _ = _channel_mix(cfg, bp, x)
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, sh)
     z = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, z, z)
 
@@ -246,8 +250,8 @@ def forward(cfg: ArchConfig, params, tokens, ctx=None,
 def loss_fn(cfg, params, batch, ctx=None):
     out = forward(cfg, params, batch["tokens"], ctx,
                   embeds=batch.get("embeds"))
-    loss = common.cross_entropy_loss(out.logits, batch["labels"],
-                                     batch.get("mask"))
+    loss = cross_entropy(sharded(cfg, ctx), out.logits, batch["labels"],
+                         batch.get("mask"))
     return loss, {"ce": loss}
 
 
@@ -275,10 +279,20 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
 def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
     """token: (B,) int (or embed (B, d)).  Writes each layer's new state
     into ``cache`` in place, advances ``length`` and returns (logits (B, V),
-    cache)."""
-    _check(ctx)
-    x = _inputs(cfg, params, token, embed)[:, None, :]
+    cache).  Under ``ctx`` the tokens and ``cache`` are this rank's
+    (``cache_specs``): the shift states' width slices are gathered for the
+    step and written back after it."""
+    sh = sharded(cfg, ctx)
+    if sh is None:
+        return _decode(cfg, params, token, cache, embed, None)
+    return sh.on_full_cache(
+        cache, lambda full: _decode(cfg, params, token, full, embed, sh))
+
+
+def _decode(cfg, params, token, cache: RwkvCache, embed, sh):
+    x = _inputs(cfg, params, token, embed, sh)[:, None, :]
     for li, bp in enumerate(_cast_layers(cfg, params["blocks"])):
+        bp = bp if sh is None else sh.layer(bp)
         x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=False,
                                   state=(cache.tm_x[li], cache.tm_s[li]))
         x, cmx = _channel_mix(cfg, bp, x, state=cache.cm_x[li])
@@ -286,21 +300,23 @@ def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
         cache.tm_s[li].copy_(tms)
         cache.cm_x[li].copy_(cmx)
     cache.length.add_(1)
-    return _logits(cfg, params, x)[:, 0], cache
+    return _logits(cfg, params, x, sh)[:, 0], cache
 
 
 def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
-    """Chunked forward that also returns the recurrent state as the
-    cache."""
-    _check(ctx)
-    x = _inputs(cfg, params, tokens, embeds)
+    """Chunked forward that also returns the recurrent state as the cache
+    (under ``ctx``, this rank's slices of it, ``cache_specs``)."""
+    sh = sharded(cfg, ctx)
+    x = _inputs(cfg, params, tokens, embeds, sh)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max_len, device=x.device)
     for li, bp in enumerate(_cast_layers(cfg, params["blocks"])):
+        bp = bp if sh is None else sh.layer(bp)
         x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=True)
         x, cmx = _channel_mix(cfg, bp, x)
         cache.tm_x[li].copy_(tmx)
         cache.tm_s[li].copy_(tms)
         cache.cm_x[li].copy_(cmx)
     cache.length.fill_(S)
-    return _logits(cfg, params, x), cache
+    logits = _logits(cfg, params, x, sh)
+    return logits, (cache if sh is None else sh.local_cache(cache))

@@ -1,0 +1,202 @@
+"""``ShardCtx``, and what the model families need to run on local shards.
+
+The counterpart of ``repro.models.transformer.ShardCtx`` and of the GSPMD
+partitioning that the reference leaves to XLA: the port is explicit SPMD.
+Each rank holds its shards of the parameters as ``parallel.sharding.
+param_specs`` lays them out (``shard_tree`` cuts them), its slice of the
+batch over the activation-batch axes (``data.pipeline.shard_batch``), and
+its slice of a decode cache as ``cache_specs`` says; the model code
+gathers, slices and sums with the collectives of ``parallel.collectives``:
+
+* a dimension sharded over dp axes (FSDP, ``cfg.fsdp_params``) is
+  gathered just before its layer uses it and freed after (its backward
+  reduce-scatters the gradient back to the shards);
+* a dimension sharded over the model axis stays local where the layer runs
+  tensor-parallel (heads, d_ff, experts), and is gathered where it runs
+  replicated (the embedding and the head, attention whose heads the axis
+  does not divide, the recurrent families, decode attention);
+* a row-parallel product (``wo``, ``wd``, the experts' combine, the shared
+  experts' ``ws_o``) is summed over the model axis.  Under W8A8 the sum is
+  exact: the per-row activation absmax is first made global (MAX), so that
+  every rank quantizes with the unsharded scale, and the int32
+  accumulators are summed (exact mod 2^32) before the rescale.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import _spec_for, entry_axes, rules_for
+
+
+class ShardCtx(NamedTuple):
+    """Mesh context threaded through model code.
+
+    dp: tuple of data-parallel mesh axis names (("data",) or ("pod",
+    "data")).  model: the tensor/expert-parallel axis name.  mesh: the
+    ``launch.mesh.Mesh``.  batch: axes the *activation batch* shards over;
+    None means ``dp``, ``()`` a batch replicated over dp (weights stay
+    FSDP over ``dp``)."""
+    mesh: Any
+    dp: Tuple[str, ...] = ("data",)
+    model: str = "model"
+    batch: Any = None
+
+    @property
+    def batch_axes(self):
+        """Activation-batch mesh axes; None (replicated) if empty."""
+        b = self.dp if self.batch is None else self.batch
+        return tuple(b) or None
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.dp)
+
+    @property
+    def model_size(self) -> int:
+        return int(self.mesh.shape[self.model])
+
+
+def _mesh_order(mesh, axes) -> Tuple[str, ...]:
+    axes = set(axes)
+    return tuple(a for a in mesh.axis_names if a in axes)
+
+
+class RowSum:
+    """The sum of a row-parallel product over the model axis.  ``seq``: the
+    sum is scattered over the sequence (dim 1 of a (B, S, N) product) and
+    the rows are sliced to match (``cfg.seq_shard``'s reduce-scatter, the
+    all-gather coming after the residual add, in ``out``)."""
+
+    def __init__(self, mesh, axis: str, seq: bool = False):
+        self.mesh, self.axis, self.seq = mesh, axis, seq
+
+    def amax(self, t: torch.Tensor) -> torch.Tensor:
+        return C.all_reduce(t, self.mesh, self.axis, op="max")
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.seq:
+            return C.reduce_scatter(t, self.mesh, self.axis, dim=1)
+        return C.all_reduce(t, self.mesh, self.axis)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.seq:
+            return t
+        n = t.shape[1] // self.mesh.shape[self.axis]
+        i = self.mesh.axis_index(self.axis)
+        return t[:, i * n:(i + 1) * n]
+
+    def out(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """x + y, y this object's sum (the residual add)."""
+        if not self.seq:
+            return x + y
+        return C.all_gather(self.rows(x) + y, self.mesh, self.axis, dim=1)
+
+
+class Sharded:
+    """A model call's view of its ``ShardCtx``: the spec table of its
+    parameters and the gathers and sums their layout needs."""
+
+    def __init__(self, cfg, ctx: ShardCtx):
+        self.cfg, self.ctx, self.mesh = cfg, ctx, ctx.mesh
+        self.table = rules_for(cfg, ctx.dp, ctx.model, ctx.model_size)
+        # the model axis is free for tensor parallelism (not folded into dp)
+        self.tp = ctx.model not in ctx.dp
+        self.msize = ctx.model_size if self.tp else 1
+        self.row = RowSum(self.mesh, ctx.model) if self.tp else None
+
+    # ---------------------------------------------------------- parameters
+    def spec(self, name: str, ndim: int):
+        return _spec_for(name, ndim, False, self.table)
+
+    def gather(self, t: torch.Tensor, name: str,
+               keep_model: bool = False) -> torch.Tensor:
+        """The leaf ``name`` (one layer's) with each sharded dim gathered,
+        but the one over the model axis when ``keep_model``."""
+        for dim, e in enumerate(self.spec(name, t.dim())):
+            axes = entry_axes(e)
+            if axes and not (keep_model and axes == (self.ctx.model,)):
+                t = C.all_gather(t, self.mesh, axes, dim=dim)
+        return t
+
+    def layer(self, bp: dict) -> dict:
+        """One layer's leaves gathered whole for use."""
+        return {k: self.gather(v, k) for k, v in bp.items()}
+
+    def model_local(self, name: str, ndim: int) -> Optional[int]:
+        """The dim of leaf ``name`` sharded over the model axis, if any."""
+        for dim, e in enumerate(self.spec(name, ndim)):
+            if self.tp and entry_axes(e) == (self.ctx.model,):
+                return dim
+        return None
+
+    # -------------------------------------------------------------- losses
+    def pmean_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``pmean`` over dp + (model,), as the MoE's aux and z losses."""
+        return C.all_mean(t, self.mesh, _mesh_order(
+            self.mesh, self.ctx.dp + (self.ctx.model,)))
+
+    # ------------------------------------------------------------- caches
+    def cache_gather(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """A cache leaf with its non-batch dims gathered (the batch stays
+        this rank's)."""
+        for dim, e in enumerate(spec):
+            axes = entry_axes(e)
+            if axes and not set(axes) <= set(self.ctx.dp):
+                t = C.all_gather(t, self.mesh, axes, dim=dim)
+        return t
+
+    def cache_slice(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's slice of the non-batch dims of a cache leaf computed
+        whole (``cache_gather``'s inverse)."""
+        for dim, e in enumerate(spec):
+            axes = entry_axes(e)
+            if axes and not set(axes) <= set(self.ctx.dp):
+                n = t.shape[dim] // self.mesh.size(axes)
+                i = self.mesh.index(axes)
+                t = t.narrow(dim, i * n, n)
+        return t
+
+    def _cache_specs(self):
+        from repro_torch.parallel.sharding import cache_specs
+        return cache_specs(self.cfg, self.ctx.dp,
+                           self.ctx.model if self.tp else None)
+
+    def on_full_cache(self, cache, fn):
+        """``fn(full)`` on the cache with its non-batch dims gathered,
+        which returns (out, full) having updated ``full`` in place; this
+        rank's slices of it are then written back into ``cache``.
+        Returns (out, cache)."""
+        specs = self._cache_specs()
+        full = type(cache)(*[None if c is None else self.cache_gather(c, s)
+                             for c, s in zip(cache, specs)])
+        out, full = fn(full)
+        for c, f, s in zip(cache, full, specs):
+            if c is not None and f is not c:
+                c.copy_(self.cache_slice(f, s))
+        return out, cache
+
+    def local_cache(self, cache):
+        """This rank's slices of a cache computed whole for its batch."""
+        return type(cache)(*[
+            None if c is None else self.cache_slice(c, s).contiguous()
+            for c, s in zip(cache, self._cache_specs())])
+
+
+def cross_entropy(sh: Optional[Sharded], logits, labels, mask=None):
+    """The batch's mean next-token CE (``common.cross_entropy_loss``);
+    under ``sh`` the global batch's, from this rank's rows."""
+    from repro_torch.models import common
+    if sh is None or sh.ctx.batch_axes is None:
+        return common.cross_entropy_loss(logits, labels, mask)
+    axes = sh.ctx.batch_axes
+    return common.cross_entropy_loss(
+        logits, labels, mask, psum=lambda t: C.all_reduce(t, sh.mesh, axes),
+        n_shards=sh.mesh.size(axes))
+
+
+def sharded(cfg, ctx: Optional[ShardCtx]) -> Optional[Sharded]:
+    return None if ctx is None else Sharded(cfg, ctx)

@@ -69,8 +69,39 @@ the reference).  Differences by design:
   scatter-add: float atomics would sum in an order that changes between
   runs.
 
-Not in the port yet (raises ``NotImplementedError`` naming its ROADMAP
-item): ``ShardCtx`` and the meshed MoE (item 17).
+Under a ``ShardCtx`` (``models.shard``) every entry runs on this rank's
+shards, explicit SPMD where the reference leaves the partitioning to
+GSPMD and ``shard_map``:
+
+* attention is tensor-parallel over the model axis where it divides the
+  heads (the reference's ``qspec``/``kvspec`` and ``tp_ok`` rules): q's
+  heads shard when H divides it, k's and v's when KV does too, and a rank
+  whose q heads are local but whose KV heads are not takes each local q
+  head's KV head (group 1); ``wq``/``wk``/``wv`` are column-parallel,
+  ``wo`` row-parallel and summed over the axis; rows 9 and 10 run on the
+  local heads.  Otherwise the heads are replicated (their weights
+  gathered);
+* the dense FFN is column-parallel (``wg``, ``wi``) and row-parallel
+  (``wd``); under ``cfg.seq_shard`` its sum is a reduce-scatter over the
+  sequence and an all-gather after the residual add (the MoE block's stays
+  an all-reduce);
+* the meshed MoE (the reference's ``_moe_ffn_local``) routes this rank's
+  tokens with ``capacity`` from the local token count, over the experts
+  ``[e_lo, e_lo + E_loc)`` in ``ep`` (E divides the model axis) or over all
+  experts with a slice of ``d_expert`` in ``etp``; in ``ep`` the partial
+  combines are summed over the model axis; in ``etp`` each expert's
+  ``we_o`` product is summed before the gates (under W8A8 its int32
+  accumulators, exactly), so the fixed-order combine runs on whole rows;
+  the shared experts are tensor-parallel; aux and z are ``pmean``ed over
+  dp + (model,);
+* the embedding and the head are gathered where they are used (vocab
+  over the model axis, d over dp), so the logits are whole on each rank;
+* ``decode_step`` reads a cache laid out by ``cache_specs``: batch over
+  dp, the time dim over the model axis.  Each rank writes the new row
+  where it owns its slot and attends to its slots; the softmax's max and
+  sum are made global before P, and the partial P·V summed
+  (flash-decoding);
+* the loss is the global batch's mean (the slices' means averaged).
 """
 from __future__ import annotations
 
@@ -84,12 +115,10 @@ from repro_torch import resolve_device
 from repro_torch.kernels.flashattn.ops import flash_attn_model
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
-
-def _check(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(
-            "sharded execution (ShardCtx) and the meshed MoE come with "
-            "ROADMAP.md queue 1, item 17")
+from repro_torch.models.shard import (RowSum, ShardCtx,  # noqa: F401
+                                      cross_entropy, sharded)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import entry_axes
 
 
 def _pdt(cfg: ArchConfig):
@@ -168,16 +197,21 @@ def quantize_ffn_params(cfg: ArchConfig, params):
     return p
 
 
-def _quantize_act(x: torch.Tensor):
+def _quantize_act(x: torch.Tensor, amax=None):
     """Dynamic symmetric per-row int8 activation quant (serving-style):
-    round half to even of an IEEE divide, as the reference."""
+    round half to even of an IEEE divide, as the reference.  A row whose
+    elements are spread over ranks passes ``amax``, the MAX over them, so
+    that each rank quantizes with the whole row's scale."""
     x = x.to(torch.float32)
-    x_s = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    a = x.abs().amax(dim=-1, keepdim=True)
+    if amax is not None:
+        a = amax(a)
+    x_s = torch.clamp(a, min=1e-8) / 127.0
     x_q = torch.clamp(torch.round(x / x_s), -127, 127).to(torch.int8)
     return x_q, x_s
 
 
-def _qdot(cfg: ArchConfig, x, bp, name):
+def _qdot(cfg: ArchConfig, x, bp, name, red: Optional[RowSum] = None):
     """x @ W[name], W8A8 when quantized params are present.
 
     The int32 accumulator comes from the execution-backend registry
@@ -185,11 +219,17 @@ def _qdot(cfg: ArchConfig, x, bp, name):
     oracle on request); with ``cfg.policy_map`` set, the site
     ``ffn.<name>`` resolves to a policy (and optionally a backend) and the
     accumulator runs through ``dependable_matmul_acc``.  The rescale is
-    ``acc.f32 * x_s * w_s``, then a cast, in the reference's order."""
+    ``acc.f32 * x_s * w_s``, then a cast, in the reference's order.
+
+    ``red``: a row-parallel product (x holds this rank's slice of the
+    contraction dim, W its rows); the row absmax is made global before the
+    quantization and the int32 accumulators (or the float products) are
+    summed by ``red``."""
     if name + "_q" not in bp:
-        return x @ _w(cfg, bp[name])
+        y = x @ _w(cfg, bp[name])
+        return y if red is None else red.sum(y)
     from repro_torch.kernels import dispatch
-    x_q, x_s = _quantize_act(x)
+    x_q, x_s = _quantize_act(x, None if red is None else red.amax)
     w_q = bp[name + "_q"]
     lead = x_q.shape[:-1]
     x2 = x_q.reshape(-1, x_q.shape[-1])
@@ -204,24 +244,30 @@ def _qdot(cfg: ArchConfig, x, bp, name):
     else:
         acc = dispatch.matmul_acc(x2, w_q, backend=cfg.backend)
     acc = acc.reshape(*lead, w_q.shape[-1])
+    if red is not None:
+        acc, x_s = red.sum(acc), red.rows(x_s)
     y = acc.to(torch.float32) * x_s * bp[name + "_s"]
     return y.to(x.dtype)
 
 
-def _qeinsum(cfg: ArchConfig, x, bp, name):
+def _qeinsum(cfg: ArchConfig, x, bp, name, red: Optional[RowSum] = None):
     """The expert products (E, C, K) × (E, K, N) → (E, C, N), W8A8 when
     quantized: the activations quantized per row once, then one int32
     accumulator per expert from ``dispatch.matmul_acc`` on ``cfg.backend``
     (every expert, empty ones too, as the reference's einsum computes
-    every expert), then ``acc.f32 * x_s * w_s``, then a cast."""
+    every expert), then ``acc.f32 * x_s * w_s``, then a cast.  ``red``
+    as in ``_qdot`` (``etp``'s ``we_o``, K split over the model axis)."""
     if name + "_q" not in bp:
-        return torch.bmm(x, _w(cfg, bp[name]))
+        y = torch.bmm(x, _w(cfg, bp[name]))
+        return y if red is None else red.sum(y)
     from repro_torch.kernels import dispatch
-    x_q, x_s = _quantize_act(x)                  # (E, C, K), (E, C, 1)
+    x_q, x_s = _quantize_act(x, None if red is None else red.amax)
     w_q = bp[name + "_q"]
     acc = torch.stack([dispatch.matmul_acc(x_q[e], w_q[e],
                                            backend=cfg.backend)
                        for e in range(w_q.shape[0])])
+    if red is not None:
+        acc = red.sum(acc)
     y = acc.to(torch.float32) * x_s * bp[name + "_s"][:, None, :]
     return y.to(x.dtype)
 
@@ -324,9 +370,9 @@ def _cast_layers(cfg: ArchConfig, blocks) -> List[Dict[str, Any]]:
 
 def _qkv(cfg: ArchConfig, bp, x, positions):
     """Pre-norm projections, qk-norm and RoPE: q (B,S,H,hd), k/v
-    (B,S,KV,hd)."""
+    (B,S,KV,hd) — or this rank's heads of each, from column shards."""
     B, S, _ = x.shape
-    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
     h = common.rms_norm(x, bp["ln1"], cfg.norm_eps)
     q = h @ _w(cfg, bp["wq"])
     k = h @ _w(cfg, bp["wk"])
@@ -335,9 +381,9 @@ def _qkv(cfg: ArchConfig, bp, x, positions):
         q = q + _w(cfg, bp["bq"])
         k = k + _w(cfg, bp["bk"])
         v = v + _w(cfg, bp["bv"])
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, bp["q_norm"], cfg.norm_eps)
         k = common.rms_norm(k, bp["k_norm"], cfg.norm_eps)
@@ -346,35 +392,81 @@ def _qkv(cfg: ArchConfig, bp, x, positions):
     return q, k, v
 
 
-def _attention(cfg: ArchConfig, bp, x, positions):
+_Q_LEAVES = ("wq", "bq", "wo")
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+_ATTN_LEAVES = ("ln1", "q_norm", "k_norm") + _Q_LEAVES + _KV_LEAVES
+
+
+def _heads_tp(cfg: ArchConfig, sh) -> tuple:
+    """(q's heads local to the model axis, k's and v's too): the
+    reference's qspec/kvspec rule."""
+    if sh is None or not sh.tp:
+        return False, False
+    tq = cfg.n_heads % sh.msize == 0
+    return tq, tq and cfg.n_kv_heads % sh.msize == 0
+
+
+def _attn_weights(cfg: ArchConfig, bp, sh, tq: bool, tkv: bool):
+    """One layer's attention leaves for use: FSDP dims gathered, the model
+    dim kept where the heads are tensor-parallel."""
+    return {k: sh.gather(v, k, keep_model=tq if k in _Q_LEAVES else tkv)
+            for k, v in bp.items() if k in _ATTN_LEAVES}
+
+
+def _attention(cfg: ArchConfig, bp, x, positions, sh=None):
     """Full-sequence attention block: (x + attn, k, v) — k and v as the
-    KV cache holds them."""
+    KV cache holds them (this rank's KV heads where they are local)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, bp, x, positions)
+    tq, tkv = _heads_tp(cfg, sh)
+    w = bp if sh is None else _attn_weights(cfg, bp, sh, tq, tkv)
+    q, k, v = _qkv(cfg, w, x, positions)
+    kq, vq = k, v
+    if tq and not tkv:
+        # local q heads over replicated KV heads: each q head's own
+        G = cfg.n_heads // cfg.n_kv_heads
+        hl = q.shape[2]
+        idx = (torch.arange(hl) + sh.mesh.axis_index(sh.ctx.model) * hl) // G
+        idx = idx.to(x.device)
+        kq, vq = k[:, :, idx], v[:, :, idx]
     if cfg.attn_impl == "flash":
-        o = flash_attn_model(q, k, v, window=cfg.swa_window)
+        o = flash_attn_model(q, kq, vq, window=cfg.swa_window)
     else:
-        o = common.chunked_causal_attention(q, k, v, window=cfg.swa_window)
-    x = x + o.reshape(B, S, -1) @ _w(cfg, bp["wo"])
-    return x, k, v
+        o = common.chunked_causal_attention(q, kq, vq, window=cfg.swa_window)
+    y = o.reshape(B, S, -1) @ _w(cfg, w["wo"])
+    if tq:
+        y = sh.row.sum(y)
+    return x + y, k, v
 
 
-def _dense_ffn(cfg: ArchConfig, bp, x):
+_FFN_LEAVES = ("wg", "wi", "wd") + tuple(n + sfx for n in ("wg", "wi", "wd")
+                                         for sfx in ("_q", "_s"))
+
+
+def _dense_ffn(cfg: ArchConfig, bp, x, sh=None):
     h = common.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    red = None
+    if sh is not None:
+        bp = {k: sh.gather(v, k, keep_model=True) if k in _FFN_LEAVES else v
+              for k, v in bp.items()}
+        if sh.tp:
+            red = RowSum(sh.mesh, sh.ctx.model, seq=cfg.seq_shard
+                         and x.shape[1] % sh.msize == 0)
     act = F.silu(_qdot(cfg, h, bp, "wg")) * _qdot(cfg, h, bp, "wi")
-    return x + _qdot(cfg, act, bp, "wd")
+    y = _qdot(cfg, act, bp, "wd", red)
+    return x + y if red is None else red.out(x, y)
 
 
 # ------------------------------- MoE ----------------------------------------
 
 
 class Route(NamedTuple):
-    """``_local_route``'s maps over the (E·C,) buffer rows, and ``tslot``
-    (n, top_k): each token's buffer rows in ascending order, E·C where
-    the choice was dropped."""
-    gather_idx: torch.Tensor     # (E·C,) int64 token row of each buffer row
-    gates: torch.Tensor          # (E·C,) f32
-    filled: torch.Tensor         # (E·C,) bool
+    """``_local_route``'s maps over the (E_loc·C,) buffer rows, and
+    ``tslot`` (n, top_k): each token's buffer rows in ascending order,
+    E_loc·C where the choice was dropped or went to another rank's
+    experts."""
+    gather_idx: torch.Tensor     # (E_loc·C,) int64 token row of each row
+    gates: torch.Tensor          # (E_loc·C,) f32
+    filled: torch.Tensor         # (E_loc·C,) bool
     aux: torch.Tensor            # () f32 load-balance loss
     z_loss: torch.Tensor         # () f32
     tslot: torch.Tensor          # (n, top_k) int64
@@ -386,36 +478,42 @@ def capacity(m, n: int) -> int:
     return max(int(m.top_k * n * m.capacity_factor / m.n_experts), 4)
 
 
-def _local_route(h: torch.Tensor, router_w: torch.Tensor, m,
-                 cap: int) -> Route:
-    """Sort-based capacity routing of the (n, d) tokens ``h`` over all
-    ``m.n_experts`` experts, the reference's ``_local_route`` with every
-    expert local.  The router product is f32 (never TF32: a flipped near
-    tie sends a token elsewhere); top-k is a stable descending sort (a tie
-    to the lower index, as ``jax.lax.top_k``); the sort by expert is stable
+def _local_route(h: torch.Tensor, router_w: torch.Tensor, m, cap: int,
+                 e_lo: int = 0, E_loc: Optional[int] = None) -> Route:
+    """Sort-based capacity routing of the (n, d) tokens ``h`` for the
+    ``E_loc`` experts starting at ``e_lo`` (default all ``m.n_experts``),
+    the reference's ``_local_route``.  The router product is f32 (never
+    TF32: a flipped near tie sends a token elsewhere; f64 under a float64
+    compute dtype, the precision witness); top-k is a stable
+    descending sort (a tie to the lower index, as ``jax.lax.top_k``); the
+    sort by local expert, the other ranks' choices last, is stable
     (``jnp.argsort``), so within an expert earlier tokens keep their slots
-    and later ones are dropped.  Dropped assignments go to an overflow row
-    E·C, sliced off, so no write falls out of range."""
+    and later ones are dropped.  Dropped and foreign assignments go to an
+    overflow row E_loc·C, sliced off, so no write falls out of range."""
     n = h.shape[0]
     E, k = m.n_experts, m.top_k
+    E_loc = E if E_loc is None else E_loc
     dev = h.device
-    logits = h.to(torch.float32) @ router_w.to(torch.float32)
+    acc = torch.promote_types(h.dtype, torch.float32)   # f64: the witness
+    logits = h.to(acc) @ router_w.to(acc)
     probs = torch.softmax(logits, dim=-1)                        # (n, E)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :k], top_i[:, :k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)             # renormalise
 
-    flat_e = top_i.reshape(-1)                                  # (n·k,)
+    local_e = top_i.reshape(-1) - e_lo                          # (n·k,)
+    is_local = (local_e >= 0) & (local_e < E_loc)
+    key = torch.where(is_local, local_e, E_loc)                 # foreign last
     flat_t = torch.arange(n, device=dev).repeat_interleave(k)
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sg = flat_e[order], flat_t[order], top_p.reshape(-1)[order]
-    starts = torch.searchsorted(se, torch.arange(E + 1, device=dev))
+    order = torch.argsort(key, stable=True)
+    se, st, sg = key[order], flat_t[order], top_p.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(E_loc + 1, device=dev))
     pos = torch.arange(n * k, device=dev) - starts[se]
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, E * cap)           # overflow row
-    gather_idx = torch.zeros(E * cap + 1, dtype=torch.int64, device=dev)
-    gates = torch.zeros(E * cap + 1, dtype=torch.float32, device=dev)
-    filled = torch.zeros(E * cap + 1, dtype=torch.bool, device=dev)
+    keep = (se < E_loc) & (pos < cap)
+    slot = torch.where(keep, se * cap + pos, E_loc * cap)       # overflow row
+    gather_idx = torch.zeros(E_loc * cap + 1, dtype=torch.int64, device=dev)
+    gates = torch.zeros(E_loc * cap + 1, dtype=acc, device=dev)
+    filled = torch.zeros(E_loc * cap + 1, dtype=torch.bool, device=dev)
     gather_idx[slot] = st
     gates[slot] = sg
     filled[slot] = keep
@@ -425,7 +523,7 @@ def _local_route(h: torch.Tensor, router_w: torch.Tensor, m,
     tslot = torch.sort(tslot.reshape(n, k), dim=-1).values
     # aux-loss ingredients (load balance over the global expert set)
     me = probs.mean(dim=0)
-    ce = F.one_hot(top_i, E).to(torch.float32).mean(dim=(0, 1))
+    ce = F.one_hot(top_i, E).to(acc).mean(dim=(0, 1))
     aux = E * torch.sum(me * ce)
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return Route(gather_idx[:-1], gates[:-1], filled[:-1], aux, z_loss,
@@ -444,48 +542,77 @@ def _combine(out: torch.Tensor, route: Route) -> torch.Tensor:
     return combined
 
 
-def _moe_ffn(cfg: ArchConfig, bp, x):
-    """The reference's ``_moe_ffn_single``: (x + routed + shared, aux,
-    z_loss) for x (B, S, d); all B·S tokens share the experts' capacity."""
+def moe_mode(cfg: ArchConfig, model_size: int) -> str:
+    """'ep' when experts divide the model axis, else expert-TP fallback."""
+    return "ep" if cfg.moe.n_experts % model_size == 0 else "etp"
+
+
+def _moe_ffn(cfg: ArchConfig, bp, x, sh=None):
+    """The reference's ``_moe_ffn_single`` (and, under ``sh``, its
+    ``_moe_ffn_local``): (x + routed + shared, aux, z_loss) for x (B, S,
+    d); all B·S tokens (this rank's) share the experts' capacity."""
     m = cfg.moe
     B, S, d = x.shape
     n = B * S
     h = common.rms_norm(x.reshape(n, d), bp["ln2"], cfg.norm_eps)
     cap = capacity(m, n)
-    route = _local_route(h, bp["router"], m, cap)
+    E_loc, e_lo, ep, etp = m.n_experts, 0, None, None
+    if sh is not None:
+        bp = {k: sh.gather(v, k, keep_model=True)
+              for k, v in bp.items() if k not in _ATTN_LEAVES}
+        dim = sh.model_local("we_g_q" if "we_g_q" in bp else "we_g", 3)
+        ep = sh.row if dim == 0 else None
+        etp = sh.row if dim == 2 else None
+        if ep is not None:
+            E_loc = m.n_experts // sh.msize
+            e_lo = sh.mesh.axis_index(sh.ctx.model) * E_loc
+    route = _local_route(h, bp["router"], m, cap, e_lo, E_loc)
     buf = torch.where(route.filled[:, None], h[route.gather_idx], 0)
-    buf = buf.reshape(m.n_experts, cap, d)
+    buf = buf.reshape(E_loc, cap, d)
     act = F.silu(_qeinsum(cfg, buf, bp, "we_g")) * \
         _qeinsum(cfg, buf, bp, "we_i")
-    out = _qeinsum(cfg, act, bp, "we_o").reshape(-1, d) * \
+    out = _qeinsum(cfg, act, bp, "we_o", etp).reshape(-1, d) * \
         route.gates[:, None]
     combined = _combine(out, route)
+    if ep is not None:
+        combined = ep.sum(combined)
     if m.n_shared_experts:
         sact = F.silu(_qdot(cfg, h, bp, "ws_g")) * _qdot(cfg, h, bp, "ws_i")
-        combined = combined + _qdot(cfg, sact, bp, "ws_o")
-    return x + combined.reshape(B, S, d).to(x.dtype), route.aux, route.z_loss
+        combined = combined + _qdot(cfg, sact, bp, "ws_o",
+                                    None if sh is None else sh.row)
+    aux, z = route.aux, route.z_loss
+    if sh is not None:
+        aux, z = sh.pmean_all(torch.stack([aux, z])).unbind()
+    return x + combined.reshape(B, S, d).to(x.dtype), aux, z
 
 
-def _ffn(cfg: ArchConfig, bp, x, moe: bool):
+def _ffn(cfg: ArchConfig, bp, x, moe: bool, sh=None):
     """The block's FFN half: (x, aux, z_loss), aux and z None when dense."""
     if moe:
-        return _moe_ffn(cfg, bp, x)
-    return _dense_ffn(cfg, bp, x), None, None
+        return _moe_ffn(cfg, bp, x, sh)
+    return _dense_ffn(cfg, bp, x, sh), None, None
 
 
-def _logits(cfg: ArchConfig, params, x):
+def _logits(cfg: ArchConfig, params, x, sh=None):
+    """Final norm and head: the tied embedding's transpose or
+    ``lm_head``, gathered where it is used under ``sh``."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = params[name] if sh is None else sh.gather(params[name], name)
+    if cfg.tie_embeddings:
+        head = head.T
     return x @ head.to(x.dtype)
 
 
-def _embed(cfg: ArchConfig, params, tokens):
+def _embed(cfg: ArchConfig, params, tokens, sh=None):
     """The embedding rows of ``tokens``, an out-of-range id read as JAX's
     gather reads it: negative ids count from the end once, then clamp."""
-    V = params["embed"].shape[0]
+    table = params["embed"] if sh is None else sh.gather(params["embed"],
+                                                          "embed")
+    V = table.shape[0]
     ids = tokens.long()
     ids = torch.clamp(torch.where(ids < 0, ids + V, ids), 0, V - 1)
-    return F.embedding(ids, params["embed"]).to(_cdt(cfg))
+    return F.embedding(ids, table).to(_cdt(cfg))
 
 
 class ForwardOut(NamedTuple):
@@ -494,9 +621,9 @@ class ForwardOut(NamedTuple):
     z_loss: torch.Tensor
 
 
-def _block(cfg: ArchConfig, bp, x, positions, moe):
-    x, _, _ = _attention(cfg, bp, x, positions)
-    return _ffn(cfg, bp, x, moe)
+def _block(cfg: ArchConfig, bp, x, positions, moe, sh=None):
+    x, _, _ = _attention(cfg, bp, x, positions, sh)
+    return _ffn(cfg, bp, x, moe, sh)
 
 
 def _blocks(params):
@@ -508,35 +635,35 @@ def _blocks(params):
             for bp in _layers(params[blk])]
 
 
-def _inputs(cfg: ArchConfig, params, tokens, embeds=None):
+def _inputs(cfg: ArchConfig, params, tokens, embeds=None, sh=None):
     """The token embeddings, or ``embeds`` in their place, in the compute
     dtype."""
-    return _embed(cfg, params, tokens) if embeds is None \
+    return _embed(cfg, params, tokens, sh) if embeds is None \
         else embeds.to(_cdt(cfg))
 
 
 def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
-           embeds=None):
+           embeds=None, sh=None):
     """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
     norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
     ``remat`` recomputes each block in the backward.  Returns (logits,
     aux, z_loss), the last two summed over the MoE layers."""
-    x = _inputs(cfg, params, tokens, embeds)
+    x = _inputs(cfg, params, tokens, embeds, sh)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, (bp, moe) in enumerate(_blocks(params)):
         if remat:
             x, a, z = torch.utils.checkpoint.checkpoint(
-                _block, cfg, bp, x, positions, moe, use_reentrant=False)
+                _block, cfg, bp, x, positions, moe, sh, use_reentrant=False)
         else:
-            x, k, v = _attention(cfg, bp, x, positions)
+            x, k, v = _attention(cfg, bp, x, positions, sh)
             if keep_kv is not None:
                 keep_kv(li, k, v)
-            x, a, z = _ffn(cfg, bp, x, moe)
+            x, a, z = _ffn(cfg, bp, x, moe, sh)
         if moe:
             aux, zl = aux + a, zl + z
-    return _logits(cfg, params, x), aux, zl
+    return _logits(cfg, params, x, sh), aux, zl
 
 
 def _remat(cfg: ArchConfig, params) -> bool:
@@ -549,10 +676,10 @@ def _remat(cfg: ArchConfig, params) -> bool:
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
             embeds=None) -> ForwardOut:
     """tokens: (B, S) int (or embeds (B, S, d)) → logits (B, S, V), and the
-    MoE layers' mean aux and z losses (zero for a dense config)."""
-    _check(ctx)
+    MoE layers' mean aux and z losses (zero for a dense config).  Under
+    ``ctx`` the tokens, the logits and ``params`` are this rank's."""
     logits, aux, zl = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
-                             embeds=embeds)
+                             embeds=embeds, sh=sharded(cfg, ctx))
     denom = max(_n_moe(cfg), 1)
     return ForwardOut(logits, aux / denom, zl / denom)
 
@@ -560,11 +687,12 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
 def loss_fn(cfg: ArchConfig, params, batch, ctx=None):
     """(mean next-token CE plus, for MoE, ``aux_loss``·aux +
     ``router_z_loss``·z, {"ce", "aux", "z"}) of ``batch`` ("tokens",
-    "labels", optional "mask")."""
+    "labels", optional "mask"); under ``ctx`` the CE is the global
+    batch's, from this rank's rows."""
     out = forward(cfg, params, batch["tokens"], ctx,
                   embeds=batch.get("embeds"))
-    loss = common.cross_entropy_loss(out.logits, batch["labels"],
-                                     batch.get("mask"))
+    loss = cross_entropy(sharded(cfg, ctx), out.logits, batch["labels"],
+                         batch.get("mask"))
     if cfg.moe is not None:
         loss = loss + cfg.moe.aux_loss * out.aux_loss \
             + cfg.moe.router_z_loss * out.z_loss
@@ -600,11 +728,8 @@ def cache_len(cfg: ArchConfig, max_len: int) -> int:
     return max_len
 
 
-def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
-               device="cuda") -> KVCache:
-    dev = resolve_device(device)
-    shape = (cfg.n_layers, B, cache_len(cfg, max_len), cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+def _empty_cache(cfg: ArchConfig, B: int, T: int, dtype, dev) -> KVCache:
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.resolved_head_dim)
     if cfg.quant_kv:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
                        torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -619,65 +744,127 @@ def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
                    torch.zeros((B,), dtype=torch.int32, device=dev))
 
 
+def init_cache(cfg: ArchConfig, B: int, max_len: int, dtype=None, *,
+               device="cuda") -> KVCache:
+    return _empty_cache(cfg, B, cache_len(cfg, max_len), dtype,
+                        resolve_device(device))
+
+
+def _time_shards(cfg: ArchConfig, sh):
+    """(axes, ranks, this rank's index) of a KV cache's time dim under
+    ``sh`` (``cache_specs``: the model axis unless it is folded into
+    dp)."""
+    if sh is None:
+        return (), 1, 0
+    from repro_torch.parallel.sharding import cache_specs
+    axes = entry_axes(cache_specs(cfg, sh.ctx.dp,
+                                  sh.ctx.model if sh.tp else None).k[2])
+    if not axes:
+        return (), 1, 0
+    return axes, sh.mesh.size(axes), sh.mesh.index(axes)
+
+
 def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
                 cache: KVCache, ctx=None, embed=None):
     """token: (B,) int (or embed (B, d)).  Writes each layer's new K/V row
     into ``cache`` in place (slot ``length % T`` of each row), advances
-    ``length`` and returns (logits (B, V), cache)."""
-    _check(ctx)
-    x = _inputs(cfg, params, token, embed)[:, None, :]
+    ``length`` and returns (logits (B, V), cache).  Under ``ctx`` the
+    tokens and ``cache`` are this rank's (``cache_specs``)."""
+    sh = sharded(cfg, ctx)
+    x = _inputs(cfg, params, token, embed, sh)[:, None, :]
     B = x.shape[0]
     hd, H = cfg.resolved_head_dim, cfg.n_heads
     pos = cache.length
-    T = cache.k.shape[2]
     rows = torch.arange(B, device=x.device)
-    slot = (pos % T).long()
-    valid = torch.clamp(pos + 1, max=T)
+    if sh is None:
+        T = cache.k.shape[2]
+        slot = (pos % T).long()
+        valid = torch.clamp(pos + 1, max=T)
+        write, t0, reduce = None, 0, None
+    else:
+        Tl = cache.k.shape[2]
+        axes, n, i = _time_shards(cfg, sh)
+        T, t0 = Tl * n, i * Tl
+        gslot = (pos % T).long()
+        own = (gslot >= t0) & (gslot < t0 + Tl)
+        slot = torch.clamp(gslot - t0, 0, Tl - 1)
+        valid = torch.clamp(pos + 1, max=T)
+
+        def write(page, new):       # the row where this rank owns its slot
+            new = new.to(page.dtype)
+            old = page[rows, slot]
+            page[rows, slot] = torch.where(
+                own.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+        def reduce(t, op):
+            return C.all_reduce(t, sh.mesh, axes, op=op)
+        reduce = reduce if n > 1 else None    # one shard: the whole T
     for li, (bp, moe) in enumerate(_blocks(params)):
-        q, k, v = _qkv(cfg, bp, x, pos[:, None])
+        w = bp if sh is None else _attn_weights(cfg, bp, sh, False, False)
+        q, k, v = _qkv(cfg, w, x, pos[:, None])
+        kv = ((cache.k[li], k[:, 0]), (cache.v[li], v[:, 0]))
         if cache.k_s is not None:                    # int8 KV cache
             k_q, k_sc = _quantize_kv_rows(k[:, 0])   # (B, KV, hd), (B, KV)
             v_q, v_sc = _quantize_kv_rows(v[:, 0])
-            cache.k[li, rows, slot] = k_q
-            cache.v[li, rows, slot] = v_q
-            cache.k_s[li, rows, slot] = k_sc
-            cache.v_s[li, rows, slot] = v_sc
+            kv = ((cache.k[li], k_q), (cache.v[li], v_q),
+                  (cache.k_s[li], k_sc), (cache.v_s[li], v_sc))
+        for page, new in kv:
+            if write is None:
+                page[rows, slot] = new.to(page.dtype)
+            else:
+                write(page, new)
+        if cache.k_s is not None:
             o = common.decode_attention(q, cache.k[li], cache.v[li], valid,
                                         k_scale=cache.k_s[li],
-                                        v_scale=cache.v_s[li])
+                                        v_scale=cache.v_s[li], t0=t0,
+                                        reduce=reduce)
         else:
-            cache.k[li, rows, slot] = k[:, 0].to(cache.k.dtype)
-            cache.v[li, rows, slot] = v[:, 0].to(cache.v.dtype)
-            o = common.decode_attention(q, cache.k[li], cache.v[li], valid)
-        x = x + (o.reshape(B, 1, H * hd) @ _w(cfg, bp["wo"])).to(x.dtype)
-        x = _ffn(cfg, bp, x, moe)[0]        # MoE: the B rows route as one batch
+            o = common.decode_attention(q, cache.k[li], cache.v[li], valid,
+                                        t0=t0, reduce=reduce)
+        x = x + (o.reshape(B, 1, H * hd) @ _w(cfg, w["wo"])).to(x.dtype)
+        x = _ffn(cfg, bp, x, moe, sh)[0]    # MoE: the B rows route as one batch
     cache.length.add_(1)
-    return _logits(cfg, params, x).reshape(B, -1), cache
+    return _logits(cfg, params, x, sh).reshape(B, -1), cache
 
 
 def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
             ctx=None, embeds=None):
     """Full-sequence forward that also fills a fresh KV cache in the same
     pass; ``embeds`` (B, S, d) takes the place of the token embedding.
-    Returns (logits (B, S, V), cache)."""
-    _check(ctx)
+    Returns (logits (B, S, V), cache).  Under ``ctx`` the tokens, the
+    logits and the cache are this rank's (``cache_specs``: its slots of
+    the time dim)."""
+    sh = sharded(cfg, ctx)
     src = tokens if embeds is None else embeds
     B, S = src.shape[:2]
-    cache = init_cache(cfg, B, max_len, device=src.device)
-    T = cache.k.shape[2]
+    T = cache_len(cfg, max_len)
+    axes, n, i = _time_shards(cfg, sh)
+    if T % n:
+        raise ValueError(f"KV cache: {T} slots do not split over axis "
+                         f"{axes} ({n} ways)")
+    t0 = i * (T // n)
+    cache = _empty_cache(cfg, B, T // n, None, src.device)
     tc = min(T, S)
     # keep the last T positions; SWA rings put position p at slot p % T
     ring = cfg.swa_window is not None and S >= T
-    idx = (torch.arange(tc, device=src.device) + (S - tc)) % T
+    slots = (torch.arange(tc) + (S - tc)) % T if ring else torch.arange(tc)
+    mine = torch.nonzero((slots >= t0) & (slots < t0 + T // n)).flatten()
+    src_i, dst_i = mine.to(src.device), (slots[mine] - t0).to(src.device)
+    everything = sh is None and not ring
 
     def write(page, new):
-        if ring:
-            page[:, idx] = new
-        else:
+        if everything:
             page[:, :tc] = new
+        else:
+            page[:, dst_i] = new[:, src_i]
+
+    _, tkv = _heads_tp(cfg, sh)
 
     def keep(li, k, v):
         k, v = k[:, S - tc:], v[:, S - tc:]
+        if tkv:                     # this rank's KV heads: the cache's all
+            k = C.all_gather(k, sh.mesh, sh.ctx.model, dim=2)
+            v = C.all_gather(v, sh.mesh, sh.ctx.model, dim=2)
         if cache.k_s is None:
             write(cache.k[li], k.to(cache.k.dtype))
             write(cache.v[li], v.to(cache.v.dtype))
@@ -688,6 +875,7 @@ def prefill(cfg: ArchConfig, params, tokens: torch.Tensor, max_len: int,
             write(page, q)
             write(scales, sc)
 
-    logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds)[0]
+    logits = _trunk(cfg, params, tokens, keep_kv=keep, embeds=embeds,
+                    sh=sh)[0]
     cache.length.fill_(S)
     return logits, cache

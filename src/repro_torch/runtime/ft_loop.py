@@ -13,8 +13,10 @@ The counterpart of ``repro.runtime.ft_loop`` on one card:
 The reference's ``jax.jit(step_fn)`` is a plain call: PyTorch runs
 eagerly.  Saves copy the state to host at once and persist on a background
 writer; recovery calls ``wait()`` first so the restore reads a durable
-manifest.  The elastic restart onto a smaller mesh comes with parallelism
-(ROADMAP.md queue 1, item 17).
+manifest.  The loop runs on one device: ``mesh`` (the sharded loop and
+the orchestrator's elastic restart onto a smaller mesh) raises, and waits
+for ROADMAP.md queue 1, item 17; the sharded train step and the elastic
+restore themselves are in ``train.steps`` and ``train.checkpoint``.
 
 Determinism contract: batch ``i`` is a pure function of (seed, i), and
 every operation of the step is deterministic on the card (the hand
@@ -78,7 +80,7 @@ def _is_bad(loss: float, history: List[float], factor: float) -> bool:
 def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
         n_steps: int = 100,
         fault_hook: Optional[Callable[[int, Any], Any]] = None,
-        lr: float = 3e-4, device="cuda") -> RunReport:
+        lr: float = 3e-4, device="cuda", mesh=None) -> RunReport:
     """Train ``n_steps`` on ``device``; survive faults injected by
     ``fault_hook``.
 
@@ -86,12 +88,16 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
     drill) or raise ``RuntimeError("node lost")`` to simulate a device
     failure.  The driver recovers either way.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded FT loop and its elastic restart come with "
+            "ROADMAP.md queue 1, item 17")
     t0 = time.time()
     dev = resolve_device(device)
     opt = optim_mod.make_optimizer(cfg.optimizer, lr=lr)
     stream = TokenStream(cfg, shape, seed=ft.seed, n_hosts=1, host_id=0)
     orch = Orchestrator(n_workers=1, heartbeat_timeout=1e9)
-    step_fn = steps_mod.make_train_step(cfg, opt)
+    step_fn = steps_mod.make_train_step(cfg, optimizer=opt)
 
     # incremental + async checkpointing: dirty-chunk writes on a background
     # thread; every restore below waits for in-flight saves to be durable

@@ -25,9 +25,16 @@ copied to host numpy when ``save`` is called, before the caller can change
 it (bf16 as its 16-bit pattern, named "bfloat16" in the manifest), and
 comes back from ``restore`` as a torch tensor on ``device`` (default the
 card, as every entry of the port; a CPU caller says so); any other leaf
-comes back as a numpy array, as in the reference.  There are no sharding
-specs: the elastic restore onto a new mesh comes with parallelism
-(ROADMAP.md queue 1, item 17).
+comes back as a numpy array, as in the reference.
+
+Sharded states.  ``save(..., specs=, mesh=)`` takes each rank's shards
+(``parallel.sharding`` specs): the ranks gather one full leaf at a time,
+rank 0 copies it to the host and the card frees it before the next, rank 0
+writes them with the reference's manifest (leaf paths, crc32s, full shapes
+and each leaf's spec), and every rank returns once the write is durable.
+``restore(..., mesh=, specs=)`` reads the full leaves on every rank and
+returns this rank's shards of them on any mesh: the elastic restart onto
+another topology.
 """
 from __future__ import annotations
 
@@ -73,6 +80,23 @@ def _snapshot(state) -> List[Tuple[str, np.ndarray, str, str]]:
             for path, leaf in tree.leaves_with_paths(state)]
 
 
+def _gathered_snapshot(local, specs, mesh):
+    """``_snapshot`` of the full leaves of this rank's shards ``local``:
+    one leaf gathered at a time, copied to the host on rank 0 only and
+    freed before the next (the card never holds more than one full leaf
+    beside the shards); None on the other ranks."""
+    from repro_torch.parallel.sharding import gather_leaf
+    out = []
+    with torch.no_grad():
+        for (path, leaf), spec in zip(tree.leaves_with_paths(local),
+                                      tree.leaves(specs)):
+            full = gather_leaf(leaf, spec, mesh)
+            if mesh.rank == 0:
+                out.append((tree.path_str(path), *_to_host(full)))
+            del full
+    return out if mesh.rank == 0 else None
+
+
 def _publish(tmp: Path, final: Path, manifest: dict) -> None:
     """Write the manifest, fsync it, then rename the step dir into place."""
     (tmp / MANIFEST).write_text(json.dumps(manifest))
@@ -91,25 +115,48 @@ def _fresh_tmp(ckpt_dir: Path, step: int) -> Path:
     return tmp
 
 
-def save(ckpt_dir: str | Path, step: int, state: Any,
-         keep_n: int = 3) -> Path:
-    """Atomically persist ``state`` (a pytree of tensors / arrays)."""
+def _spec_json(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def save(ckpt_dir: str | Path, step: int, state: Any, keep_n: int = 3, *,
+         specs: Any = None, mesh=None) -> Path:
+    """Atomically persist ``state`` (a pytree of tensors / arrays).  With
+    ``mesh``, ``state`` is this rank's shards under ``specs`` (a tree of
+    ``parallel.sharding.P``): the full leaves are gathered one at a time
+    and rank 0 writes them; ``specs`` alone are recorded in the manifest."""
     ckpt_dir = Path(ckpt_dir)
+    final = _step_dir(ckpt_dir, step)
+    n_proc = 1
+    if mesh is None:
+        snap = _snapshot(state)
+    else:
+        import torch.distributed as dist
+        snap = _gathered_snapshot(state, specs, mesh)
+        n_proc = dist.get_world_size()
+        if mesh.rank != 0:
+            dist.barrier()
+            return final
+    spec_leaves = tree.leaves(specs) if specs is not None else None
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = _fresh_tmp(ckpt_dir, step)
     entries, arrays = [], {}
-    for i, (path, arr, dtype, kind) in enumerate(_snapshot(state)):
+    for i, (path, arr, dtype, kind) in enumerate(snap):
         name = f"a{i:05d}"
         arrays[name] = arr
         entries.append({"name": name, "path": path, "shape": list(arr.shape),
                         "dtype": dtype, "kind": kind,
-                        "crc32": zlib.crc32(arr.tobytes())})
+                        "crc32": zlib.crc32(arr.tobytes()),
+                        "spec": (_spec_json(spec_leaves[i])
+                                 if spec_leaves is not None else None)})
     np.savez(tmp / "shards.npz", **arrays)
-    final = _step_dir(ckpt_dir, step)
     _publish(tmp, final, {"step": step, "format": 1,
                           "structure": tree.structure(state),
-                          "entries": entries, "n_processes": 1})
+                          "entries": entries, "n_processes": n_proc})
     _prune(ckpt_dir, keep_n)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 
@@ -168,22 +215,37 @@ def _checked(arr: np.ndarray, crc: int, verify: bool, what: str):
 
 
 def restore(ckpt_dir: str | Path, step: Optional[int] = None,
-            verify: bool = True, device="cuda") -> Tuple[int, Any]:
+            verify: bool = True, device="cuda", *, mesh=None,
+            specs: Any = None) -> Tuple[int, Any]:
     """Load a checkpoint (the newest, or ``step``): (step, state), torch
-    leaves on ``device`` (the card unless the caller names another)."""
+    leaves on ``device`` (the card unless the caller names another).  With
+    ``mesh`` and ``specs`` (any topology, not only the one it was saved
+    under), this rank's shard of each leaf."""
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     step = _resolve_step(ckpt_dir, step)
     d = _step_dir(ckpt_dir, step)
     manifest = json.loads((d / MANIFEST).read_text())
+    cut = None
+    if mesh is not None:
+        from repro_torch.parallel.sharding import local_slices
+        spec_leaves = tree.leaves(specs)
+
+        def cut(i, arr, path):
+            return arr[local_slices(spec_leaves[i], arr.shape, mesh,
+                                    name=path)]
     if manifest.get("format", 1) >= 2:
-        leaves = _assemble_incremental(ckpt_dir, manifest, verify, device)
+        leaves = _assemble_incremental(ckpt_dir, manifest, verify, device,
+                                       cut)
     else:
         data = np.load(d / "shards.npz")
-        leaves = [_from_host(_checked(data[e["name"]], e["crc32"], verify,
-                                      f"shard {e['path']}"),
-                             e["dtype"], e["kind"], device)
-                  for e in manifest["entries"]]
+        leaves = []
+        for i, e in enumerate(manifest["entries"]):
+            arr = _checked(data[e["name"]], e["crc32"], verify,
+                           f"shard {e['path']}")
+            if cut is not None:
+                arr = cut(i, arr, e["path"])
+            leaves.append(_from_host(arr, e["dtype"], e["kind"], device))
     return step, tree.unflatten(manifest["structure"], leaves)
 
 
@@ -221,7 +283,7 @@ def _chunk_slices(n_elems: int, chunk_elems: int) -> List[Tuple[int, int]]:
 
 
 def _assemble_leaf(ckpt_dir: Path, leaf: dict, npz_cache: Dict[int, Any],
-                   verify: bool, device):
+                   verify: bool, device, cut=None):
     """Reassemble one leaf from its (possibly cross-step) chunk table."""
     parts = []
     for c in leaf["chunks"]:
@@ -232,15 +294,19 @@ def _assemble_leaf(ckpt_dir: Path, leaf: dict, npz_cache: Dict[int, Any],
                               f"chunk {leaf['path']}[{c['key']}] (stored in "
                               f"step {src})"))
     flat = parts[0] if len(parts) == 1 else np.concatenate(parts)
-    return _from_host(flat.reshape(leaf["shape"]), leaf["dtype"],
-                      leaf["kind"], device)
+    arr = flat.reshape(leaf["shape"])
+    if cut is not None:
+        arr = cut(arr, leaf["path"])
+    return _from_host(arr, leaf["dtype"], leaf["kind"], device)
 
 
 def _assemble_incremental(ckpt_dir: Path, manifest: dict, verify: bool,
-                          device) -> List[Any]:
+                          device, cut=None) -> List[Any]:
     npz_cache: Dict[int, Any] = {}
-    return [_assemble_leaf(ckpt_dir, leaf, npz_cache, verify, device)
-            for leaf in manifest["leaves"]]
+    return [_assemble_leaf(ckpt_dir, leaf, npz_cache, verify, device,
+                           None if cut is None else
+                           (lambda arr, path, i=i: cut(i, arr, path)))
+            for i, leaf in enumerate(manifest["leaves"])]
 
 
 def restore_leaves(ckpt_dir: str | Path, paths: Sequence[str],

@@ -21,17 +21,49 @@ from repro_torch import tree
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any, torch.Tensor], Tuple[Any, Any]]
+    update: Callable[..., Tuple[Any, Any]]
     name: str
-    apply_: Callable[[Any, Any, Any, torch.Tensor], None]
+    apply_: Callable[..., None]
+
+
+def _no_pmean(t, dims):
+    return t
+
+
+def _pmeans(params, shard):
+    """One ``pmean(t, dims)`` per parameter leaf: the mean over the ranks
+    that hold the other shards of the parameter's dims ``dims`` (all its
+    sharded dims for None), for a mean taken over those dims of a local
+    shard.  ``shard`` is (specs, mesh) or None (nothing sharded)."""
+    n = len(tree.leaves(params))
+    if shard is None:
+        return [_no_pmean] * n
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import entry_axes
+    specs, mesh = shard
+
+    def make(spec, ndim):
+        parts = tuple(spec) + (None,) * (ndim - len(spec))
+
+        def pmean(t, dims):
+            dims = range(ndim) if dims is None else dims
+            axes = {a for d in dims for a in entry_axes(parts[d])}
+            return C.all_mean(t, mesh, tuple(a for a in mesh.axis_names
+                                             if a in axes))
+        return pmean
+    return [make(s, p.dim()) for s, p in zip(tree.leaves(specs),
+                                             tree.leaves(params))]
 
 
 def _optimizer(name, init, leaf, split, join,
                elementwise=False) -> Optimizer:
     """An ``Optimizer`` from its rule for one parameter.
 
-    ``leaf(g, s, p, step)`` returns the parameter's update, in its dtype,
-    and its new state, a dict of f32 tensors that ``leaf`` allocated;
+    ``leaf(g, s, p, step, pmean)`` returns the parameter's update, in its
+    dtype, and its new state, a dict of f32 tensors that ``leaf``
+    allocated; ``pmean`` (``_pmeans``) makes a mean over a shard's dims
+    the whole parameter's (identity when nothing is sharded; ``update`` and
+    ``apply_`` take ``shard=(specs, mesh)`` for a sharded state);
     ``split(state, path)`` is the parameter's state dict, holding the
     state's own tensors; ``join(structure, states)`` is the state tree of
     the per-parameter dicts.  ``update`` is functional.  ``apply_`` is its
@@ -44,21 +76,23 @@ def _optimizer(name, init, leaf, split, join,
     slices of its leading axis, as many as fit in ``_BLOCK`` elements (one
     at least): the same values, a block's temporaries, and one block for a
     leaf that fits (each block costs the rule's launches again)."""
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shard=None):
         ups, states = [], []
-        for path, p in tree.leaves_with_paths(params):
-            u, s = leaf(_at(grads, path), split(state, path), p, step)
+        for (path, p), pm in zip(tree.leaves_with_paths(params),
+                                 _pmeans(params, shard)):
+            u, s = leaf(_at(grads, path), split(state, path), p, step, pm)
             ups.append(u)
             states.append(s)
         structure = tree.structure(params)
         return tree.unflatten(structure, ups), join(structure, states)
 
-    def apply_(grads, state, params, step):
-        for path, p in tree.leaves_with_paths(params):
+    def apply_(grads, state, params, step, shard=None):
+        for (path, p), pm in zip(tree.leaves_with_paths(params),
+                                 _pmeans(params, shard)):
             g, old = _at(grads, path), split(state, path)
             for i in _blocks(p) if elementwise and p.dim() > 2 else (...,):
                 u, new = leaf(g[i], {k: t[i] for k, t in old.items()}, p[i],
-                              step)
+                              step, pm)
                 p[i].add_(u)
                 for k, t in new.items():
                     old[k][i].copy_(t)
@@ -91,17 +125,34 @@ def _f32_zeros(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p, dtype=torch.float32)
 
 
-def global_norm(t) -> torch.Tensor:
-    """sqrt of the sum over leaves of sum(leaf²), in f32."""
-    sq = [torch.sum(torch.square(leaf.to(torch.float32)))
-          for leaf in tree.leaves(t)]
+def global_norm(t, shard=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(leaf²), in f32.  With ``shard``
+    = (specs, mesh), ``t`` holds this rank's shards: each leaf's sum is
+    summed over the axes that shard it, so each element counts once (a
+    replicated copy not again), in one all-reduce per set of axes."""
+    leaves = tree.leaves(t)
+    sq = [torch.sum(torch.square(leaf.to(torch.float32))) for leaf in leaves]
+    if shard is not None:
+        from repro_torch.parallel import collectives as C
+        from repro_torch.parallel.sharding import entry_axes
+        specs, mesh = shard
+        by_axes = {}
+        for i, spec in enumerate(tree.leaves(specs)):
+            named = {a for e in spec for a in entry_axes(e)}
+            axes = tuple(a for a in mesh.axis_names if a in named)
+            by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            summed = C.all_reduce(torch.stack([sq[i] for i in idx]), mesh,
+                                  axes)
+            for i, v in zip(idx, summed.unbind()):
+                sq[i] = v
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
-def clip_by_global_norm_(t, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(t, max_norm: float, shard=None) -> torch.Tensor:
     """Scale every leaf of ``t`` in place so that the global norm is at
     most ``max_norm``; returns the norm before."""
-    norm = global_norm(t)
+    norm = global_norm(t, shard)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree.leaves(t):
         g.mul_(scale.to(g.dtype))
@@ -134,7 +185,7 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree.map(_f32_zeros, params),
                 "v": tree.map(_f32_zeros, params)}
 
-    def leaf(g, s, p, step):
+    def leaf(g, s, p, step, pmean):
         t = _step_t(step)
         bc1 = 1.0 - b1 ** t
         bc2 = 1.0 - b2 ** t
@@ -181,20 +232,23 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         return tree.unflatten(tree.structure(params),
                               [st(p) for p in tree.leaves(params)])
 
-    def leaf(g, s, p, step):
+    def leaf(g, s, p, step, pmean):
         t = _step_t(step)
         beta = 1.0 - t ** (-decay)
         g = g.to(torch.float32)
         g2 = g * g
         g2.add_(eps)
         if _factored(p):
-            vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-            vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            # each mean over a sharded dim is the whole parameter's
+            vr = beta * s["vr"] + (1 - beta) * pmean(
+                torch.mean(g2, dim=-1), (p.dim() - 1,))
+            vc = beta * s["vc"] + (1 - beta) * pmean(
+                torch.mean(g2, dim=-2), (p.dim() - 2,))
             del g2
             # rms = sqrt(vr ⊗ vc / mean(vr)), then u = g / max(rms, eps)
             u = vr[..., :, None] * vc[..., None, :]
-            u.div_(torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
-                               [..., None], min=eps))
+            u.div_(torch.clamp(pmean(torch.mean(vr, dim=-1, keepdim=True),
+                                     (p.dim() - 2,))[..., None], min=eps))
             u.sqrt_()
             u.clamp_(min=eps)
             torch.div(g, u, out=u)
@@ -205,7 +259,7 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             new = {"v": v}
         del g
         # update clipping (RMS of update ≤ clip_threshold)
-        urms = torch.sqrt(torch.mean(u * u))
+        urms = torch.sqrt(pmean(torch.mean(u * u), None))
         u.div_(torch.clamp(urms / clip_threshold, min=1.0))
         if weight_decay:
             u.add_(weight_decay * p.to(torch.float32))
@@ -228,7 +282,7 @@ def sgdm(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
     def init(params):
         return {"m": tree.map(_f32_zeros, params)}
 
-    def leaf(g, s, p, step):
+    def leaf(g, s, p, step, pmean):
         m = momentum * s["m"] + g.to(torch.float32)
         return (-lr * m).to(p.dtype), {"m": m}
 

@@ -154,7 +154,7 @@ def test_train_step_smoke(arch, smoke_params):
         batch["embeds"] = torch.from_numpy(np.random.default_rng(2)
                                            .standard_normal((B, S, cfg.d_model))
                                            .astype(np.float32))
-    state2, metrics = tsteps.make_train_step(cfg, opt)(state, batch)
+    state2, metrics = tsteps.make_train_step(cfg, optimizer=opt)(state, batch)
     assert np.isfinite(float(metrics["loss"]))
     assert int(state2.step) == 1
     # params actually moved

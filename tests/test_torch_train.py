@@ -268,8 +268,8 @@ def test_in_place_step_equals_the_functional_update(opt, grad_accum,
     aside = tree.map(torch.clone, ts)
     own = [t.data_ptr() for t in tree.leaves(ts)]
     rule = toptim.make_optimizer(opt)
-    step = tsteps.make_train_step(tcfg, rule)
-    fstep = tsteps.make_train_step(tcfg, _functional(rule))
+    step = tsteps.make_train_step(tcfg, optimizer=rule)
+    fstep = tsteps.make_train_step(tcfg, optimizer=_functional(rule))
     shape = ShapeConfig("t", seq_len=16, global_batch=4, kind="train")
     stream = tpipe.TokenStream(tcfg, shape, seed=1)
     for i in range(3):

@@ -236,8 +236,8 @@ def test_swa_ring_buffer_decode_long():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    # every reference arch resolves, the two dense giants included; a
-    # ShardCtx still waits for item 17
+    # every reference arch resolves, the two dense giants included; the
+    # FT loop's mesh still waits for item 17
     for name in ("command-r-plus-104b", "llama3-405b"):
         assert tregistry.get(name).fsdp_params
     with pytest.raises(KeyError):
@@ -254,8 +254,9 @@ def test_unported_paths_name_their_roadmap_item():
                           device="cpu")
     assert "moe_blocks" in mp and "dense_blocks" not in mp
     _, mt = tokens(moe, (1, 4))
+    from repro_torch.runtime import ft_loop
     with pytest.raises(NotImplementedError, match="item 17"):
-        tapi.forward(moe, mp, mt, ctx=object())
+        ft_loop.run(moe, None, None, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown family"):
         tapi.init_params(dataclasses.replace(tcfg, family="cnn"),
                          torch.Generator(), device="cpu")

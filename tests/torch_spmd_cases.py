@@ -1,0 +1,406 @@
+"""Rank bodies of the port's multi-rank CPU tests
+(``test_torch_parallel.py``, ``test_torch_sharded_models.py``,
+``test_torch_sharded_train.py``).
+
+``launch.mesh.SpmdPool`` runs each body on spawned gloo ranks, which import
+this module by name: its imports are torch, numpy and the port, never jax
+(the reference is computed in the test process and reaches the ranks as
+numpy).  Each body takes the rank's ``Mesh`` first and returns a tree of
+tensors, arrays and numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree
+from repro_torch.core.redundancy import replicated_vote
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import SpmdPool
+from repro_torch.models import api
+from repro_torch.models import transformer as T
+from repro_torch.models.shard import ShardCtx, sharded
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import (gather_tree, local_slices,
+                                           param_specs, shard_tree)
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optim, steps
+
+
+class Pool:
+    """A test file's ranks: an ``SpmdPool`` of ``n`` CPU ranks, spawned
+    anew after a failed call killed the last one (so that one failing case
+    does not fail the file's others)."""
+
+    def __init__(self, n: int):
+        self.n, self._pool = n, None
+
+    def run(self, *args, **kw):
+        if self._pool is None or self._pool.closed:
+            self._pool = SpmdPool(self.n, "cpu")
+        return self._pool.run(*args, **kw)
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.close()
+
+
+def _native_gather(x, group, dim):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _native_sum(x, group):
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def collectives(mesh):
+    """The four collectives of ``parallel.collectives`` beside the native
+    ``all_gather`` / ``all_reduce`` they must equal, per axis set, and the
+    per-kind counts they add."""
+    C.reset_counts()
+    out = {}
+    gen = torch.Generator().manual_seed(mesh.rank)
+    x = torch.randn((4, 6), generator=gen)
+    for axes in ("model", "data", ("data", "model")):
+        key = "+".join((axes,) if isinstance(axes, str) else axes)
+        n, i = mesh.size(axes), mesh.index(axes)
+        g = mesh.group(axes)
+        before = C.counts()
+        ring = C.ring_all_gather(x, mesh, axes, dim=1)
+        after = C.counts()
+        out[f"ring/{key}"] = (ring, _native_gather(x, g, 1))
+        out[f"ring_hops/{key}"] = after["send_recv"] - before["send_recv"]
+        # integer values: every order of the sum is exact
+        wide = torch.randint(-50, 50, (3, 4 * n), generator=gen).float()
+        total = _native_sum(wide, g)
+        out[f"rs/{key}"] = (C.reduce_scatter(wide, mesh, axes, dim=1),
+                            total[:, 4 * i:4 * (i + 1)])
+        # all_to_all: piece r of every rank's split dim goes to rank r
+        tok = torch.randn((2 * n, 3), generator=gen)
+        everyone = _native_gather(tok[None], g, 0)        # (n, 2n, 3)
+        want = torch.cat([everyone[s, 2 * i:2 * i + 2] for s in range(n)],
+                         dim=1)
+        out[f"a2a/{key}"] = (C.all_to_all_tokens(tok, mesh, axes, 0, 1),
+                             want)
+        grads = {"w": torch.randn((5, 3), generator=gen),
+                 "b": torch.randn((3,), generator=gen).double()}
+        got = C.grad_allreduce_bf16(grads, mesh, axes)
+        out[f"bf16/{key}"] = [
+            (got[k], _native_sum(grads[k].to(torch.bfloat16),
+                                 g).to(grads[k].dtype), str(got[k].dtype))
+            for k in ("b", "w")]
+    out["counts"] = C.counts()
+    return out
+
+
+def mesh_refusals(mesh):
+    """The messages of three meshes this process group cannot hold, and
+    what the given mesh says of itself."""
+    from repro_torch.launch import mesh as M
+    out = []
+    for make in (lambda: M.Mesh((3,), ("x",)),
+                 lambda: M.make_production_mesh(),
+                 lambda: M.Mesh((2,), ("x", "y"))):
+        try:
+            make()
+            out.append("built")
+        except ValueError as e:
+            out.append(str(e))
+    return out + [mesh.size(("data", "model")), mesh.index("model"),
+                  list(M.dp_axes(mesh))]
+
+
+def rank_of(mesh):
+    return mesh.rank
+
+
+def fail_on_rank_one(mesh):
+    if mesh.rank == 1:
+        raise ValueError("rank one fails")
+    return mesh.rank
+
+
+def hang_on_rank_one(mesh):
+    import time
+    if mesh.rank == 1:
+        time.sleep(60)
+    return mesh.rank
+
+
+def shard_batch_case(mesh, batch, dp):
+    return shard_batch(batch, mesh, dp)
+
+
+def vote_case(mesh, arr, struck):
+    """Every rank computes ``arr``; the ``struck`` rank's result has a bit
+    flipped.  The voted result on every rank."""
+    def f(a):
+        y = torch.from_numpy(a.copy())
+        if mesh.rank == struck:
+            bits = y.view(torch.int32)
+            bits[1, 2] ^= 1 << 30
+        return {"y": y, "z": y[0] * 2}
+    return replicated_vote(f, mesh, "replica")(arr)
+
+
+def save_case(mesh, state, specs, path):
+    local = shard_tree(state, specs, mesh, device="cpu")
+    ckpt.save(path, 5, local, specs=specs, mesh=mesh)
+    return local
+
+
+def restore_case(mesh, specs, path):
+    step, local = ckpt.restore(path, 5, device="cpu", mesh=mesh,
+                               specs=specs)
+    return {"step": step, "local": local,
+            "full": gather_tree(local, specs, mesh)}
+
+
+# ---------------------------------------------------------------------------
+# Models
+# ---------------------------------------------------------------------------
+
+
+def model_run(mesh, cfg, full, batch, steps_tok, max_len, dp,
+              batch_axes=None, builders=False):
+    """forward, loss, prefill and decode steps under a ShardCtx on this
+    rank's shards and batch slice; with ``builders``, whether the prefill
+    and decode step builders' next tokens are those logits' argmax, and
+    the eval step's CE."""
+    ctx = ShardCtx(mesh, dp, "model", batch_axes)
+    params = shard_tree(full, param_specs(cfg, full, dp, "model", mesh),
+                        mesh, device="cpu")
+    bax = ctx.batch_axes or ()
+    loc = shard_batch(batch, mesh, bax, device="cpu")
+    out = {}
+    before = C.counts()
+    with torch.no_grad():
+        fo = api.forward(cfg, params, loc["tokens"], ctx)
+        out["logits"], out["aux"] = fo.logits, fo.aux_loss
+        out["loss"] = api.loss_fn(cfg, params, loc, ctx)[0]
+        lg, cache = api.prefill(cfg, params, loc["tokens"], max_len, ctx)
+        out["prefill"] = lg
+        st = shard_batch({"s": steps_tok}, mesh, bax, device="cpu")["s"]
+        dec = []
+        for i in range(st.shape[1]):
+            lg, cache = api.decode_step(cfg, params, st[:, i], cache, ctx)
+            dec.append(lg)
+        out["decode"] = torch.stack(dec, 1)
+    out["cache_shapes"] = [list(t.shape) for t in tree.leaves(cache)]
+    out["issued"] = {k: C.counts()[k] - before[k] for k in before}
+    if not builders:
+        return out
+    # the step builders' greedy tokens are the argmax of these logits
+    tok, cache = steps.make_prefill_step(cfg, max_len, ctx)(
+        params, {"tokens": loc["tokens"]})
+    nxt, _ = steps.make_decode_step(cfg, ctx)(params, st[:, 0], cache)
+    out["steps_agree"] = bool(
+        torch.equal(tok, out["prefill"][:, -1].argmax(-1).to(torch.int32))
+        and torch.equal(nxt, out["decode"][:, 0].argmax(-1).to(torch.int32)))
+    out["eval_ce"] = steps.make_eval_step(cfg, ctx)(params, loc)["ce"]
+    return out
+
+
+def _layer_local(sh, bp):
+    """One layer's full leaves cut to this rank's shards."""
+    return {k: v[local_slices(sh.spec(k, v.dim()), v.shape, sh.mesh)]
+            .clone() for k, v in bp.items()}
+
+
+def ffn_case(mesh, cfg, full, x, dp, moe):
+    """One layer's FFN (dense or MoE) on this rank's shards beside the
+    unsharded FFN on the same input, both computed here."""
+    ctx = ShardCtx(mesh, dp, "model")
+    sh = sharded(cfg, ctx)
+    blk = "moe_blocks" if moe else "dense_blocks"
+    bp = {k: torch.from_numpy(v[-1]) for k, v in full[blk].items()}
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        want = T._ffn(cfg, bp, x, moe)[0]
+        got = T._ffn(cfg, _layer_local(sh, bp), x, moe, sh)[0]
+    return {"got": got, "want": want, "equal": bool(torch.equal(got, want))}
+
+
+def route_case(mesh, cfg, h, router, cap):
+    """This model rank's ``_local_route`` maps in the EP layout, and the
+    int32 accumulators of its experts' first product on the buffer."""
+    m = cfg.moe
+    E_loc = m.n_experts // mesh.shape["model"]
+    e_lo = mesh.axis_index("model") * E_loc
+    h = torch.from_numpy(h)
+    r = T._local_route(h, torch.from_numpy(router), m, cap, e_lo, E_loc)
+    return {"e_lo": e_lo, "E_loc": E_loc, "gather_idx": r.gather_idx,
+            "filled": r.filled, "gates": r.gates, "tslot": r.tslot}
+
+
+def expert_acc_case(mesh, w_q, buf):
+    """This model rank's experts' int32 accumulators (the ``ref``
+    backend's exact products) of the quantized buffer."""
+    E_loc = w_q.shape[0] // mesh.shape["model"]
+    e_lo = mesh.axis_index("model") * E_loc
+    x_q, _ = T._quantize_act(torch.from_numpy(buf[e_lo:e_lo + E_loc]))
+    w = torch.from_numpy(w_q[e_lo:e_lo + E_loc])
+    return torch.stack([dispatch.matmul_acc(x_q[e], w[e], backend="ref")
+                        for e in range(E_loc)])
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def train_run(mesh, cfg, full_state, batches, dp, opt_name):
+    """Train steps under a ShardCtx from the full state's shards: each
+    step's loss and gradient norm, and the final state gathered."""
+    ctx = ShardCtx(mesh, dp, "model")
+    specs = steps.train_state_specs(cfg, full_state.params, dp, "model",
+                                    opt_name, mesh)
+    state = shard_tree(full_state, specs, mesh, device="cpu")
+    state = steps.TrainState(state.params, state.opt_state,
+                             torch.as_tensor(state.step).reshape(()))
+    step = steps.make_train_step(cfg, ctx,
+                                 optimizer=optim.make_optimizer(opt_name))
+    losses, norms = [], []
+    for b in batches:
+        state, metrics = step(state, shard_batch(b, mesh, dp, device="cpu"))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    with torch.no_grad():
+        full = gather_tree(state.params, specs.params, mesh)
+        opt = gather_tree(state.opt_state, specs.opt_state, mesh)
+    return {"losses": losses, "norms": norms, "params": full, "opt": opt,
+            "step": int(state.step)}
+
+
+def grads_case(mesh, cfg, full, batch, dp):
+    """The loss and the gradients of a sharded state (summed over copies,
+    gathered) beside the unsharded ones, both computed here."""
+    ctx = ShardCtx(mesh, dp, "model")
+    specs = param_specs(cfg, full, dp, "model", mesh)
+    params = shard_tree(full, specs, mesh, device="cpu")
+    loss, _, grads = steps._grad_fn(cfg, ctx)(
+        params, shard_batch(batch, mesh, dp, device="cpu"))
+    grads = steps._sum_copies(grads, specs, mesh)
+    with torch.no_grad():
+        grads = gather_tree(grads, specs, mesh)
+    want_loss, _, want = steps._grad_fn(cfg, None)(
+        tree.map(torch.from_numpy, full),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    return {"loss": loss, "want_loss": want_loss, "grads": grads,
+            "want": want}
+
+
+def adafactor_apply_case(mesh, cfg, full_state, grads_seq, dp):
+    """Adafactor's ``apply_`` over the gradients ``grads_seq`` (one step
+    each) on this rank's shards of ``full_state`` (``shard=`` the state's
+    specs) and, here too, on the whole state: both final states, the
+    sharded one gathered."""
+    specs = steps.train_state_specs(cfg, full_state.params, dp, "model",
+                                    "adafactor", mesh)
+    opt = optim.make_optimizer("adafactor")
+    params = shard_tree(full_state.params, specs.params, mesh, device="cpu")
+    state = shard_tree(full_state.opt_state, specs.opt_state, mesh,
+                       device="cpu")
+    want_p = tree.map(lambda a: torch.from_numpy(np.array(a)),
+                      full_state.params)
+    want_s = tree.map(lambda a: torch.from_numpy(np.array(a)),
+                      full_state.opt_state)
+    with torch.no_grad():
+        for i, g in enumerate(grads_seq):
+            step = torch.tensor(i, dtype=torch.int32)
+            opt.apply_(shard_tree(g, specs.params, mesh, device="cpu"),
+                       state, params, step, shard=(specs.params, mesh))
+            opt.apply_(tree.map(torch.from_numpy, g), want_s, want_p, step)
+        got_p = gather_tree(params, specs.params, mesh)
+        got_s = gather_tree(state, specs.opt_state, mesh)
+    return {"params": got_p, "opt": got_s, "want_params": want_p,
+            "want_opt": want_s}
+
+
+def collective_counts_case(mesh, cfg, seed, n_decode):
+    """The collectives counted, by kind, in a 24-token prefill, then
+    ``n_decode`` decode steps, then (for float parameters) one train step
+    of the config's optimizer, each under a ShardCtx from the shards of a
+    seeded state."""
+    ctx = ShardCtx(mesh, ("data",), "model")
+    gen = torch.Generator().manual_seed(seed)
+    params = api.init_params(cfg, gen, device="cpu")
+    specs = param_specs(cfg, params, ctx.dp, ctx.model, mesh)
+    local = shard_tree(params, specs, mesh, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 24), generator=gen)
+    out = {}
+    C.reset_counts()
+    with torch.no_grad():
+        _, cache = api.prefill(cfg, local, toks, 24 + n_decode, ctx)
+        out["prefill"] = C.counts()
+        C.reset_counts()
+        for i in range(n_decode):
+            _, cache = api.decode_step(cfg, local, toks[:, i], cache, ctx)
+        out["decode"] = C.counts()
+    if cfg.quant == "none":
+        opt = optim.make_optimizer(cfg.optimizer)
+        state = steps.TrainState(local, opt.init(local),
+                                 torch.zeros((), dtype=torch.int32))
+        t = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen).numpy()
+        batch = shard_batch({"tokens": t[:, :-1], "labels": t[:, 1:]},
+                            mesh, ctx.dp, device="cpu")
+        C.reset_counts()
+        steps.make_train_step(cfg, ctx, optimizer=opt)(state, batch)
+        out["train"] = C.counts()
+    return out
+
+
+def _unsharded_run(cfg, params, batch, steps_tok, max_len):
+    out = {}
+    with torch.no_grad():
+        fo = api.forward(cfg, params, batch["tokens"])
+        out["logits"], out["aux"] = fo.logits, fo.aux_loss
+        out["loss"] = api.loss_fn(cfg, params, batch)[0]
+        lg, cache = api.prefill(cfg, params, batch["tokens"], max_len)
+        out["prefill"] = lg
+        dec = []
+        for i in range(steps_tok.shape[1]):
+            lg, cache = api.decode_step(cfg, params, steps_tok[:, i], cache)
+            dec.append(lg)
+        out["decode"] = torch.stack(dec, 1)
+    return out
+
+
+def world_one(mesh, cfg, full, batch, steps_tok, max_len):
+    """On a one-rank mesh the sharded path against the unsharded one, both
+    computed here: which outputs are torch.equal."""
+    got = model_run(mesh, cfg, full, batch, steps_tok, max_len, ("data",))
+    want = _unsharded_run(cfg, tree.map(torch.from_numpy, full),
+                          {k: torch.from_numpy(v) for k, v in batch.items()},
+                          torch.from_numpy(steps_tok), max_len)
+    return {k: bool(torch.equal(torch.as_tensor(got[k]), want[k]))
+            for k in want}
+
+
+def train_world_one(mesh, cfg, full_state, batches, opt_name):
+    """On a one-rank mesh the sharded train step against the unsharded
+    one from the same state, both run here: losses, norms and the final
+    parameters and optimizer state, each torch.equal or not."""
+    got = train_run(mesh, cfg, full_state, batches, ("data",), opt_name)
+    state = tree.map(lambda a: torch.from_numpy(np.array(a)), full_state)
+    state = steps.TrainState(state.params, state.opt_state,
+                             state.step.reshape(()))
+    step = steps.make_train_step(cfg, optimizer=optim.make_optimizer(
+        opt_name))
+    losses, norms = [], []
+    for b in batches:
+        state, metrics = step(state, {k: torch.from_numpy(v)
+                                      for k, v in b.items()})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    same = all(torch.equal(torch.as_tensor(a), b) for a, b in zip(
+        tree.leaves(got["params"]) + tree.leaves(got["opt"]),
+        tree.leaves(state.params) + tree.leaves(state.opt_state)))
+    return {"losses": got["losses"] == losses, "norms": got["norms"] == norms,
+            "state": same}
