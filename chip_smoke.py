@@ -214,6 +214,24 @@ Phases, each of which raises on failure:
    often as ``_shard_collectives`` derives from the spec table and the
    code's sums; ms per decode step and per train step with and without the
    ctx; within ``SHARD_BUDGET_S``.
+22. slice 17 (``phase_item17``) under NCCL at world size 1: the pipeline
+   (``parallel.pipeline.pipeline_apply`` over a one-rank "stage" axis,
+   qwen3-0.6b in full, 28 layers, bf16, flash, as the stage, 4
+   microbatches of 1 x 1,024 embeddings): outputs and stage gradients
+   torch.equal to a plain loop of the same blocks, rows 9 and 10 launched
+   as the schedule and its checkpoint's recompute derive; the sharded FT
+   loop (``ft_loop.run(mesh=)`` on a (1, 1) mesh, SmolLM-135M in full at
+   8 x 1,024, 12 steps, clean and with the NaN drill at step 9): one
+   recovery, losses ``==`` the unsharded clean run of 10; the dry-run
+   against the card: ``launch.dryrun.run_cell`` on meta at a fake (1, 1)
+   mesh in a spawned child, and the same steps for real on the card under
+   ``launch.op_analysis`` (qwen3-0.6b in full, a train step at 1 x 1,024;
+   mixtral-8x7b at 2 of 32 layers, FSDP, EP, a train step at 1 x 4,608
+   from phase 20's start and a W8A8 prefill of 4,608 tokens from the same
+   weights quantized): FLOPs by dtype (kernel rows included), collective
+   counts and bytes per kind, argument bytes and the tracked peak equal,
+   the predicted peak within 15 % of the step's ``max_memory_allocated``
+   rise; rows 4, 9 and 10 launched; within ``ITEM17_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -3619,7 +3637,7 @@ DSE_ROUNDS = 2                     # interleaved rounds (per-variant minimum)
 DSE_SHIPDET_REPS = 30              # timed calls per conv layer and policy
 # generations, population, trials per site and genome; certify runs the
 # CLI's own 150 trials per site
-DSE_SEARCH = {"serving": (2, 6, 20), "shipdet": (1, 4, 64)}
+DSE_SEARCH = {"serving": (2, 6, 20), "shipdet": (1, 4, 32)}
 DSE_COMPARE_TRIALS = 4             # ref == cuda trials per site
 DSE_ROWS = ("qconv2d_acc", "qconv2d_acc_checksum", "qmatmul_acc",
             "qmatmul_acc_checksum")
@@ -5199,8 +5217,7 @@ def phase_shard(card: str, start: dict) -> dict:
             start["host"], start["batches"], ctx,
             {"losses": run["losses"], "params": start["first"],
              "launches": run["launches"], "ms": run["ms_per_step"]}, failed)
-        for k in ("host", "first"):
-            start.pop(k)
+        start.pop("first")          # "host" stays for phase_item17
         torch.cuda.empty_cache()
         full = registry.get("qwen3-0.6b")
         qcfg = dc.replace(full, quant="w8a8_ffn", attn_impl="flash")
@@ -5245,6 +5262,333 @@ def phase_shard(card: str, start: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     return _phase_end("shard", out, failed, SHARD_ROWS, peak,
                       SHARD_BUDGET_S, t_phase, card)
+
+
+# slice 17: pipeline parallelism, the sharded FT loop, the dry-run on the card
+ITEM17_MICRO = 4                   # microbatches of the pipeline
+ITEM17_SEQ = 1024                  # tokens per microbatch, and qwen3's train step
+ITEM17_PEAK_RTOL = 0.15            # the dry-run's peak against the card's rise
+ITEM17_CKPT_EVERY = 8              # the NaN drill's saves: steps 0 and 8
+ITEM17_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse", "flash_attention_bwd")
+ITEM17_BUDGET_S = 60               # the phase's share of the limit
+
+
+def _item17_pipeline(mesh, gen, failed):
+    """``pipeline_apply`` over the one-rank "stage" axis ``mesh`` with
+    qwen3-0.6b in full (28 layers, bf16, flash) as the stage, on
+    ITEM17_MICRO microbatches of 1 x ITEM17_SEQ embeddings, against a plain
+    loop of the same blocks: the outputs and the stage gradients of
+    mean(out²) torch.equal; rows 9 and 10 launched as derived (the
+    pipeline's forward, its checkpoint's recompute and the backward: 2·M·L
+    and M·L; the plain loop M·L each)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.parallel.sharding import P, shard_tree
+    cfg = dataclasses.replace(registry.get("qwen3-0.6b"), attn_impl="flash")
+    params, _ = _card_params(cfg, 25)
+    blocks = {"dense_blocks": params["dense_blocks"]}
+    del params
+    stacked = pp.stack_stage_params([blocks])
+    local = shard_tree(stacked, tree.map(lambda _: P("stage"), stacked), mesh)
+    del blocks, stacked
+    leaves = [t.requires_grad_() for t in tree.leaves(local)]
+    mbs = torch.randn((ITEM17_MICRO, 1, ITEM17_SEQ, cfg.d_model),
+                      generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    def stage(p, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        for bp, moe in T._blocks(p):
+            x = T._block(cfg, bp, x, pos, moe)[0]
+        return x
+
+    def grads(out):
+        loss = (out.float() ** 2).mean()
+        return torch.autograd.grad(loss, leaves, grad_outputs=torch.ones_like(
+            loss) / mesh.size(mesh.axis_names))
+
+    runs = {}
+    for name in ("pipeline", "plain"):
+        before = _campaign_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "pipeline":
+            out = pp.pipeline_apply(stage, local, mbs, mesh)
+        else:
+            view = tree.map(lambda x: x[0], local)
+            out = torch.stack([stage(view, mbs[i])
+                               for i in range(ITEM17_MICRO)])
+        g = grads(out)
+        torch.cuda.synchronize()
+        after = _campaign_launches()
+        runs[name] = {"out": out.detach(), "grads": g,
+                      "s": time.perf_counter() - t0,
+                      "launches": {k: after[k] - before[k]
+                                   for k in ITEM17_ROWS}}
+        del out
+    a, b = runs["pipeline"], runs["plain"]
+    equal = torch.equal(a["out"], b["out"]) and all(
+        torch.equal(x, y) for x, y in zip(a["grads"], b["grads"]))
+    ML = ITEM17_MICRO * cfg.n_layers
+    want = {"pipeline": {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * ML,
+                         "flash_attention_bwd": ML},
+            "plain": {"qmatmul_acc": 0, "flash_attention_fwd_lse": ML,
+                      "flash_attention_bwd": ML}}
+    launched = all(runs[k]["launches"] == want[k] for k in runs)
+    ok = equal and launched
+    print(f"item17: pipeline of qwen3-0.6b (28 layers, bf16, flash) over a "
+          f"one-rank stage axis, {ITEM17_MICRO} microbatches of 1 x "
+          f"{ITEM17_SEQ}: outputs and stage gradients torch.equal to the "
+          f"plain loop: {equal}; launches {a['launches']} / "
+          f"{b['launches']} = derived: {launched}; {a['s']:.2f} s "
+          f"(plain {b['s']:.2f} s)" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("pipeline")
+    del local, leaves, mbs
+    torch.cuda.empty_cache()
+    return {"equal": equal, "launches_as_derived": launched,
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "seconds": {k: r["s"] for k, r in runs.items()}}
+
+
+def _item17_ft_loop(tcfg, shape, mesh, clean_losses, failed):
+    """``ft_loop.run(mesh=)`` on the (1, 1) mesh: SmolLM-135M in full at
+    TRAIN_BATCH x TRAIN_SEQ for TRAIN_STEPS steps, clean and with the NaN
+    drill at TRAIN_NAN_STEP (one recovery), both losses ``==`` the
+    unsharded loop's clean run (phase 10); rows 9 and 10 as derived per
+    step executed.  Each save writes the 1.6 GB state and the losses do
+    not depend on the cadence: the clean run saves step 0 only, the drill
+    every ITEM17_CKPT_EVERY steps (it restores step 8)."""
+    from repro_torch.runtime import ft_loop
+    L = tcfg.n_layers
+    reps, secs, fired = {}, {}, []
+    before = _campaign_launches()
+
+    def nan_hook(step, state):
+        if step == TRAIN_NAN_STEP and not fired:
+            fired.append(step)
+            embed = state.params["embed"].clone()
+            embed.view(-1)[0] = float("nan")
+            return state._replace(params=dict(state.params, embed=embed))
+        return None
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_item17_") as root:
+        for name, hook, every in (("clean", None, TRAIN_STEPS + 1),
+                                  ("nan", nan_hook, ITEM17_CKPT_EVERY)):
+            t0 = time.perf_counter()
+            reps[name] = ft_loop.run(
+                tcfg, shape, ft_loop.FTConfig(
+                    ckpt_dir=os.path.join(root, name), ckpt_every=every),
+                n_steps=TRAIN_STEPS, fault_hook=hook, mesh=mesh)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            shutil.rmtree(os.path.join(root, name))
+    after = _campaign_launches()
+    executed = sum(_executed(r) for r in reps.values())
+    launches = {k: after[k] - before[k] for k in ITEM17_ROWS}
+    want = {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * L * executed,
+            "flash_attention_bwd": L * executed}
+    clean, nan = reps["clean"], reps["nan"]
+    replay = (clean.losses == clean_losses and nan.losses == clean_losses
+              and clean.recoveries == 0 and nan.recoveries == 1)
+    ok = replay and launches == want
+    print(f"item17: sharded FT loop, {ARCH} in full on a (1, 1) mesh, "
+          f"{TRAIN_STEPS} steps of {shape.global_batch} x {shape.seq_len}: "
+          f"clean and NaN-drill losses == the unsharded clean run's: "
+          f"{replay} ({nan.recoveries} recovery, {nan.steps_replayed} "
+          f"replayed); launches {launches} = derived {want}: "
+          f"{launches == want}; {secs['clean']:.2f} / {secs['nan']:.2f} s"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("sharded FT loop")
+    return {"losses_equal": replay, "recoveries": nan.recoveries,
+            "steps_replayed": nan.steps_replayed, "launches": launches,
+            "launches_as_derived": launches == want, "seconds": secs}
+
+
+def _item17_cells(start):
+    """The dry-run's cells, each with the real inputs the card runs:
+    qwen3-0.6b in full, a train step at 1 x ITEM17_SEQ (weights drawn on
+    the card); mixtral-8x7b at 2 of 32 layers (FSDP, EP) trained one step
+    at 1 x MOE_TRAIN_SEQ from phase 20's host-held start, and its W8A8
+    prefill at 1 x MOE_TRAIN_SEQ from the same weights quantized.  Yields
+    (label, cfg, shape, the step's arguments on the card: whole tensors,
+    which on a (1, 1) mesh are this rank's shards), one cell at a time."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import optim, steps
+
+    def state_of(params, cfg):
+        return steps.TrainState(params, optim.make_optimizer(
+            cfg.optimizer).init(params), torch.zeros(
+                (), dtype=torch.int32, device=DEVICE))
+
+    def batch(cfg, shape):
+        b = TokenStream(cfg, shape).batch_at(0)
+        return {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()
+                if shape.kind == "train" or k == "tokens"}
+
+    qcfg = dataclasses.replace(registry.get("qwen3-0.6b"), attn_impl="flash")
+    qshape = ShapeConfig("train_1k", ITEM17_SEQ, 1, "train")
+    yield ("qwen3-0.6b train", qcfg, qshape,
+           [state_of(_card_params(qcfg, 26)[0], qcfg), batch(qcfg, qshape)])
+    mcfg = start["cfg"]
+    mshape = ShapeConfig("train_4608", MOE_TRAIN_SEQ, 1, "train")
+
+    def card(host):
+        return tree.map(lambda t: t.to(DEVICE, copy=True), host)
+
+    yield ("mixtral-8x7b train", mcfg, mshape,
+           [state_of(card(start["host"]), mcfg), batch(mcfg, mshape)])
+    scfg = dataclasses.replace(mcfg, quant="w8a8_ffn")
+    pshape = ShapeConfig("prefill_4608", MOE_TRAIN_SEQ, 1, "prefill")
+    yield ("mixtral-8x7b W8A8 prefill", scfg, pshape,
+           [T.quantize_ffn_params(scfg, card(start.pop("host"))),
+            batch(scfg, pshape)])
+
+
+def _item17_dryrun_cells():
+    """(label, cfg, shape) of ``_item17_cells`` without their inputs."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ShapeConfig
+    qcfg = dataclasses.replace(registry.get("qwen3-0.6b"), attn_impl="flash")
+    mcfg = dataclasses.replace(registry.get("mixtral-8x7b"),
+                               n_layers=MOE_TRAIN_LAYERS, attn_impl="flash")
+    return [("qwen3-0.6b train", qcfg,
+             ShapeConfig("train_1k", ITEM17_SEQ, 1, "train")),
+            ("mixtral-8x7b train", mcfg,
+             ShapeConfig("train_4608", MOE_TRAIN_SEQ, 1, "train")),
+            ("mixtral-8x7b W8A8 prefill",
+             dataclasses.replace(mcfg, quant="w8a8_ffn"),
+             ShapeConfig("prefill_4608", MOE_TRAIN_SEQ, 1, "prefill"))]
+
+
+def _item17_on_card(mesh, start, dry, failed):
+    """Each cell's step (``dryrun.build_cell``'s, whose meta inputs must
+    have the card inputs' shapes and dtypes leaf for leaf) for real on the
+    card under ``op_analysis`` against ``dry`` (the dry-run's records, run
+    on meta in a spawned child): FLOPs by dtype (kernel rows included),
+    collective counts and bytes per kind, argument bytes and the tracked
+    peak equal; the dry-run's peak of new storages within ITEM17_PEAK_RTOL
+    of the step's ``max_memory_allocated`` rise.  Returns the records and
+    the largest device peak seen."""
+    from repro_torch import tree
+    from repro_torch.launch import dryrun, op_analysis
+    out, peak = {}, 0
+
+    def layout(t):
+        return [(tuple(x.shape), x.dtype) for x in tree.leaves(t)]
+
+    for (label, cfg, shape, args), (_, dcfg, dshape), rec in zip(
+            _item17_cells(start), _item17_dryrun_cells(), dry):
+        fn, abstract = dryrun.build_cell(cfg, shape, mesh, device="meta")
+        if (cfg, shape) != (dcfg, dshape) or \
+                layout(abstract) != layout(args):
+            failed.append(f"{label}: the dry-run's cell is not the card's")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, an = op_analysis.analyze(fn, *args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        rise = torch.cuda.max_memory_allocated() - base
+        args.clear()            # a zip holds its last items: free them here
+        del res, fn
+        card_sum, card_mem = an.summary(), an.memory_analysis()
+        dsum, dmem = rec["op_analysis"], rec["memory_analysis"]
+        same = {k: card_sum[k] == dsum[k] for k in
+                ("flops_by_dtype", "collective_counts", "collective_bytes")}
+        same.update({k: card_mem[k] == dmem[k] for k in
+                     ("argument_size_in_bytes", "peak_bytes")})
+        ratio = dmem["peak_live_bytes"] / rise
+        ok = all(same.values()) and abs(ratio - 1) <= ITEM17_PEAK_RTOL
+        print(f"item17: dry-run of {label} at 1 x {shape.seq_len} on a (1, 1)"
+              f" mesh against the card: equal {same}; flops "
+              f"{card_sum['flops_by_dtype']}; collectives "
+              f"{card_sum['collective_counts']}; args "
+              f"{card_mem['argument_size_in_bytes'] / 1e9:.3f} GB; tracked "
+              f"peak {card_mem['peak_bytes'] / 1e9:.3f} GB (dry "
+              f"{dmem['peak_bytes'] / 1e9:.3f}); predicted rise "
+              f"{dmem['peak_live_bytes'] / 1e9:.3f} GB against the card's "
+              f"max_memory_allocated rise {rise / 1e9:.3f} GB (ratio "
+              f"{ratio:.4f}, limit 1 ± {ITEM17_PEAK_RTOL}); step under the "
+              f"analysis {secs:.2f} s, dry-run {rec['run_s']:.2f} s"
+              + ("" if ok else "  FAILED"))
+        if not ok:
+            failed.append(f"dry-run of {label}")
+            print(f"  card {card_mem} {card_sum}\n  dry {dmem} {dsum}")
+        out[label] = {"equal": same, "card_memory": card_mem,
+                      "dry_memory": dmem, "rise_bytes": rise,
+                      "peak_ratio": ratio, "flops_by_dtype":
+                      card_sum["flops_by_dtype"], "collective_counts":
+                      card_sum["collective_counts"], "seconds": secs,
+                      "dry_run_s": rec["run_s"]}
+        torch.cuda.empty_cache()
+    return out, peak
+
+
+def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses) -> dict:
+    """Slice 17 under NCCL at world size 1 in this process: the pipeline
+    (``_item17_pipeline``, a one-rank "stage" mesh), the sharded FT loop
+    (``_item17_ft_loop``, a (1, 1) ("data", "model") mesh) and the dry-run
+    against the card (``_item17_on_card``), its meta runs started first in
+    a spawned child (``dryrun.run_cells``: its fake process group never
+    meets this one) and read at the end.  Launch counts are reset at
+    its start and read at its end; the process group is torn down at its
+    end."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh, process_group
+    from repro_torch.parallel import collectives as C
+    from repro_torch.kernels.flashattn import kernel as FK
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cells = _item17_dryrun_cells()
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=__import__("multiprocessing").get_context("spawn"))
+    dry = pool.submit(dryrun.run_cells, [(c, s, (1, 1)) for _, c, s in cells])
+    for b, kv, s, hd in ((1, 8, 1024, 128), (1, 8, 4608, 128),
+                         (8, 3, 1024, 64)):
+        if FK.bwd_workspace_floats(b, kv, s, hd) != \
+                FK._bwd_lib().flash_attention_bwd_workspace_floats(b, kv, s,
+                                                                   hd):
+            failed.append("bwd_workspace_floats differs from the source's")
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    with process_group(DEVICE):
+        stage_mesh = Mesh((1,), ("stage",))
+        mesh = Mesh((1, 1), ("data", "model"))
+        for m, axes in ((stage_mesh, "stage"), (mesh, "data"),
+                        (mesh, "model"), (mesh, ("data", "model"))):
+            # each group's communicator is set up here, outside every hold
+            C.all_reduce(torch.zeros(1, device=DEVICE), m, axes)
+        torch.cuda.synchronize()
+        out["pipeline"] = _item17_pipeline(stage_mesh, gen, failed)
+        out["ft_loop"] = _item17_ft_loop(tcfg, tshape, mesh, clean_losses,
+                                         failed)
+        try:
+            records = dry.result(timeout=ITEM17_BUDGET_S)
+        finally:
+            pool.shutdown(cancel_futures=True)
+        print(f"item17: the dry-run's {len(records)} meta cells took "
+              f"{sum(r['build_s'] + r['run_s'] for r in records):.2f} s in "
+              f"the child")
+        peak = torch.cuda.max_memory_allocated()
+        out["dryrun"], card_peak = _item17_on_card(mesh, start, records,
+                                                   failed)
+    torch.cuda.empty_cache()
+    peak = max(peak, card_peak, torch.cuda.max_memory_allocated())
+    return _phase_end("item17", out, failed, ITEM17_ROWS, peak,
+                      ITEM17_BUDGET_S, t_phase, card)
 
 
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
@@ -5343,6 +5687,8 @@ def main() -> None:
     start = {}
     moe_train = phase_moe_train(card, start)
     shard = phase_shard(card, start)
+    item17 = phase_item17(card, start, tcfg, tshape,
+                          train["runs"]["clean"][0]["losses"])
     del start
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
@@ -5387,7 +5733,8 @@ def main() -> None:
                        "dependable": dependable, "fleet": fleet,
                        "embed": embed, "dse": dse,
                        "recurrent": recurrent, "moe": moe, "dense": dense,
-                       "moe_train": moe_train, "shard": shard}, f, indent=1)
+                       "moe_train": moe_train, "shard": shard,
+                       "item17": item17}, f, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

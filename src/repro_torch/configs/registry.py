@@ -24,7 +24,7 @@ from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 from repro_torch.configs.rwkv6_1_6b import CONFIG as _rwkv6
 from repro_torch.configs.smollm_135m import CONFIG as _smollm
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, valid_cells
 
 ARCHS: Dict[str, ArchConfig] = {
     c.name: c for c in (_smollm, _qwen3, _cmdr, _llama3, _rwkv6, _musicgen,
@@ -35,6 +35,13 @@ def get(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def all_cells():
+    """Every runnable (arch, shape) pair: 33 cells (long_500k only for the
+    sub-quadratic families)."""
+    return [(cfg, shape) for cfg in ARCHS.values()
+            for shape in valid_cells(cfg)]
 
 
 def names():

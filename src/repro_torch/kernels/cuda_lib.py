@@ -10,13 +10,20 @@ pointer and the stream as ``c_void_p``, every size as ``c_int``, a scale as
 ``c_float``, an ``int`` (the CUDA error) back.
 
 The wrappers in ``kernels/<family>/kernel.py`` share the checks below: one
-device for all inputs, CPU (the plain version) or CUDA (the kernel, which
-needs contiguous inputs), and a launch that raises on a CUDA error.
+device for all inputs, CPU (the plain version), CUDA (the kernel, which
+needs contiguous inputs) or meta (shapes only: the wrapper allocates the
+launch path's outputs and temporaries on meta and launches nothing, for
+``launch.dryrun``), and a launch that raises on a CUDA error.
+
+``counted`` reports each wrapper call's operation count to the active
+``launch.op_analysis`` (a ctypes launch is invisible to a dispatch mode),
+on every device: the count of the row's bound in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -74,16 +81,18 @@ def expect(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 def on_card(family: str, *tensors) -> bool:
-    """True to launch, False for the plain version; raises on a mix of
-    devices, a device other than CPU or CUDA, or a non-contiguous input."""
+    """True to launch; False on the CPU (the plain version) and on meta
+    (shapes only); raises on a mix of devices, a device other than CPU,
+    CUDA or meta, or a non-contiguous CUDA input."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"inputs on several devices: "
                          f"{sorted({str(t.device) for t in tensors})}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     if dev.type != "cuda":
-        raise ValueError(f"{family} kernels run on CUDA or CPU, not {dev}")
+        raise ValueError(f"{family} kernels run on CUDA, CPU or meta, not "
+                         f"{dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{family} kernels need contiguous inputs")
     return True
@@ -100,3 +109,44 @@ def launch(lib: ctypes.CDLL, name: str, device, *args) -> None:
                                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# Operation counts for launch.op_analysis
+# ---------------------------------------------------------------------------
+
+ANALYSES: list = []     # the active op analyses, innermost last
+
+
+def tensors_in(obj) -> list:
+    """The tensors in a nest of tuples, lists and dicts, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in tensors_in(o)]
+    if isinstance(obj, dict):
+        return [t for o in obj.values() for t in tensors_in(o)]
+    return []
+
+
+def counted(ops):
+    """Decorate a kernel wrapper: under an active ``launch.op_analysis``,
+    each call reports ``ops(*args, **kw)`` → (torch dtype, operation count)
+    and the bytes of its tensor inputs and outputs, and the ops of the
+    call's own body (the plain version on the CPU, the output allocations
+    elsewhere) are not counted beside them; the storages it allocates are
+    tracked as any other."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            if not ANALYSES:
+                return fn(*args, **kw)
+            an = ANALYSES[-1]
+            dtype, n = ops(*args, **kw)
+            with an.kernel_scope():
+                out = fn(*args, **kw)
+            an.add_kernel(fn.__name__, dtype, n,
+                          tensors_in((args, kw)) + tensors_in(out))
+            return out
+        return wrapper
+    return wrap

@@ -37,9 +37,15 @@ Each wrapper checks dtypes and shapes, then:
   to its ``launches`` count; the bf16 kernels copy 16-byte chunks, so a
   bf16 input that does not start at a 16-byte boundary raises;
 * on CPU tensors runs the kernel's plain version (``ref.flash_plain``,
-  ``ref.flash_bwd_plain``).
+  ``ref.flash_bwd_plain``);
+* on meta tensors allocates the launch path's outputs and temporaries (the
+  backward's ``dvec`` and its f32 workspace, sized by ``bwd_workspace_
+  floats``, the source's rule) and launches nothing (``launch.dryrun``).
 
 A CUDA tensor reaches the kernel or an exception, never the plain version.
+Under ``launch.op_analysis`` a forward counts 4·B·H·hd·S(S+1)/2 operations
+(S² without causality) and the backward 10·B·H·hd·S(S+1)/2, under the
+inputs' dtype: ``chip_smoke.py``'s bounds.
 """
 from __future__ import annotations
 
@@ -126,18 +132,44 @@ def _dims(q, k, v, causal, window):
 
 
 def _on_card(block_q, block_k, *tensors) -> bool:
-    """True to launch, False for the plain version; raises on block sizes
-    the kernels are not compiled for and on a bf16 tensor that does not
-    start at a 16-byte boundary."""
-    if not cuda_lib.on_card("flashattn", *tensors):
+    """True to launch, False for the plain version or meta; raises (on the
+    card and on meta) on block sizes the kernels are not compiled for, and
+    on a bf16 tensor that does not start at a 16-byte boundary."""
+    card = cuda_lib.on_card("flashattn", *tensors)
+    if not card and tensors[0].device.type != "meta":
         return False
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
         raise ValueError(f"the kernels are compiled for block_q={BLOCK_Q}, "
                          f"block_k={BLOCK_K}; got {block_q}, {block_k}")
+    if not card:
+        return False
     if any(t.data_ptr() % 16 for t in tensors if t.dtype == torch.bfloat16):
         raise ValueError("the bf16 kernels copy 16-byte chunks: their bf16 "
                          "inputs must start at 16-byte aligned addresses")
     return True
+
+
+def bwd_workspace_floats(b: int, kv: int, s: int, hd: int) -> int:
+    """``flash_attention_bwd_workspace_floats`` of ``csrc/flashattn_bwd.cu``
+    (the bf16 dK/dV kernel's f32 totals: per (b, kv) and block of 64 keys,
+    every thread's accumulator fragments of dk and dv), for meta inputs,
+    which have no library to ask."""
+    return b * kv * (-(-s // 64)) * 2 * (hd // 8) * 4 * 128
+
+
+def _pairs(q, causal):
+    s = q.shape[2]
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def _fwd_ops(q, k, v, *, causal=True, **kw):
+    return q.dtype, 4 * q.shape[0] * q.shape[1] * q.shape[3] * _pairs(q,
+                                                                        causal)
+
+
+def _bwd_ops(q, *args, causal=True, **kw):
+    return q.dtype, 10 * q.shape[0] * q.shape[1] * q.shape[3] * _pairs(q,
+                                                                         causal)
 
 
 def _launch(name, device, *args):
@@ -145,22 +177,26 @@ def _launch(name, device, *args):
                     device, *args)
 
 
+@cuda_lib.counted(_fwd_ops)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     block_q: int = BLOCK_Q,
                     block_k: int = BLOCK_K) -> torch.Tensor:
     """Causal (or windowed) GQA attention → out (B, H, S, hd), q's dtype."""
     dims = _dims(q, k, v, causal, window)
-    if not _on_card(block_q, block_k, q, k, v):
+    card = _on_card(block_q, block_k, q, k, v)
+    if not card and q.device.type != "meta":
         return ref.flash_plain(q, k, v, causal=causal, window=window,
                                block_k=block_k)
     out = torch.empty_like(q)
-    _launch("flash_attention_launch", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), *dims)
-    flash_attention.launches += 1
+    if card:
+        _launch("flash_attention_launch", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims)
+        flash_attention.launches += 1
     return out
 
 
+@cuda_lib.counted(_fwd_ops)
 def flash_attention_checked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: Optional[int] = None,
@@ -171,20 +207,23 @@ def flash_attention_checked(q: torch.Tensor, k: torch.Tensor,
     mod-2^32 bit checksum of ``out`` (``core.abft.output_row_checksums``,
     bit-exact verification)."""
     dims = _dims(q, k, v, causal, window)
-    if not _on_card(block_q, block_k, q, k, v):
+    card = _on_card(block_q, block_k, q, k, v)
+    if not card and q.device.type != "meta":
         return ref.flash_plain(q, k, v, causal=causal, window=window,
                                block_k=block_k, emit="checked")
     B, H, S, _ = q.shape
     out = torch.empty_like(q)
     check = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     csum = torch.empty((B, H, S), dtype=torch.int64, device=q.device)
-    _launch("flash_attention_checked_launch", q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), check.data_ptr(),
-            csum.data_ptr(), *dims)
-    flash_attention_checked.launches += 1
+    if card:
+        _launch("flash_attention_checked_launch", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), check.data_ptr(),
+                csum.data_ptr(), *dims)
+        flash_attention_checked.launches += 1
     return out, check, csum
 
 
+@cuda_lib.counted(_fwd_ops)
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: Optional[int] = None,
@@ -193,18 +232,22 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     (B, H, S) f32 = m + log l, the logsumexp of each row's masked scores
     (what the backward recomputes the probabilities from)."""
     dims = _dims(q, k, v, causal, window)
-    if not _on_card(block_q, block_k, q, k, v):
+    card = _on_card(block_q, block_k, q, k, v)
+    if not card and q.device.type != "meta":
         return ref.flash_plain(q, k, v, causal=causal, window=window,
                                block_k=block_k, emit="lse")
     B, H, S, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd_lse_launch", q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), *dims)
-    flash_attention_fwd_lse.launches += 1
+    if card:
+        _launch("flash_attention_fwd_lse_launch", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *dims)
+        flash_attention_fwd_lse.launches += 1
     return out, lse
 
 
+@cuda_lib.counted(_bwd_ops)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -220,21 +263,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("out", out), ("do", do)):
         cuda_lib.expect(t, name, q.dtype, q.shape)
     cuda_lib.expect(lse, "lse", torch.float32, (B, H, S))
-    if not _on_card(block_q, block_k, q, k, v, out, lse, do):
+    card = _on_card(block_q, block_k, q, k, v, out, lse, do)
+    if not card and q.device.type != "meta":
         return ref.flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
                                    window=window, block_k=block_k)
     dvec = ref.bwd_dvec(do, out)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # the bf16 dK/dV kernel's f32 totals, sized by its source
+    size = (_bwd_lib().flash_attention_bwd_workspace_floats if card
+            else bwd_workspace_floats)
     acc = None if q.dtype != torch.bfloat16 else torch.empty(
-        _bwd_lib().flash_attention_bwd_workspace_floats(
-            B, k.shape[1], S, q.shape[-1]),
-        dtype=torch.float32, device=q.device)
-    _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if acc is None else acc.data_ptr(), *dims)
-    flash_attention_bwd.launches += 1
+        size(B, k.shape[1], S, q.shape[-1]), dtype=torch.float32,
+        device=q.device)
+    if card:
+        _launch("flash_attention_bwd_launch", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                None if acc is None else acc.data_ptr(), *dims)
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

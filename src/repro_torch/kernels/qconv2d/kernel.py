@@ -12,9 +12,14 @@ Each wrapper checks dtypes, shapes and contiguity, then:
 * on CUDA tensors allocates its outputs with ``torch.empty``, launches on
   the current stream, raises if the launch reports an error, and adds one
   to its ``launches`` count;
-* on CPU tensors runs the kernel's plain version (``ref.py``).
+* on CPU tensors runs the kernel's plain version (``ref.py``);
+* on meta tensors allocates the same outputs and launches nothing
+  (``launch.dryrun``).
 
 A CUDA tensor reaches the kernel or an exception, never the plain version.
+Under ``launch.op_analysis`` each call counts 2·pixels·Cout·taps int8
+operations (and 2·pixels·taps for the check channel) under int32,
+``chip_smoke.py``'s bound.
 """
 from __future__ import annotations
 
@@ -135,6 +140,17 @@ def _launch(name, device, *args):
     cuda_lib.launch(_lib(), name, device, *args)
 
 
+def _ops(x_p, w_q, *rest, stride=(1, 1), checksum=False):
+    _, _, _, cin, kh, kw, cout, oh, ow, _, _ = _geometry(x_p, w_q, stride)
+    pix, taps = x_p.shape[0] * oh * ow, kh * kw * cin
+    return torch.int32, 2 * pix * taps * (cout + checksum)
+
+
+def _ops_checksum(*args, stride=(1, 1)):
+    return _ops(*args, stride=stride, checksum=True)
+
+
+@cuda_lib.counted(_ops)
 def qconv2d_acc(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
                 zp: torch.Tensor, *, stride=(1, 1)) -> torch.Tensor:
     """conv(x_p - zp, w) as conv(x_p, w) - zp·colsum → int32 (N,OH,OW,Cout).
@@ -143,16 +159,20 @@ def qconv2d_acc(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     n, _, _, cin, kh, kw, cout, oh, ow, _, _ = geo
     _expect(colsum, "colsum", torch.int32, (cout,))
     _expect(zp, "zp", torch.int32, (1,))
-    if not _on_card(x_p, w_q, colsum, zp):
+    card = _on_card(x_p, w_q, colsum, zp)
+    if not card and x_p.device.type != "meta":
         return ref.qconv2d_acc_plain(x_p, w_q, colsum, zp, stride=stride)
     p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
-    _launch("qconv2d_acc_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
-            colsum.data_ptr(), zp.data_ptr(), out.data_ptr(), *geo, *p)
-    qconv2d_acc.launches += 1
+    if card:
+        _launch("qconv2d_acc_launch", x_p.device, x_p.data_ptr(),
+                w_q.data_ptr(), colsum.data_ptr(), zp.data_ptr(),
+                out.data_ptr(), *geo, *p)
+        qconv2d_acc.launches += 1
     return out
 
 
+@cuda_lib.counted(_ops_checksum)
 def qconv2d_acc_checksum(x_p: torch.Tensor, w_q: torch.Tensor,
                          colsum: torch.Tensor, w_check: torch.Tensor,
                          zp: torch.Tensor, *, stride=(1, 1)):
@@ -164,19 +184,22 @@ def qconv2d_acc_checksum(x_p: torch.Tensor, w_q: torch.Tensor,
     _expect(colsum, "colsum", torch.int32, (cout,))
     _expect(w_check, "w_check", torch.int32, (kh, kw, cin, 1))
     _expect(zp, "zp", torch.int32, (1,))
-    if not _on_card(x_p, w_q, colsum, w_check, zp):
+    card = _on_card(x_p, w_q, colsum, w_check, zp)
+    if not card and x_p.device.type != "meta":
         return ref.qconv2d_acc_checksum_plain(x_p, w_q, colsum, w_check, zp,
                                               stride=stride)
     p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int32, device=x_p.device)
     want = torch.empty((n, oh, ow), dtype=torch.int32, device=x_p.device)
-    _launch("qconv2d_acc_checksum_launch", x_p.device, x_p.data_ptr(),
-            w_q.data_ptr(), colsum.data_ptr(), w_check.data_ptr(),
-            zp.data_ptr(), out.data_ptr(), want.data_ptr(), *geo, *p)
-    qconv2d_acc_checksum.launches += 1
+    if card:
+        _launch("qconv2d_acc_checksum_launch", x_p.device, x_p.data_ptr(),
+                w_q.data_ptr(), colsum.data_ptr(), w_check.data_ptr(),
+                zp.data_ptr(), out.data_ptr(), want.data_ptr(), *geo, *p)
+        qconv2d_acc_checksum.launches += 1
     return out, want
 
 
+@cuda_lib.counted(_ops)
 def qconv2d(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
             bias: torch.Tensor, scale: torch.Tensor, zps: torch.Tensor, *,
             stride=(1, 1)) -> torch.Tensor:
@@ -189,15 +212,17 @@ def qconv2d(x_p: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     _expect(bias, "bias", torch.int32, (cout,))
     _expect(scale, "scale", torch.float32, (cout,))
     _expect(zps, "zps", torch.int32, (2,))
-    if not _on_card(x_p, w_q, colsum, bias, scale, zps):
+    card = _on_card(x_p, w_q, colsum, bias, scale, zps)
+    if not card and x_p.device.type != "meta":
         return ref.qconv2d_plain(x_p, w_q, colsum, bias, scale, zps,
                                  stride=stride)
     p = plan(n, oh, ow, cin, kh, kw, cout)
     out = torch.empty((n, oh, ow, cout), dtype=torch.int8, device=x_p.device)
-    _launch("qconv2d_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
-            colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-            zps.data_ptr(), out.data_ptr(), *geo, *p)
-    qconv2d.launches += 1
+    if card:
+        _launch("qconv2d_launch", x_p.device, x_p.data_ptr(), w_q.data_ptr(),
+                colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+                zps.data_ptr(), out.data_ptr(), *geo, *p)
+        qconv2d.launches += 1
     return out
 
 

@@ -12,9 +12,13 @@ Each wrapper checks dtypes, shapes and contiguity, then:
 * on CUDA tensors allocates its outputs with ``torch.empty``, launches on
   the current stream, raises if the launch reports an error, and adds one
   to its ``launches`` count;
-* on CPU tensors runs the kernel's plain version (``ref.py``).
+* on CPU tensors runs the kernel's plain version (``ref.py``);
+* on meta tensors allocates the same outputs and launches nothing
+  (``launch.dryrun``).
 
 A CUDA tensor reaches the kernel or an exception, never the plain version.
+Under ``launch.op_analysis`` each call counts 2·M·K·N int8 operations (and
+2·M·K for the check vector) under int32, ``chip_smoke.py``'s bound.
 """
 from __future__ import annotations
 
@@ -130,18 +134,30 @@ def _launch(name, device, *args):
     cuda_lib.launch(_lib(), name, device, *args)
 
 
+def _ops(x_q, w_q, *rest):
+    return torch.int32, 2 * x_q.shape[0] * x_q.shape[1] * w_q.shape[1]
+
+
+def _ops_checksum(x_q, w_q, w_check):
+    return torch.int32, _ops(x_q, w_q)[1] + 2 * x_q.shape[0] * x_q.shape[1]
+
+
+@cuda_lib.counted(_ops)
 def qmatmul_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     """Raw int32 accumulator X·W, (M, K) int8 × (K, N) int8 → (M, N)."""
     m, k, n = _shape(x_q, w_q)
-    if not _on_card(x_q, w_q):
+    card = _on_card(x_q, w_q)
+    if not card and x_q.device.type != "meta":
         return ref.qmatmul_acc_plain(x_q, w_q)
     out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
-    _launch("qmatmul_acc_launch", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
-            out.data_ptr(), m, k, n, *plan(m, k, n))
-    qmatmul_acc.launches += 1
+    if card:
+        _launch("qmatmul_acc_launch", x_q.device, x_q.data_ptr(),
+                w_q.data_ptr(), out.data_ptr(), m, k, n, *plan(m, k, n))
+        qmatmul_acc.launches += 1
     return out
 
 
+@cuda_lib.counted(_ops_checksum)
 def qmatmul_acc_checksum(x_q: torch.Tensor, w_q: torch.Tensor,
                          w_check: torch.Tensor):
     """(acc, want): ``qmatmul_acc`` plus the ABFT check vector want (M,)
@@ -150,17 +166,20 @@ def qmatmul_acc_checksum(x_q: torch.Tensor, w_q: torch.Tensor,
     ``abft.checksum_vector``)."""
     m, k, n = _shape(x_q, w_q)
     cuda_lib.expect(w_check, "w_check", torch.int32, (k,))
-    if not _on_card(x_q, w_q, w_check):
+    card = _on_card(x_q, w_q, w_check)
+    if not card and x_q.device.type != "meta":
         return ref.qmatmul_acc_checksum_plain(x_q, w_q, w_check)
     out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
     want = torch.empty((m,), dtype=torch.int32, device=x_q.device)
-    _launch("qmatmul_acc_checksum_launch", x_q.device, x_q.data_ptr(),
-            w_q.data_ptr(), w_check.data_ptr(), out.data_ptr(),
-            want.data_ptr(), m, k, n, *plan(m, k, n))
-    qmatmul_acc_checksum.launches += 1
+    if card:
+        _launch("qmatmul_acc_checksum_launch", x_q.device, x_q.data_ptr(),
+                w_q.data_ptr(), w_check.data_ptr(), out.data_ptr(),
+                want.data_ptr(), m, k, n, *plan(m, k, n))
+        qmatmul_acc_checksum.launches += 1
     return out, want
 
 
+@cuda_lib.counted(_ops)
 def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
             bias: torch.Tensor, scale: torch.Tensor,
             zps: torch.Tensor) -> torch.Tensor:
@@ -172,13 +191,15 @@ def qmatmul(x_q: torch.Tensor, w_q: torch.Tensor, colsum: torch.Tensor,
     cuda_lib.expect(bias, "bias", torch.int32, (n,))
     cuda_lib.expect(scale, "scale", torch.float32, (n,))
     cuda_lib.expect(zps, "zps", torch.int32, (2,))
-    if not _on_card(x_q, w_q, colsum, bias, scale, zps):
+    card = _on_card(x_q, w_q, colsum, bias, scale, zps)
+    if not card and x_q.device.type != "meta":
         return ref.qmatmul_plain(x_q, w_q, colsum, bias, scale, zps)
     out = torch.empty((m, n), dtype=torch.int8, device=x_q.device)
-    _launch("qmatmul_launch", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
-            colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
-            zps.data_ptr(), out.data_ptr(), m, k, n, *plan(m, k, n))
-    qmatmul.launches += 1
+    if card:
+        _launch("qmatmul_launch", x_q.device, x_q.data_ptr(), w_q.data_ptr(),
+                colsum.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+                zps.data_ptr(), out.data_ptr(), m, k, n, *plan(m, k, n))
+        qmatmul.launches += 1
     return out
 
 

@@ -21,7 +21,11 @@ def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """N(0, std^2) drawn from ``gen`` on ``gen.device``, scaled in place:
     a CPU generator gives the numbers it always gave, whatever device the
     caller moves them to; a CUDA generator draws on the card, where the f32
-    draw of a large leaf is its only transient copy."""
+    draw of a large leaf is its only transient copy.  ``gen`` None draws
+    nothing: a shape-only tensor on the meta device (the dry-run's
+    ``train.steps.abstract_train_state``)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.randn(shape, generator=gen, device=gen.device)
     return t.mul_(std).to(dtype)
 

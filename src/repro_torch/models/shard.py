@@ -165,6 +165,18 @@ class Sharded:
         return cache_specs(self.cfg, self.ctx.dp,
                            self.ctx.model if self.tp else None)
 
+    def local_cache_specs(self):
+        """The specs of the cache this rank holds: ``cache_specs``'s, with
+        the batch entries over the activation batch's axes (None where the
+        batch is replicated)."""
+        from repro_torch.parallel.sharding import P
+        dp = set(self.ctx.dp)
+        return type(self._cache_specs())(*[
+            None if spec is None else P(*[
+                self.ctx.batch_axes if entry_axes(e) and
+                set(entry_axes(e)) <= dp else e for e in spec])
+            for spec in self._cache_specs()])
+
     def on_full_cache(self, cache, fn):
         """``fn(full)`` on the cache with its non-batch dims gathered,
         which returns (out, full) having updated ``full`` in place; this

@@ -17,10 +17,16 @@ loss with respect to its own copy of each value, so the train step
 leaf's gradient over the axes its spec does not name (the reference's
 shard_map transposes ``psum`` the same way).
 
+``ppermute`` is JAX's ``lax.ppermute`` over one axis: each rank sends its
+tensor to the ranks the permutation names and returns what it receives
+(zeros where nothing comes); its backward is the reverse permutation.
+
 Every call that reaches ``torch.distributed`` adds one to ``COUNTS[kind]``
 (kinds ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``,
-``send_recv``), in a backward too: ``chip_smoke.py`` derives the count of
-each kind from the code's rules and holds the run to it.
+``send_recv``) and its operand bytes (the tensor this rank puts in) to
+``BYTES[kind]``, in a backward too: ``chip_smoke.py`` derives the count of
+each kind from the code's rules and holds the run to it, and
+``launch.op_analysis`` reads both.
 """
 from __future__ import annotations
 
@@ -32,16 +38,27 @@ import torch.distributed as dist
 from repro_torch import tree
 
 COUNTS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+         "send_recv")
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BYTES.clear()
+
+
+def _count(kind: str, operand: torch.Tensor) -> None:
+    COUNTS[kind] += 1
+    BYTES[kind] += operand.numel() * operand.element_size()
 
 
 def counts() -> dict:
-    return {k: COUNTS[k] for k in ("all_reduce", "all_gather",
-                                   "reduce_scatter", "all_to_all",
-                                   "send_recv")}
+    return {k: COUNTS[k] for k in KINDS}
+
+
+def byte_counts() -> dict:
+    return {k: BYTES[k] for k in KINDS}
 
 
 def _axes(axes) -> tuple:
@@ -56,7 +73,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 
 def _all_reduce_raw(x: torch.Tensor, group, op: str) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    COUNTS["all_reduce"] += 1
+    _count("all_reduce", out)
     dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
@@ -70,7 +87,7 @@ def _gather_raw(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     never by transposes."""
     src = x.contiguous()
     flat = src.new_empty(size * src.numel())     # rank-major, as gloo wants
-    COUNTS["all_gather"] += 1
+    _count("all_gather", src)
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     fn(flat, src.reshape(-1), group=group)
@@ -92,7 +109,7 @@ def _scatter_raw(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     parts = x.chunk(size, dim=dim)
     src = x.contiguous() if dim == 0 or size == 1 else torch.stack(parts)
     out = x.new_empty(parts[0].shape)
-    COUNTS["reduce_scatter"] += 1
+    _count("reduce_scatter", src)
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     fn(out.view(-1), src.reshape(-1), op=dist.ReduceOp.SUM, group=group)
@@ -188,7 +205,7 @@ def ring_all_gather(x: torch.Tensor, mesh, axes, dim: int = 0
     chunks = [cur]
     for _ in range(n - 1):
         recv = torch.empty_like(cur)
-        COUNTS["send_recv"] += 1
+        _count("send_recv", cur)
         for req in dist.batch_isend_irecv(
                 [dist.P2POp(dist.isend, cur, nxt, group),
                  dist.P2POp(dist.irecv, recv, prv, group)]):
@@ -198,6 +215,57 @@ def ring_all_gather(x: torch.Tensor, mesh, axes, dim: int = 0
     # chunk j came from group rank (idx − j) mod n
     ordered = [chunks[(idx - src) % n] for src in range(n)]
     return torch.cat(ordered, dim=dim)
+
+
+def _ppermute_raw(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """``x`` sent to every rank of ``axis`` that ``perm`` names as this
+    rank's destination; what this rank receives, or zeros (default
+    strides either way)."""
+    me = mesh.axis_index(axis)
+    dests = [d for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    out = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    if not dests and not srcs:
+        return out
+    group = mesh.group(axis)
+    ranks = dist.get_process_group_ranks(group)
+    src = x.detach().contiguous()
+    ops = [dist.P2POp(dist.isend, src, ranks[d], group) for d in dests]
+    ops += [dist.P2POp(dist.irecv, out, ranks[s], group) for s in srcs]
+    _count("send_recv", src)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, perm)
+        return _ppermute_raw(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, perm = ctx.args
+        back = tuple((d, s) for s, d in perm)
+        return _ppermute_raw(g, mesh, axis, back), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """``lax.ppermute`` over the mesh axis ``axis``: ``perm`` is a list of
+    (source, destination) positions along the axis, each source and each
+    destination at most once; a rank returns the tensor its source sent,
+    or zeros where none is named.  Differentiable: the backward sends each
+    gradient back along the reversed pairs.  Every rank of the axis must
+    call it (and its backward) in the same order."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    n = mesh.size(axis)
+    if len({s for s, _ in perm}) != len(perm) or \
+            len({d for _, d in perm}) != len(perm) or \
+            any(not (0 <= i < n) for p in perm for i in p):
+        raise ValueError(f"ppermute: {perm} is not a partial permutation "
+                         f"of {n} positions")
+    return _Ppermute.apply(x, mesh, axis, perm)
 
 
 def all_to_all_tokens(x: torch.Tensor, mesh, axes, split_axis: int,
@@ -215,7 +283,7 @@ def all_to_all_tokens(x: torch.Tensor, mesh, axes, split_axis: int,
                          f"does not split {n} ways")
     src = torch.stack(x.detach().chunk(n, dim=split_axis)).contiguous()
     out = torch.empty_like(src)
-    COUNTS["all_to_all"] += 1
+    _count("all_to_all", src)
     dist.all_to_all_single(out, src, group=mesh.group(axes))
     return torch.cat(out.unbind(0), dim=concat_axis)
 

@@ -13,10 +13,19 @@ The counterpart of ``repro.runtime.ft_loop`` on one card:
 The reference's ``jax.jit(step_fn)`` is a plain call: PyTorch runs
 eagerly.  Saves copy the state to host at once and persist on a background
 writer; recovery calls ``wait()`` first so the restore reads a durable
-manifest.  The loop runs on one device: ``mesh`` (the sharded loop and
-the orchestrator's elastic restart onto a smaller mesh) raises, and waits
-for ROADMAP.md queue 1, item 17; the sharded train step and the elastic
-restore themselves are in ``train.steps`` and ``train.checkpoint``.
+manifest.
+
+With ``mesh`` (a ``launch.mesh.Mesh``; every rank runs the loop) the step
+runs under ``ShardCtx(mesh, dp, "model")``, dp being every other axis; the
+state is this rank's shards under ``train_state_specs`` (cut from the
+same initial draw as the unsharded loop's), each step's batch this rank's
+slice (``shard_batch``), and saves and restores go through the sharded
+checkpointer (rank 0 writes) onto the same mesh.  Every rank must take
+the same branch: a fault that ``fault_hook`` raises on one rank is made
+known to all by one MAX all-reduce of a flag before each step, so that no
+rank is left in a collective its peers skipped; the loss is global, so
+the corruption check agrees by itself.  Like the reference's loop, it
+restores onto the same mesh (no elastic restart).
 
 Determinism contract: batch ``i`` is a pure function of (seed, i), and
 every operation of the step is deterministic on the card (the hand
@@ -35,8 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.data.pipeline import TokenStream
+from repro_torch.data.pipeline import TokenStream, shard_batch
 from repro_torch.models.config import ArchConfig, ShapeConfig
+from repro_torch.models.shard import ShardCtx
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel.sharding import shard_tree
 from repro_torch.runtime.orchestrator import Orchestrator
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optim as optim_mod
@@ -86,18 +98,38 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
 
     fault_hook(step, state) -> state | None: may corrupt the state (SEU
     drill) or raise ``RuntimeError("node lost")`` to simulate a device
-    failure.  The driver recovers either way.
+    failure.  The driver recovers either way.  With ``mesh`` the state is
+    on the mesh's device and ``device`` is not used.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded FT loop and its elastic restart come with "
-            "ROADMAP.md queue 1, item 17")
     t0 = time.time()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     opt = optim_mod.make_optimizer(cfg.optimizer, lr=lr)
     stream = TokenStream(cfg, shape, seed=ft.seed, n_hosts=1, host_id=0)
     orch = Orchestrator(n_workers=1, heartbeat_timeout=1e9)
-    step_fn = steps_mod.make_train_step(cfg, optimizer=opt)
+    ctx, shard = None, {}          # shard: the checkpoints' mesh= specs=
+    if mesh is not None:
+        dp = tuple(a for a in mesh.axis_names if a != "model")
+        ctx = ShardCtx(mesh, dp, "model")
+        shard = {"mesh": mesh, "specs": steps_mod.train_state_specs(
+            cfg, steps_mod.abstract_train_state(cfg, opt).params, dp,
+            "model", cfg.optimizer, mesh)}
+    step_fn = steps_mod.make_train_step(cfg, ctx, optimizer=opt)
+
+    def batch_at(step):
+        host = stream.batch_at(step)
+        if mesh is None:
+            return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        return shard_batch(host, mesh, ctx.dp)
+
+    def restore(step):
+        return ckpt.restore(ft.ckpt_dir, step, device=dev, **shard)
+
+    def agreed(err) -> bool:
+        """Whether any rank failed before this step (the flag's MAX)."""
+        if mesh is None:
+            return err is not None
+        flag = torch.tensor([float(err is not None)], device=dev)
+        return bool(C.all_reduce(flag, mesh, mesh.axis_names, op="max"))
 
     # incremental + async checkpointing: dirty-chunk writes on a background
     # thread; every restore below waits for in-flight saves to be durable
@@ -109,12 +141,16 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
         # ---- init or resume
         start = ckpt.latest_step(ft.ckpt_dir)
         if start is None:
+            # the unsharded loop's draw (a CPU generator), cut into shards
             state = steps_mod.init_train_state(
-                cfg, torch.Generator().manual_seed(ft.seed), opt, device=dev)
-            ick.save(0, state)
+                cfg, torch.Generator().manual_seed(ft.seed), opt,
+                device=dev if mesh is None else "cpu")
+            if mesh is not None:
+                state = shard_tree(state, shard["specs"], mesh)
+            ick.save(0, state, **shard)
             start = 0
         else:
-            start, state = ckpt.restore(ft.ckpt_dir, start, device=dev)
+            start, state = restore(start)
 
         losses: List[float] = []
         events: List[str] = []
@@ -123,13 +159,18 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
         step = start
 
         while step < n_steps:
-            batch = {k: torch.from_numpy(v).to(dev)
-                     for k, v in stream.batch_at(step).items()}
+            batch = batch_at(step)
             try:
+                err = None
                 if fault_hook is not None:
-                    maybe = fault_hook(step, state)
-                    if maybe is not None:
-                        state = maybe
+                    try:
+                        maybe = fault_hook(step, state)
+                        if maybe is not None:
+                            state = maybe
+                    except (RuntimeError, FloatingPointError) as e:
+                        err = e
+                if agreed(err):
+                    raise err or RuntimeError("a peer rank failed")
                 t_step = time.time()
                 state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])
@@ -141,7 +182,7 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
                 losses.append(loss)
                 step += 1
                 if step % ft.ckpt_every == 0:
-                    ick.save(step, state)
+                    ick.save(step, state, **shard)
             except (RuntimeError, FloatingPointError) as e:
                 recoveries += 1
                 events.append(f"step {step}: {e} → restore+replay")
@@ -149,8 +190,7 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
                     raise RuntimeError(
                         f"exceeded max_recoveries={ft.max_recoveries}") from e
                 ick.wait()                  # durability barrier before read
-                last = ckpt.latest_step(ft.ckpt_dir)
-                restored, state = ckpt.restore(ft.ckpt_dir, last, device=dev)
+                restored, state = restore(ckpt.latest_step(ft.ckpt_dir))
                 # drop optimistic losses past the restore point, replay
                 replayed += step - restored
                 losses = losses[: restored - start]

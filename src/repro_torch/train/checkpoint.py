@@ -361,6 +361,13 @@ class IncrementalCheckpointer:
     in flight before ``save`` blocks.  ``full_every=k`` forces every k-th
     save to rewrite all chunks (a rebase).  Writer errors are re-raised on
     the next ``save``/``wait``/``close``.
+
+    Sharded states: ``save(step, state, specs=, mesh=)`` takes this rank's
+    shards; every rank takes part in gathering each full leaf, rank 0
+    snapshots it and alone owns the writer, the dirty-chunk baseline and
+    ``stats``.  Once a save has named a mesh, ``wait`` ends in a barrier of
+    the mesh's ranks, so that no rank reads a manifest before it is
+    durable; every rank must then call ``wait`` and ``close``.
     """
 
     def __init__(self, ckpt_dir: str | Path, *, keep_n: int = 3,
@@ -378,6 +385,7 @@ class IncrementalCheckpointer:
         self.stats = {"saves": 0, "chunks_total": 0, "chunks_written": 0,
                       "bytes_written": 0}
         self._err: Optional[BaseException] = None
+        self._mesh = None
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(max_pending)))
         self._thread: Optional[threading.Thread] = None
         if async_write:
@@ -386,19 +394,33 @@ class IncrementalCheckpointer:
             self._thread.start()
 
     # ------------------------------------------------------------- frontend
-    def save(self, step: int, state: Any) -> None:
-        """Snapshot ``state`` to host and schedule (or perform) the write."""
+    def save(self, step: int, state: Any, *, specs: Any = None,
+             mesh=None) -> None:
+        """Snapshot ``state`` to host and schedule (or perform) the write;
+        with ``mesh``, ``state`` is this rank's shards under ``specs``."""
         self._raise_pending()
-        item = (step, _snapshot(state), tree.structure(state))
+        if mesh is None:
+            snap = _snapshot(state)
+        else:
+            self._mesh = mesh
+            snap = _gathered_snapshot(state, specs, mesh)
+            if mesh.rank != 0:
+                return
+        item = (step, snap, tree.structure(state),
+                1 if mesh is None else mesh.size(mesh.axis_names))
         if self._thread is not None:
             self._q.put(item)                        # blocks at max_pending
         else:
             self._write(*item)
 
     def wait(self) -> None:
-        """Block until every scheduled write is durable; re-raise errors."""
+        """Block until every scheduled write is durable; re-raise errors
+        (after a sharded save, on every rank once all are here)."""
         if self._thread is not None:
             self._q.join()
+        if self._mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
         self._raise_pending()
 
     def close(self) -> None:
@@ -433,7 +455,7 @@ class IncrementalCheckpointer:
             finally:
                 self._q.task_done()
 
-    def _write(self, step: int, snap, structure):
+    def _write(self, step: int, snap, structure, n_proc: int = 1):
         # the rebase cadence counts durable saves, so a torn write retried
         # later lands the rebase on the same durable save it would have
         rebase = self.full_every > 0 and (
@@ -478,7 +500,7 @@ class IncrementalCheckpointer:
         _publish(tmp, _step_dir(self.ckpt_dir, step),
                  {"step": step, "format": 2, "rebase": bool(rebase),
                   "structure": structure, "leaves": leaves_meta,
-                  "n_processes": 1})
+                  "n_processes": n_proc})
         # only now, after the rename barrier, do the baseline and the
         # accounting reflect this save; a crash before this point leaves the
         # previous chain, stats and rebase cadence intact

@@ -26,8 +26,11 @@ a leaf's gradient is then summed over the mesh axes its spec does not name
 ``grad_accum`` keep the parameters' layout (the reference's ``pin``); the
 global norm counts each element once; the update runs on the local shards
 in place, Adafactor's means over a sharded dim taken over the whole
-parameter.  ``input_specs`` and ``abstract_train_state`` come with the
-dry-run (ROADMAP.md queue 1, item 17).
+parameter.
+
+``input_specs`` and ``abstract_train_state`` give a cell's inputs and
+train state as meta tensors of the reference's shapes and dtypes: no
+memory, nothing drawn (``launch.dryrun`` runs the steps on them).
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ import torch
 
 from repro_torch import resolve_device, tree
 from repro_torch.models import api as model_api
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.shard import ShardCtx
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import sharding as shd
@@ -200,3 +203,46 @@ def make_decode_step(cfg: ArchConfig, ctx: Optional[ShardCtx] = None):
                                                   ctx)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (meta tensors for the dry-run; no memory, nothing drawn)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Meta inputs of one (arch × shape) cell, the global batch.
+
+    train/prefill: int32 tokens (B, S) (and labels for train); embedding-
+    input archs also get f32 ``embeds`` (B, S, d) (their stub front end).
+    decode: one int32 token per row and the cache at seq_len
+    (``models.api.init_cache`` on meta)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok():
+        return torch.empty((B, S), dtype=torch.int32, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": tok()}
+        if shape.kind == "train":
+            batch["labels"] = tok()
+        if cfg.input_mode == "embeddings":
+            batch["embeds"] = torch.empty((B, S, cfg.d_model),
+                                          dtype=torch.float32, device="meta")
+        return batch
+    if shape.kind == "decode":
+        return {"token": torch.empty((B,), dtype=torch.int32, device="meta"),
+                "cache": model_api.init_cache(cfg, B, S, device="meta")}
+    raise ValueError(shape.kind)
+
+
+def abstract_train_state(cfg: ArchConfig,
+                         optimizer: Optional[optim_mod.Optimizer] = None
+                         ) -> TrainState:
+    """The train state of ``init_train_state`` as meta tensors: every leaf
+    built shape-only (``models.common._normal`` with no generator), the
+    W8A8 leaves quantized on meta, so a 1T-parameter state takes no
+    memory."""
+    optimizer = optimizer or optim_mod.make_optimizer(cfg.optimizer)
+    with torch.device("meta"):
+        return init_train_state(cfg, None, optimizer, device="meta")

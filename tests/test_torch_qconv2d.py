@@ -208,8 +208,13 @@ def test_kernel_wrappers_validate_inputs():
         tkernel.qconv2d_acc(x_p, w_q, colsum[:3], zp)
     with pytest.raises(ValueError, match="geometry"):
         tkernel.qconv2d_acc(x_p, w_q[:, :, :4], colsum, zp)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        tkernel.qconv2d_acc(x_p.to("meta"), w_q.to("meta"),
-                            colsum.to("meta"), zp.to("meta"))
-    # the plain version is not a kernel launch
+    # meta inputs (the dry-run): the kernel's output, shape and dtype
+    # only, and no launch; a mix of devices raises
+    out = tkernel.qconv2d_acc(x_p.to("meta"), w_q.to("meta"),
+                              colsum.to("meta"), zp.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == \
+        ("meta", (1, 4, 4, 4), torch.int32)
+    with pytest.raises(ValueError, match="several devices"):
+        tkernel.qconv2d_acc(x_p.to("meta"), w_q, colsum, zp)
+    # neither the plain version nor the meta path is a kernel launch
     assert tkernel.qconv2d_acc.launches == 0

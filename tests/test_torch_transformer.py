@@ -236,8 +236,10 @@ def test_swa_ring_buffer_decode_long():
 
 
 def test_unported_paths_name_their_roadmap_item():
-    # every reference arch resolves, the two dense giants included; the
-    # FT loop's mesh still waits for item 17
+    # every reference arch resolves, the two dense giants included; item
+    # 17's last parts came (the pipeline, the dry-run, the FT loop's mesh:
+    # test_torch_pipeline.py, test_torch_dryrun.py,
+    # test_torch_ft_loop_mesh.py)
     for name in ("command-r-plus-104b", "llama3-405b"):
         assert tregistry.get(name).fsdp_params
     with pytest.raises(KeyError):
@@ -254,9 +256,14 @@ def test_unported_paths_name_their_roadmap_item():
                           device="cpu")
     assert "moe_blocks" in mp and "dense_blocks" not in mp
     _, mt = tokens(moe, (1, 4))
+    import inspect
+    from repro_torch.launch import dryrun, op_analysis  # noqa: F401
+    from repro_torch.parallel import pipeline  # noqa: F401
     from repro_torch.runtime import ft_loop
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ft_loop.run(moe, None, None, device="cpu", mesh=object())
+    from repro_torch.train import steps as tsteps
+    assert "mesh" in inspect.signature(ft_loop.run).parameters
+    assert callable(tsteps.input_specs) and \
+        callable(tsteps.abstract_train_state)
     with pytest.raises(ValueError, match="unknown family"):
         tapi.init_params(dataclasses.replace(tcfg, family="cnn"),
                          torch.Generator(), device="cpu")

@@ -404,3 +404,113 @@ def train_world_one(mesh, cfg, full_state, batches, opt_name):
         tree.leaves(state.params) + tree.leaves(state.opt_state)))
     return {"losses": got["losses"] == losses, "norms": got["norms"] == norms,
             "state": same}
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism, the sharded FT loop, the dry-run against a run
+# ---------------------------------------------------------------------------
+
+
+def tanh_stage(params, x):
+    """``test_pipeline_parallel.py``'s stage: tanh(x @ w + b)."""
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def _pipeline_grads(mesh, stage_list, x, checkpoint):
+    from repro_torch.parallel import pipeline
+    from repro_torch.parallel.sharding import P
+    stacked = pipeline.stack_stage_params(
+        [tree.map(torch.from_numpy, p) for p in stage_list])
+    local = shard_tree(stacked, tree.map(lambda _: P("stage"), stacked),
+                       mesh, device="cpu")
+    leaves = [t.requires_grad_() for t in tree.leaves(local)]
+    C.reset_counts()
+    out = pipeline.pipeline_apply(tanh_stage, local, torch.from_numpy(x),
+                                  mesh, checkpoint_stages=checkpoint)
+    fwd = C.counts()
+    loss = (out ** 2).mean()
+    grads = torch.autograd.grad(loss, leaves, grad_outputs=torch.full_like(
+        loss, 1.0 / mesh.size(mesh.axis_names)))
+    total = C.counts()
+    return out, loss, dict(zip(("b", "w"), (g[0] for g in grads))), fwd, \
+        total
+
+
+def pipeline_case(mesh, stage_list, x, checkpoint=True):
+    """``pipeline_apply`` of the tanh stages over the "stage" axis and the
+    gradient of mean(out²) wrt this rank's stage, each rank seeded with
+    1 / world; the collectives issued forward and in all."""
+    out, loss, grads, fwd, total = _pipeline_grads(mesh, stage_list, x,
+                                                    checkpoint)
+    return {"out": out.detach(), "loss": loss.detach(), "grads": grads,
+            "fwd": fwd, "total": total}
+
+
+def pipeline_world_one(mesh, stage_list, x):
+    """At one stage, with ``checkpoint_stages`` on and off: the outputs
+    and the gradient torch.equal to a plain loop over the microbatches."""
+    p = tree.map(lambda a: torch.from_numpy(a).requires_grad_(),
+                 stage_list[0])
+    xs = torch.from_numpy(x)
+    want = torch.stack([tanh_stage(p, xs[i]) for i in range(xs.shape[0])])
+    want_g = torch.autograd.grad((want ** 2).mean(), [p["b"], p["w"]])
+    out = {}
+    for ck in (True, False):
+        got, _, grads, _, _ = _pipeline_grads(mesh, stage_list, x, ck)
+        out[ck] = (torch.equal(got, want)
+                   and torch.equal(grads["b"], want_g[0])
+                   and torch.equal(grads["w"], want_g[1]))
+    return out
+
+
+class NanHook:
+    """A NaN in this rank's shard of ``embed`` at step ``at``, once."""
+
+    def __init__(self, at):
+        self.at, self.fired = at, False
+
+    def __call__(self, step, state):
+        if step == self.at and not self.fired:
+            self.fired = True
+            embed = state.params["embed"].clone()
+            embed.view(-1)[0] = float("nan")
+            return state._replace(params=dict(state.params, embed=embed))
+        return None
+
+
+class NodeLost:
+    """``RuntimeError("node lost")`` at step ``at`` on rank ``rank`` only,
+    once."""
+
+    def __init__(self, at, rank):
+        self.at, self.rank, self.fired = at, rank, False
+
+    def __call__(self, step, state):
+        if step == self.at and dist.get_rank() == self.rank \
+                and not self.fired:
+            self.fired = True
+            raise RuntimeError("node lost")
+        return None
+
+
+def ft_run(mesh, cfg, shape, ckpt_dir, n_steps, hook=None, ckpt_every=4):
+    """``ft_loop.run(mesh=)``: this rank's report."""
+    from repro_torch.runtime import ft_loop
+    ft = ft_loop.FTConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+    rep = ft_loop.run(cfg, shape, ft, n_steps=n_steps, fault_hook=hook,
+                      mesh=mesh)
+    return {"losses": rep.losses, "recoveries": rep.recoveries,
+            "replayed": rep.steps_replayed, "events": rep.events,
+            "saves": rep.ckpt_stats["saves"]}
+
+
+def analyzed_step(mesh, cfg, shape, full, batch):
+    """``launch.dryrun.build_cell``'s step on this rank's shards of real
+    (full, batch) and its op analysis: the dry-run's numbers, run."""
+    from repro_torch.launch import dryrun, op_analysis
+    kw = {"state": full} if shape.kind == "train" else {"params": full}
+    fn, args = dryrun.build_cell(cfg, shape, mesh,
+                                 batch=tree.map(torch.as_tensor, batch),
+                                 device="cpu", **kw)
+    _, an = op_analysis.analyze(fn, *args)
+    return {"summary": an.summary(), "memory": an.memory_analysis()}
