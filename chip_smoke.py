@@ -65,8 +65,10 @@ Phases, each of which raises on failure:
 10. slice 4: ``ft_loop.run`` trains SmolLM-135M at full width and depth
    (f32 params, bf16 compute, AdamW, remat save_dots, attn_impl flash,
    batch 8 × 1024) in a temporary directory: a clean run of 12 steps
-   (the loss falls), a second clean run bit-identical to it, a NaN in
-   embed[0, 0] at step 9 (one recovery, bit-identical losses), a run
+   (the loss falls; the training example of 23 is the second clean run
+   that must equal it bit for bit, and its SEU drill the unsharded
+   recovery that must end on it; 22 drills a NaN in embed[0, 0] at step
+   9 on the sharded loop), a run
    stopped at 8 and resumed (bit-identical), a bit-flip drill (finite
    losses); fwd_lse and bwd launches as derived from the steps executed;
    one step's gradients, flash against chunked, beside the bf16 noise
@@ -91,7 +93,7 @@ Phases, each of which raises on failure:
    7, 8 launched under ``cuda`` and no kernel under ``ref`` or ``torch``;
    trials/s per workload and policy; the phase within
    ``CAMPAIGN_BUDGET_S``;
-12. slice 11: dependable serving at full width (SmolLM-135M at 8 of its
+12. slice 11: dependable serving at full width (SmolLM-135M at 4 of its
    30 layers, W8A8 FFN, bf16, flash prefill, capacity 8,
    16 requests of 32 new tokens) under
    ``PolicyMap.uniform(ABFT)`` (scrubs ``detect``) and ``uniform(CKPT)``
@@ -110,7 +112,7 @@ Phases, each of which raises on failure:
    to the CPU's; the phase within ``DEP_BUDGET_S``; it runs after the
    timings and profiles of 13;
 14. slice 12, the serving fleet at full width (``phase_fleet``:
-   SmolLM-135M at 8 of its 30 layers, W8A8 FFN, bf16,
+   SmolLM-135M at 4 of its 30 layers, W8A8 FFN, bf16,
    flash prefill, capacity 8, 12 requests of
    16 new tokens, prompts of 8-512 tokens): NONE, ABFT (under
    ``PolicyMap.uniform(ABFT)``), DMR and CKPT fleets of 3 replicas serve
@@ -221,7 +223,7 @@ Phases, each of which raises on failure:
    torch.equal to a plain loop of the same blocks, rows 9 and 10 launched
    as the schedule and its checkpoint's recompute derive; the sharded FT
    loop (``ft_loop.run(mesh=)`` on a (1, 1) mesh, SmolLM-135M in full at
-   8 x 1,024, 12 steps, clean and with the NaN drill at step 9): one
+   8 x 1,024, 12 steps, with the NaN drill at step 9): one
    recovery, losses ``==`` the unsharded clean run of 10; the dry-run
    against the card: ``launch.dryrun.run_cell`` on meta at a fake (1, 1)
    mesh in a spawned child, and the same steps for real on the card under
@@ -232,6 +234,23 @@ Phases, each of which raises on failure:
    counts and bytes per kind, argument bytes and the tracked peak equal,
    the predicted peak within 15 % of the step's ``max_memory_allocated``
    rise; rows 4, 9 and 10 launched; within ``ITEM17_BUDGET_S``.
+23. slice 18 (``phase_examples``): each of the seven walkthroughs in
+   ``examples/*_torch.py`` through its ``run()`` on the card at full
+   width, over what the earlier phases drew (SmolLM-135M, the training
+   config and shape, ``network_specs(194)``; qwen3-0.6b drawn on the
+   card), each with its launch counts reset before and read after it and
+   held to the counts derived from its acts, and its peak device memory
+   printed: the quickstart's conv at 194 x 194 and qlinear at (8, 576,
+   1536) with every row-3 and row-6 call's operands ``torch.equal``
+   through the kernel and its plain version; the ship detector within 4
+   output steps of the float path; the campaign's grid (ABFT and TMR SDC
+   0, ABFT detecting every single bit flip) and both drills detecting all
+   their trials; dependable serving's rolled-back streams equal the clean
+   ones and the TMR vote bit-exact; the fleet's four acts on the golden
+   stream with one recovery; recovery's CKPT outputs golden, its
+   checkpoint chain and both scrubs healed; the training example's clean
+   losses ``==`` those of 10 with one recovery onto them; within
+   ``EXAMPLES_BUDGET_S``.
 13. time each kernel at the main paths' shapes with CUDA events beside its
    plain version, its bound and the library call where one exists
    (``scaled_dot_product_attention`` for attention and its backward,
@@ -2177,13 +2196,15 @@ def _executed(rep) -> int:
 def phase_train(tcfg, shape):
     """The main path of slice 4, with the attention launch counts reset
     before it and read after it: ``ft_loop.run`` in a temporary directory —
-    a clean run of 12 steps (checkpoint every 4; the loss falls), a second
-    clean run bit-identical to it, a NaN written into embed[0, 0] at step 9
-    (one recovery, losses bit-identical to the clean run), a run stopped at
-    8 and resumed to 12 (bit-identical to the clean run's steps 8-11) and
-    an inject_into_pytree drill (finishes with finite losses).  fwd_lse
-    launches = 2 × n_layers and bwd launches = n_layers per step executed:
-    the forward runs once per block and again in its recompute."""
+    a clean run of 12 steps (checkpoint every 4; the loss falls; the
+    examples phase's training example is a second clean run and an SEU
+    drill with one recovery, each held ``==`` to it there, and the item17
+    phase's sharded loop recovers from a NaN at step 9 onto it), a run
+    stopped at 8 and resumed to 12 (bit-identical to the clean run's steps
+    8-11) and an inject_into_pytree drill (finishes with finite losses).
+    fwd_lse launches = 2 × n_layers and bwd launches = n_layers per step
+    executed: the forward runs once per block and again in its
+    recompute."""
     from repro_torch.core import fault_injection as fi
     from repro_torch.kernels.flashattn import kernel as FK
     L = tcfg.n_layers
@@ -2213,22 +2234,9 @@ def phase_train(tcfg, shape):
             return rep
 
         clean = go("clean", TRAIN_STEPS)
-        again = go("clean2", TRAIN_STEPS)
         shutil.rmtree(os.path.join(root, "clean"))
-        shutil.rmtree(os.path.join(root, "clean2"))
 
-        fired = {"nan": False, "drill": False}
-
-        def nan_hook(step, state):
-            if step == TRAIN_NAN_STEP and not fired["nan"]:
-                fired["nan"] = True
-                embed = state.params["embed"].clone()
-                embed[0, 0] = float("nan")
-                return state._replace(params=dict(state.params, embed=embed))
-            return None
-
-        nan = go("nan", TRAIN_STEPS, hook=nan_hook)
-        shutil.rmtree(os.path.join(root, "nan"))
+        fired = {"drill": False}
         first = go("resume", TRAIN_RESUME_AT)
         resumed = go("resume", TRAIN_STEPS)
         shutil.rmtree(os.path.join(root, "resume"))
@@ -2254,11 +2262,6 @@ def phase_train(tcfg, shape):
         raise AssertionError(f"clean run: {losses}")
     if not np.mean(losses[-4:]) < np.mean(losses[:4]):
         raise AssertionError(f"the loss did not fall: {losses}")
-    if again.losses != losses:
-        raise AssertionError("two clean runs differ")
-    if nan.recoveries != 1 or nan.losses != losses:
-        raise AssertionError(f"NaN drill: {nan.recoveries} recoveries, "
-                             f"losses {nan.losses}")
     if len(first.losses) != TRAIN_RESUME_AT \
             or resumed.losses != losses[TRAIN_RESUME_AT:]:
         raise AssertionError(f"resume: {resumed.losses} against "
@@ -2266,7 +2269,7 @@ def phase_train(tcfg, shape):
     if len(drill.losses) != 10 or not np.all(np.isfinite(drill.losses)):
         raise AssertionError(f"bit-flip drill: {drill.losses}")
     drill_clean = drill.losses == losses[:10]
-    print(f"  bit identity: two clean runs, NaN recovery and resume equal "
+    print(f"  bit identity: the resume equals "
           f"the clean run; loss {np.mean(losses[:4]):.4f} (first 4) -> "
           f"{np.mean(losses[-4:]):.4f} (last 4); bit-flip drill "
           f"{drill.recoveries} recoveries, finite, "
@@ -2688,7 +2691,7 @@ DEP_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum", "flash_attention_fwd_lse")
 DEP_CAMPAIGN_TRIALS = 8            # per serving campaign configuration
 DEP_TIMING_STEPS = 10              # decode steps per timing round
 DEP_BUDGET_S = 180                 # the phase's share of the limit
-DEP_LAYERS = 8                     # depth cut: 8 of 30 layers, full width
+DEP_LAYERS = 4                     # depth cut: 4 of 30 layers, full width
 
 
 def _dep_kw(name):
@@ -3014,7 +3017,7 @@ FLEET_REPLICAS = 3
 FLEET_SCRUB_EVERY = 4
 FLEET_ROUNDS = 2                   # timing rounds of each policy's clean run
 FLEET_PROC_ROUNDS = 1              # timed rounds of the proc fleet
-FLEET_LAYERS = 8                   # depth cut: 8 of 30 layers, full width
+FLEET_LAYERS = 4                   # depth cut: 4 of 30 layers, full width
 FLEET_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum",
               "flash_attention_fwd_lse")
 FLEET_CAMPAIGN_TRIALS = 16         # per fleet campaign configuration
@@ -5354,11 +5357,11 @@ def _item17_pipeline(mesh, gen, failed):
 
 def _item17_ft_loop(tcfg, shape, mesh, clean_losses, failed):
     """``ft_loop.run(mesh=)`` on the (1, 1) mesh: SmolLM-135M in full at
-    TRAIN_BATCH x TRAIN_SEQ for TRAIN_STEPS steps, clean and with the NaN
-    drill at TRAIN_NAN_STEP (one recovery), both losses ``==`` the
-    unsharded loop's clean run (phase 10); rows 9 and 10 as derived per
-    step executed.  Each save writes the 1.6 GB state and the losses do
-    not depend on the cadence: the clean run saves step 0 only, the drill
+    TRAIN_BATCH x TRAIN_SEQ for TRAIN_STEPS steps with the NaN drill at
+    TRAIN_NAN_STEP (one recovery), its losses ``==`` the unsharded loop's
+    clean run (phase 10): every step of the sharded loop, the replayed one
+    included, is the unsharded step bit for bit.  Rows 9 and 10 as derived
+    per step executed.  Each save writes the 1.6 GB state: the drill saves
     every ITEM17_CKPT_EVERY steps (it restores step 8)."""
     from repro_torch.runtime import ft_loop
     L = tcfg.n_layers
@@ -5374,8 +5377,7 @@ def _item17_ft_loop(tcfg, shape, mesh, clean_losses, failed):
         return None
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_item17_") as root:
-        for name, hook, every in (("clean", None, TRAIN_STEPS + 1),
-                                  ("nan", nan_hook, ITEM17_CKPT_EVERY)):
+        for name, hook, every in (("nan", nan_hook, ITEM17_CKPT_EVERY),):
             t0 = time.perf_counter()
             reps[name] = ft_loop.run(
                 tcfg, shape, ft_loop.FTConfig(
@@ -5389,16 +5391,15 @@ def _item17_ft_loop(tcfg, shape, mesh, clean_losses, failed):
     launches = {k: after[k] - before[k] for k in ITEM17_ROWS}
     want = {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * L * executed,
             "flash_attention_bwd": L * executed}
-    clean, nan = reps["clean"], reps["nan"]
-    replay = (clean.losses == clean_losses and nan.losses == clean_losses
-              and clean.recoveries == 0 and nan.recoveries == 1)
+    nan = reps["nan"]
+    replay = nan.losses == clean_losses and nan.recoveries == 1
     ok = replay and launches == want
     print(f"item17: sharded FT loop, {ARCH} in full on a (1, 1) mesh, "
           f"{TRAIN_STEPS} steps of {shape.global_batch} x {shape.seq_len}: "
-          f"clean and NaN-drill losses == the unsharded clean run's: "
+          f"NaN-drill losses == the unsharded clean run's: "
           f"{replay} ({nan.recoveries} recovery, {nan.steps_replayed} "
           f"replayed); launches {launches} = derived {want}: "
-          f"{launches == want}; {secs['clean']:.2f} / {secs['nan']:.2f} s"
+          f"{launches == want}; {secs['nan']:.2f} s"
           + ("" if ok else "  FAILED"))
     if not ok:
         failed.append("sharded FT loop")
@@ -5591,6 +5592,235 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses) -> dict:
                       ITEM17_BUDGET_S, t_phase, card)
 
 
+# slice 18: the walkthroughs of examples/ at full width
+EXAMPLES_ROOT = os.path.join(ROOT, "examples")
+EXAMPLES_DENSE = "qwen3-0.6b"      # dependable serving's model, drawn here
+EXAMPLES_BUDGET_S = 120            # the phase's share of the limit: the
+                                   # training example's two runs save the
+                                   # 1.6 GB state 8 times
+
+
+def _load_example(name):
+    """``examples/<name>_torch.py`` as a module (examples/ is no package)."""
+    import importlib.util
+    path = os.path.join(EXAMPLES_ROOT, f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quickstart_holds(out, failed):
+    """Every ``qconv_act`` / ``qlinear_act`` call of the quickstart again:
+    its operands (as the op derives them) through the fused kernel and its
+    plain version, ``torch.equal``, and the kernel's output dequantized
+    equal to what the example got.  These launches come after the counts
+    were read."""
+    from repro_torch.core import quant
+    from repro_torch.kernels.qconv2d import kernel as K
+    from repro_torch.kernels.qconv2d import ops as CO
+    from repro_torch.kernels.qconv2d import ref as R
+    from repro_torch.kernels.qmatmul import kernel as MK
+    from repro_torch.kernels.qmatmul import ref as MR
+    i32 = torch.int32
+    errs, shapes = {"qconv2d": 0, "qmatmul": 0}, {}
+    outs = {"qconv_act": [out["conv"], out["conv2"]],
+            "qlinear_act": [out["qlinear"]]}
+    for op, calls in out["calls"].items():
+        for args, got in zip(calls, outs[op]):
+            x, p, xs, xzp, os_, ozp = args
+            if op == "qlinear_act":
+                x = x.reshape(-1, x.shape[-1])
+            x_q = quant.quantize(x, xs, xzp)
+            bias = torch.round(p.bias_f / (xs * p.w_scale)).to(i32)
+            scale = quant.requant_scale(xs, p.w_scale, os_)
+            zps = torch.stack([xzp.to(i32).reshape(()),
+                               ozp.to(i32).reshape(())])
+            if op == "qconv_act":
+                name, kern, plain = "qconv2d", K.qconv2d, R.qconv2d_plain
+                x_q = CO.pad_zp(x_q, xzp, CO.resolve_pads(
+                    x.shape[1], x.shape[2], p.w_q.shape[0], p.w_q.shape[1],
+                    (1, 1), "SAME"))
+            else:
+                name, kern, plain = "qmatmul", MK.qmatmul, MR.qmatmul_plain
+            operands = (x_q, p.w_q, p.colsum, bias, scale, zps)
+            y_q = kern(*operands)
+            errs[name] = max(errs[name], _max_err(y_q, plain(*operands)))
+            shapes.setdefault(name, []).append(
+                [tuple(x_q.shape), tuple(p.w_q.shape)])
+            y = (y_q.to(torch.float32) - ozp.to(torch.float32)) * os_
+            if not torch.equal(y.reshape(got.shape), got):
+                failed.append(f"quickstart: {op} differs from its kernel's "
+                              f"output on the same operands")
+    print(f"examples: quickstart's rows 3 and 6 at {shapes}: torch.equal "
+          f"to their plain versions (max abs err {errs})")
+    return shapes
+
+
+def _campaign_quickstart_holds(out, failed):
+    bad = [r for r in out["results"]
+           if (r.policy in ("abft", "tmr") and r.sdc)
+           or (r.policy == "abft" and r.fault_model == "single_bitflip"
+               and r.detected_corrected + r.detected_uncorrected != r.trials)]
+    if bad:
+        failed.append(f"campaign quickstart verdicts: {bad}")
+    for label in ("drill", "kernel_drill"):
+        det, mis = out[label]
+        if not (det.all() and not mis.any()):
+            failed.append(f"campaign quickstart {label}: {det.sum()} of "
+                          f"{len(det)} detected, {mis.sum()} corrupted")
+
+
+def phase_examples(card: str, lm, train, ship, mm_rows) -> dict:
+    """Each example's ``run()`` at full width on the card, over what main()
+    holds: ``lm`` = (SmolLM-135M's W8A8 cfg, its params), ``train`` =
+    (the training cfg, shape, the clean losses of phase 10), ``ship`` =
+    (``network_specs(194)``, its params, the forward's frames).  Each
+    example's launch counts are reset just before it and read just after
+    it, against the counts its acts derive; its peak device memory is
+    printed.  Holds raise at the phase's end."""
+    from repro_torch.configs import registry
+    from repro_torch.models import shipdet
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    lm_cfg, lm_params = lm
+    tcfg, tshape, clean_losses = train
+    specs, ship_params, frames = ship
+    L = tcfg.n_layers
+    rows = tuple(_campaign_launches())
+    zero = dict.fromkeys(rows, 0)
+    qcfg = registry.get(EXAMPLES_DENSE)
+    qparams, q_s = _card_params(qcfg, 0)
+    print(f"examples: {EXAMPLES_DENSE} in full drawn on the card in "
+          f"{q_s:.2f} s")
+
+    def derived(name, res):
+        """The counts each example's acts launch; None for a row that must
+        launch but whose count follows the data."""
+        if name == "quickstart":      # 2 convs, 1 qlinear; ABFT act: the
+            return {**zero, "qconv2d": 2, "qmatmul": 1,  # product, its
+                    "qmatmul_acc": 2, "qmatmul_acc_checksum": 1}  # recompute
+        if name == "shipdet_pipeline":   # the forward and the layer table
+            return {**zero, "qconv2d": 2 * len(specs)}
+        if name == "campaign_quickstart":
+            return {**zero, **dict.fromkeys(
+                ("qconv2d_acc", "qconv2d_acc_checksum", "qmatmul_acc",
+                 "qmatmul_acc_checksum"), None)}
+        if name == "dependable_serving":  # qwen3: no int8 FFN, chunked
+            return dict(zero)
+        if name == "fleet_quickstart":    # the W8A8 FFN of every step
+            return {**zero, "qmatmul_acc": None}
+        if name == "recovery_quickstart":  # act 1: 2 checked products
+            return {**zero, "qmatmul_acc": None, "qmatmul_acc_checksum": 2}
+        return {**zero, "flash_attention_fwd_lse": 2 * L * res["executed"],
+                "flash_attention_bwd": L * res["executed"]}
+
+    runs = (
+        ("quickstart", {"full": True}),
+        ("shipdet_pipeline", {"full": True, "specs": specs,
+                              "params": ship_params, "frames": frames}),
+        ("campaign_quickstart", {"full": True}),
+        ("dependable_serving", {"full": True, "cfg": qcfg,
+                                "params": qparams}),
+        ("fleet_quickstart", {"full": True, "cfg": lm_cfg,
+                              "params": lm_params}),
+        ("recovery_quickstart", {"full": True, "cfg": lm_cfg,
+                                 "params": lm_params}),
+        ("train_ft_e2e", {"full": True, "cfg": tcfg, "shape": tshape,
+                          "steps": TRAIN_STEPS,
+                          "ckpt_every": TRAIN_CKPT_EVERY}),
+    )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name, kw in runs:
+            mod = _load_example(name)
+            if name == "campaign_quickstart":
+                kw["out_dir"] = os.path.join(tmp, "quickstart_torch")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            res = mod.run(DEVICE, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = _campaign_launches()
+            peak = torch.cuda.max_memory_allocated()
+            want = derived(name, res)
+            off = {k: (launches[k], v) for k, v in want.items()
+                   if (v is None and launches[k] == 0)
+                   or (v is not None and launches[k] != v)}
+            print(f"examples: {name} in {secs:.2f} s, peak device memory "
+                  f"{peak / 1e9:.3f} GB, launches "
+                  f"{ {k: v for k, v in launches.items() if v} } "
+                  f"{'as derived' if not off else f'OFF: {off}'}")
+            if off:
+                failed.append(f"{name}: launches (got, derived) {off}")
+            out[name] = {"seconds": secs, "peak_bytes": peak,
+                         "launches": launches}
+            if name == "quickstart":
+                out[name]["shapes"] = _quickstart_holds(res, failed)
+                out[name].update(conv_err=res["conv_err"],
+                                 qlinear_rel=res["qlinear_rel"])
+                rq = [r for r in mm_rows if r["kernel"] == "qmatmul"
+                      and tuple(r["shape"]) == tuple(
+                          res["calls"]["qlinear_act"][0][0].shape)
+                      + (res["qlinear"].shape[-1],)]
+                for r in rq:
+                    print(f"examples: row 6 at the quickstart's "
+                          f"{tuple(r['shape'])}: {r['ms']:.4f} ms per call "
+                          f"(CUDA events), device {r['device_ms']:.5f} ms, "
+                          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}) "
+                          f"(phase 13's timing)")
+            elif name == "shipdet_pipeline":
+                out[name].update(err_steps=res["err"] / res["step"],
+                                 forward_ms=res["forward_ms"])
+            elif name == "campaign_quickstart":
+                _campaign_quickstart_holds(res, failed)
+            elif name == "dependable_serving":
+                if res["faulty"] != res["clean"] or not res["voted"]:
+                    failed.append("dependable serving: rollback or vote")
+                out[name].update(rolled_back=res["rolled_back"],
+                                 replica_differs=res["replica_differs"])
+            elif name == "fleet_quickstart":
+                if any(res[a] != res["golden"]
+                       for a in ("kill", "abft", "dmr")) \
+                        or res["abft_recoveries"] != 1:
+                    failed.append("fleet quickstart: streams or recoveries")
+            elif name == "recovery_quickstart":
+                if not (torch.equal(res["op_ckpt"], res["op_golden"])
+                        and res["op_ckpt_recovered"] == 1
+                        and res["engine_stream"] == res["engine_golden"]
+                        and res["fleet_stream"] == res["fleet_golden"]
+                        and res["incremental_restores"] == 1):
+                    failed.append("recovery quickstart: an act did not heal")
+                out[name].update(ckpt_stats=res["ckpt_stats"],
+                                 recovery_ms=res["recovery_ms"])
+            else:
+                same = res["clean"] == clean_losses
+                print(f"examples: train_ft_e2e clean losses == phase 10's: "
+                      f"{same}; {res['recoveries']} recovery, faulty == "
+                      f"clean: {res['faulty'] == res['clean']}; strike bit "
+                      f"{res['strike_bit']}")
+                if not same or res["recoveries"] != 1 \
+                        or res["faulty"] != res["clean"]:
+                    failed.append("train_ft_e2e: losses or recovery")
+                out[name].update(recoveries=res["recoveries"],
+                                 clean_s=res["clean_s"],
+                                 faulty_s=res["faulty_s"],
+                                 executed=res["executed"])
+            del res
+    del runs, qparams                  # qwen3-0.6b's weights
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    print(f"examples: phase in {secs:.1f} s (budget {EXAMPLES_BUDGET_S} s) "
+          f"on {card}")
+    if secs > EXAMPLES_BUDGET_S:
+        failed.append(f"examples phase took {secs:.1f} s")
+    if failed:
+        raise AssertionError("examples: " + "; ".join(failed))
+    return out
+
+
 def _kernel_lines(names, source, replaces, launches, max_err, totals,
                   library):
     return [{
@@ -5690,6 +5920,10 @@ def main() -> None:
     item17 = phase_item17(card, start, tcfg, tshape,
                           train["runs"]["clean"][0]["losses"])
     del start
+    examples = phase_examples(
+        card, (cfg, lm_params),
+        (tcfg, tshape, train["runs"]["clean"][0]["losses"]),
+        (specs, params, frames), mm_rows)
 
     mm_totals, mm_library = matmul_totals(cfg, mm_rows)
     fl_totals, fl_library = flash_totals(fl_rows)
@@ -5734,7 +5968,8 @@ def main() -> None:
                        "embed": embed, "dse": dse,
                        "recurrent": recurrent, "moe": moe, "dense": dense,
                        "moe_train": moe_train, "shard": shard,
-                       "item17": item17}, f, indent=1)
+                       "item17": item17, "examples": examples}, f,
+                      indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
