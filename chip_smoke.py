@@ -157,7 +157,17 @@ Phases, each of which raises on failure:
    tokens (and 2,560 for recurrentgemma, past its 2,048 window) with the
    streams of one request at a time, a strike on the recurrent state
    healed under ``state_scrub="rollback"``, and no kernel launched; param
-   seconds, prefill ms and decode ms/step; within ``REC_BUDGET_S``.
+   seconds, prefill ms and decode ms/step; then each trained from the
+   same parameters (``_rec_train``: AdamW, remat save_dots, rows of 4,096
+   tokens) at the largest batch of at most 8 rows that the port's dry-run
+   puts under 70 GB (``RecTrainDry``: one train step on meta at a fake
+   (1, 1) mesh, in spawned children started after 2): one batch's loss
+   and gradients with remat "none" ``==`` and torch.equal to save_dots',
+   two runs of 3 steps from clones of one state with losses ``==`` and
+   final parameters torch.equal, peak device memory under 70 GB, the
+   dry-run's predicted rise within 15 % of a step's
+   ``max_memory_allocated`` rise, its peak with remat "none" printed; ms
+   per train step and tokens/s; within ``REC_BUDGET_S``.
 18. slice 14, the mixture-of-experts transformers (``phase_moe``), weights
    drawn on the card, W8A8 FFN and experts, bf16, flash prefill:
    mixtral-8x7b at full width with 4 of its 32 layers, an ``Engine`` of
@@ -278,6 +288,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -2199,9 +2210,10 @@ def phase_train(tcfg, shape):
     a clean run of 12 steps (checkpoint every 4; the loss falls; the
     examples phase's training example is a second clean run and an SEU
     drill with one recovery, each held ``==`` to it there, and the item17
-    phase's sharded loop recovers from a NaN at step 9 onto it), a run
-    stopped at 8 and resumed to 12 (bit-identical to the clean run's steps
-    8-11) and an inject_into_pytree drill (finishes with finite losses).
+    phase's sharded loop recovers from a NaN at step 9 onto it), the clean
+    run's directory cut back to its checkpoint at step 8 (a run stopped
+    there) and resumed to 12 (bit-identical to the clean run's steps 8-11)
+    and an inject_into_pytree drill (finishes with finite losses).
     fwd_lse launches = 2 × n_layers and bwd launches = n_layers per step
     executed: the forward runs once per block and again in its
     recompute."""
@@ -2234,12 +2246,17 @@ def phase_train(tcfg, shape):
             return rep
 
         clean = go("clean", TRAIN_STEPS)
-        shutil.rmtree(os.path.join(root, "clean"))
-
-        fired = {"drill": False}
-        first = go("resume", TRAIN_RESUME_AT)
+        # the clean run's checkpoints past TRAIN_RESUME_AT go: what stays
+        # is a run stopped there, which resumes to TRAIN_STEPS
+        for d in os.listdir(os.path.join(root, "clean")):
+            if d.startswith("step_") and \
+                    int(d.split("_")[1].split(".")[0]) > TRAIN_RESUME_AT:
+                shutil.rmtree(os.path.join(root, "clean", d))
+        os.rename(os.path.join(root, "clean"), os.path.join(root, "resume"))
         resumed = go("resume", TRAIN_STEPS)
         shutil.rmtree(os.path.join(root, "resume"))
+
+        fired = {"drill": False}
 
         def drill_hook(step, state):
             if step == 6 and not fired["drill"]:
@@ -2262,8 +2279,7 @@ def phase_train(tcfg, shape):
         raise AssertionError(f"clean run: {losses}")
     if not np.mean(losses[-4:]) < np.mean(losses[:4]):
         raise AssertionError(f"the loss did not fall: {losses}")
-    if len(first.losses) != TRAIN_RESUME_AT \
-            or resumed.losses != losses[TRAIN_RESUME_AT:]:
+    if resumed.losses != losses[TRAIN_RESUME_AT:]:
         raise AssertionError(f"resume: {resumed.losses} against "
                              f"{losses[TRAIN_RESUME_AT:]}")
     if len(drill.losses) != 10 or not np.all(np.isfinite(drill.losses)):
@@ -3526,11 +3542,7 @@ def _embed_model(name, cfg, depth, gen, failed):
     from repro_torch.kernels.flashattn import kernel as FK
     from repro_torch.kernels.flashattn import ref as FR
     from repro_torch.models import api
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, torch.Generator().manual_seed(0),
-                             device=DEVICE)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    params, init_s = _card_params(cfg, 0)
     s = EMBED_MUSICGEN_S if name == "musicgen-large" else EMBED_LLAVA_S
     embeds = torch.randn((1, s, cfg.d_model), generator=gen,
                          device=DEVICE)
@@ -3905,7 +3917,107 @@ REC_CHECK_STEPS = 16
 REC_TOL = 1e-4                     # f32 logits the engine samples from
                                    # (prefill's last, each decode step):
                                    # max |err| / max |logit|
-REC_BUDGET_S = 60                  # the phase's share of the limit
+REC_TRAIN_SEQ = 4096               # train_4k's rows, past the 2,048 window
+REC_TRAIN_MAX_ROWS = 8             # the largest batch tried
+REC_TRAIN_CHECK_ROWS = 1           # remat "none" against save_dots: one
+REC_TRAIN_CHECK_SEQ = 1024         # row of 1,024 tokens, where none fits
+REC_DRY_WAIT_S = 300               # the longest wait for the dry-run
+REC_BUDGET_S = 300                 # the phase's share of the limit
+
+
+def _rec_train_cfgs():
+    """The trained recurrent models: rwkv6-1.6b in full, recurrentgemma-2b
+    at REC_GRIFFIN_LAYERS of its layers, each with its registry optimizer
+    (AdamW) and remat (save_dots)."""
+    from repro_torch.configs import registry
+    return {"rwkv6-1.6b": registry.get("rwkv6-1.6b"),
+            "recurrentgemma-2b": dataclasses.replace(
+                registry.get("recurrentgemma-2b"),
+                n_layers=REC_GRIFFIN_LAYERS)}
+
+
+class RecTrainDry:
+    """The batch of each trained recurrent model, chosen by the port's own
+    dry-run (``launch.dryrun.run_cells``: one train step on meta at a fake
+    (1, 1) mesh, in spawned children, so that its fake process group never
+    meets this process's and the card's phases run meanwhile): the largest
+    batch of at most REC_TRAIN_MAX_ROWS rows of REC_TRAIN_SEQ tokens whose
+    predicted peak is under MOE_PEAK_BYTES.  A thread per model runs the
+    step at half the most rows and at the most (with remat "none" there
+    too), then, until the batch under the limit and the one above it have
+    both been run, the batch that the two nearest runs on either side point
+    to (bytes per row between them) and the one after it; then the step at
+    the batch found with remat "none" if not yet run.  Every record is
+    kept."""
+
+    def __init__(self):
+        import threading
+        # three children: rwkv6's first round is three steps of ~155 s
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=__import__("multiprocessing").get_context("spawn"))
+        self.out = {}
+        self.threads = [threading.Thread(target=self._search, args=(n, c),
+                                         daemon=True)
+                        for n, c in _rec_train_cfgs().items()]
+        for t in self.threads:
+            t.start()
+
+    def _cells(self, cfg, rows, remat=None):
+        from repro_torch.launch import dryrun
+        from repro_torch.models.config import ShapeConfig
+        c = cfg if remat is None else dataclasses.replace(cfg, remat=remat)
+        shape = ShapeConfig(f"train_{rows}x{REC_TRAIN_SEQ}", REC_TRAIN_SEQ,
+                            rows, "train")
+        return self.pool.submit(dryrun.run_cells, [(c, shape, (1, 1))])
+
+    def _search(self, name, cfg):
+        try:
+            peak = lambda rec: rec["memory_analysis"]["peak_bytes"]   # noqa
+            t0 = time.perf_counter()
+            most = REC_TRAIN_MAX_ROWS
+            none = {most: self._cells(cfg, most, "none")}
+            todo = {most // 2, most}
+            recs = {}
+            while todo:
+                runs = {r: self._cells(cfg, r) for r in sorted(todo)}
+                recs.update({r: f.result()[0] for r, f in runs.items()})
+                fit = [r for r in recs if peak(recs[r]) < MOE_PEAK_BYTES]
+                lo = max(fit, default=0)
+                over = [r for r in recs if r > lo]
+                if lo == most or min(over) == lo + 1:
+                    break
+                hi = min(over)
+                g = (lo + hi) // 2 if lo == 0 else lo + int(
+                    (MOE_PEAK_BYTES - peak(recs[lo])) * (hi - lo)
+                    // (peak(recs[hi]) - peak(recs[lo])))
+                g = min(max(g, lo + 1), hi - 1)
+                todo = {g, g + 1} - {hi}
+            if lo == 0:
+                raise AssertionError(
+                    f"one row is over the limit: {peak(recs[min(recs)])}")
+            if lo not in none:
+                none[lo] = self._cells(cfg, lo, "none")
+            self.out[name] = {"rows": lo, "records": recs,
+                              "none": none[lo].result()[0],
+                              "seconds": time.perf_counter() - t0}
+        except Exception as e:              # read by ``result``
+            self.out[name] = e
+
+    def result(self, name, timeout):
+        """The search's record for ``name``, waiting at most ``timeout``
+        seconds; raises what the search raised."""
+        for t in self.threads:
+            t.join(timeout)
+        res = self.out.get(name)
+        if res is None:
+            raise AssertionError(f"the dry-run of {name} did not end in "
+                                 f"time")
+        if isinstance(res, Exception):
+            raise res
+        return res
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
 
 
 def _rec_serve(cfg, params, prompts, max_len, one_at_a_time=False,
@@ -3932,14 +4044,14 @@ def _rec_serve(cfg, params, prompts, max_len, one_at_a_time=False,
     return [tuple(r.output) for r in reqs], eng, time.perf_counter() - t0
 
 
-def _rec_model(name, cfg, depth, gen, failed):
-    """One recurrent family on the card: the sampled logits of prefill +
-    decode against forward in f32 and a bf16 control, the bf16 Engine
-    against one-request-at-a-time serving, a state strike healed under
-    rollback, no kernel launched; times."""
+def _rec_model(name, cfg, depth, params, init_s, gen, failed):
+    """One recurrent family on the card, on ``params`` (drawn on the card
+    in ``init_s`` seconds): the sampled logits of prefill + decode against
+    forward in f32 and a bf16 control, the bf16 Engine against
+    one-request-at-a-time serving, a state strike healed under rollback,
+    no kernel launched; times."""
     from repro_torch.core import fault_injection as fi
     from repro_torch.models import api
-    params, init_s = _card_params(cfg, 0)
     # 1. the logits the engine samples from, prefill's last and each decode
     # step's, against forward over the whole sequence, normwise: f32 (TF32
     # off) within REC_TOL; a bf16 control must miss it.  Earlier prefill
@@ -4039,15 +4151,118 @@ def _rec_model(name, cfg, depth, gen, failed):
             "serve_s": serve_s, "steps": steps}
 
 
-def phase_recurrent(card: str) -> dict:
+def _rec_train(name, cfg, host, dry, failed):
+    """``cfg`` trained on the card from ``host`` (the serving checks'
+    parameters, kept on the host) on rows of REC_TRAIN_SEQ tokens, with
+    its own optimizer and remat, at the batch ``dry`` (``RecTrainDry``'s
+    record) chose: first the loss and every gradient of one batch of
+    REC_TRAIN_CHECK_ROWS x REC_TRAIN_CHECK_SEQ tokens (where remat "none"
+    fits) with remat "none" and with the config's, ``==`` and
+    torch.equal; then ``_train_twice`` on TRAIN_RUN_STEPS
+    batches: losses ``==`` and finite, final parameters torch.equal, the
+    peak device memory under MOE_PEAK_BYTES, the dry-run's predicted rise
+    within ITEM17_PEAK_RTOL of the largest ``max_memory_allocated`` rise
+    of a step; ms per step, tokens/s."""
+    from repro_torch import tree
+    from repro_torch.models import api
+    rows = dry["rows"]
+    rec, none = dry["records"][rows], dry["none"]
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check = _train_batches(cfg, REC_TRAIN_CHECK_SEQ, REC_TRAIN_CHECK_ROWS)[0]
+    params = tree.map(lambda t: t.to(DEVICE, copy=True), host)
+    got = {}
+    for remat in ("none", cfg.remat):
+        c = dataclasses.replace(cfg, remat=remat)
+        live = tree.map(lambda t: t.detach().requires_grad_(), params)
+        # the loss alone: its metrics would hold the graph, and the graph
+        # every leaf it reached, past this function's end
+        loss = api.loss_fn(c, live, check)[0]
+        got[remat] = (loss.detach(), torch.autograd.grad(
+            loss, tree.leaves(live)))
+        del live, loss
+    (l0, g0), (l1, g1) = got["none"], got[cfg.remat]
+    differ = [tree.path_str(p) for (p, _), a, b in zip(
+        tree.leaves_with_paths(params), g0, g1) if not torch.equal(a, b)]
+    remat_equal = bool(torch.equal(l0, l1)) and not differ
+    peak = torch.cuda.max_memory_allocated()
+    del got, g0, g1, params, check
+    torch.cuda.empty_cache()
+    check_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = _train_batches(cfg, REC_TRAIN_SEQ, rows)
+    rises = []
+    runs, same, _ = _train_twice(cfg, host, batches, rises)
+    del batches
+    replay_s = time.perf_counter() - t0
+    a, b = (r["losses"] for r in runs)
+    replay = a == b
+    finite = all(math.isfinite(x) for x in a + b)
+    peak = max([peak] + [p for _, p in rises])
+    card_rise = max(p - b0 for b0, p in rises)
+    predicted = rec["memory_analysis"]["peak_live_bytes"]
+    ratio = predicted / card_rise if card_rise else math.inf
+    none_peak = none["memory_analysis"]["peak_bytes"]
+    launched = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    tokens = rows * REC_TRAIN_SEQ
+    ms = [r["ms_per_step"] for r in runs]
+    ok = (remat_equal and replay and same and finite
+          and peak < MOE_PEAK_BYTES
+          and abs(ratio - 1) <= ITEM17_PEAK_RTOL)
+    print(f"recurrent: {name} training ({cfg.n_layers} layers, "
+          f"{cfg.optimizer}, remat {cfg.remat}, {cfg.param_dtype} params, "
+          f"{cfg.compute_dtype} compute), rows of {REC_TRAIN_SEQ} tokens: "
+          f"the dry-run's batch {rows} rows (predicted peak "
+          f"{rec['memory_analysis']['peak_bytes'] / 1e9:.3f} GB; with remat "
+          f"none "
+          f"{none_peak / 1e9:.3f} GB; dry-runs "
+          f"{ {r: round(v['memory_analysis']['peak_bytes'] / 1e9, 3) for r, v in sorted(dry['records'].items())} } "
+          f"GB in {dry['seconds']:.1f} s in the children); remat none "
+          f"against {cfg.remat} at {REC_TRAIN_CHECK_ROWS} x "
+          f"{REC_TRAIN_CHECK_SEQ} ({check_s:.1f} s): loss "
+          f"{float(l0):.6f} == {float(l1):.6f}, gradients torch.equal: "
+          f"{remat_equal}{f' (differ: {differ})' if differ else ''}; "
+          f"two runs of {len(a)} steps from clones of one state "
+          f"({replay_s:.1f} s): losses "
+          f"{[f'{x:.6f}' for x in a]} == {[f'{x:.6f}' for x in b]}: "
+          f"{replay}, finite: {finite}; final parameters equal: {same}; "
+          f"{ms[0]:.1f} / {ms[1]:.1f} ms/step, "
+          f"{tokens / ms[1] * 1e3:.0f} tokens/s; peak device memory "
+          f"{peak / 1e9:.3f} GB ({resident / 1e9:.3f} GB held before); "
+          f"predicted rise {predicted / 1e9:.3f} GB against the card's "
+          f"{card_rise / 1e9:.3f} GB (ratio {ratio:.4f}, limit 1 ± "
+          f"{ITEM17_PEAK_RTOL}); launches {launched}"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append(f"{name} training")
+    return {"rows": rows, "seq": REC_TRAIN_SEQ, "runs": runs,
+            "remat_equal": remat_equal, "losses_equal": replay,
+            "params_equal": same, "finite": finite, "peak_bytes": peak,
+            "resident_bytes": resident, "card_rise_bytes": card_rise,
+            "predicted_rise_bytes": predicted, "rise_ratio": ratio,
+            "predicted_peak_bytes": rec["memory_analysis"]["peak_bytes"],
+            "predicted_none_peak_bytes": none_peak,
+            "dry_peaks": {r: v["memory_analysis"]["peak_bytes"]
+                          for r, v in dry["records"].items()},
+            "dry_seconds": dry["seconds"], "ms_per_step": ms,
+            "check_s": check_s, "replay_s": replay_s,
+            "tokens_per_s": tokens / ms[1] * 1e3}
+
+
+def phase_recurrent(card: str, dry: RecTrainDry) -> dict:
     """Slice 13: the recurrent families at full width on the card, weights
     drawn on the card (slice 15; every check compares the port with itself,
     so none depends on which values were drawn): rwkv6-1.6b in full (24
     layers) and recurrentgemma-2b with its depth cut to 8 of 26 layers (two
     2:1 super-blocks and the two-block recurrent tail), each through
-    ``_rec_model``.  No hand kernel serves them (the
+    ``_rec_model``, then trained from the same parameters (slice 19,
+    ``_rec_train``) at the batch ``dry`` (a ``RecTrainDry``, started
+    early by the caller) picks.  No hand kernel serves or trains them (the
     reference runs them as plain jnp): the phase checks that none of rows
     1-10 launched."""
+    from repro_torch import tree
     from repro_torch.configs import registry
     t_phase = time.perf_counter()
     failed, out = [], {"card": card}
@@ -4060,10 +4275,24 @@ def phase_recurrent(card: str) -> dict:
             registry.get("recurrentgemma-2b"), n_layers=REC_GRIFFIN_LAYERS),
             f"depth cut to {REC_GRIFFIN_LAYERS} of {full} layers"),
     }
+    trained = _rec_train_cfgs()
+    gc.collect()                   # engines of earlier phases hold cycles
+    torch.cuda.empty_cache()
     for name, (cfg, depth) in models.items():
-        out[name] = _rec_model(name, cfg, depth, gen, failed)
+        params, init_s = _card_params(cfg, 0)
+        out[name] = _rec_model(name, cfg, depth, params, init_s, gen, failed)
         out[name]["depth"] = depth
+        host = tree.map(lambda t: t.to("cpu", copy=True), params)
+        del params
+        gc.collect()               # the serving checks' engines hold cycles
         torch.cuda.empty_cache()
+        if trained[name] != cfg:
+            failed.append(f"{name}: the dry-run's config is not the card's")
+        out[name]["train"] = _rec_train(
+            name, cfg, host, dry.result(name, REC_DRY_WAIT_S), failed)
+        del host
+        torch.cuda.empty_cache()
+    dry.close()
     launches = _campaign_launches()
     none = not any(launches.values())
     print(f"recurrent: rows 1-10 launched on this path: "
@@ -4589,11 +4818,12 @@ def _dense_model(name, cfg, depth, gen, failed):
             "row4_per_call": _row4_per_call(cfg)}
 
 
-def _train_batches(cfg, seq):
-    """TRAIN_RUN_STEPS seeded batches of 1 x ``seq`` tokens, on the card."""
+def _train_batches(cfg, seq, rows=1):
+    """TRAIN_RUN_STEPS seeded batches of ``rows`` x ``seq`` tokens, on the
+    card."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models.config import ShapeConfig
-    stream = TokenStream(cfg, ShapeConfig("train", seq, 1, "train"))
+    stream = TokenStream(cfg, ShapeConfig("train", seq, rows, "train"))
     return [{k: torch.from_numpy(v).to(DEVICE)
              for k, v in stream.batch_at(i).items()}
             for i in range(TRAIN_RUN_STEPS)]
@@ -4673,7 +4903,7 @@ def _adafactor_first_update(cfg, seq):
     return run
 
 
-def _train_twice(cfg, host_params, batches):
+def _train_twice(cfg, host_params, batches, rises=None):
     """Two runs of train steps (``make_train_step``, which writes the
     state in place; the config's own optimizer), each from a clone of one
     state: the parameters drawn on the card and kept on the host, so that
@@ -4682,7 +4912,10 @@ def _train_twice(cfg, host_params, batches):
     starts.
     Returns per run the losses (read back each step, as the FT loop reads
     them), the seconds and the launches, and whether the two runs' final
-    parameters are torch.equal (the first run's kept on the host)."""
+    parameters are torch.equal (the first run's kept on the host).  A list
+    ``rises`` receives each step's (bytes allocated before it, its
+    ``max_memory_allocated``), the peak statistics reset before each
+    step."""
     from repro_torch import tree
     from repro_torch.train import optim, steps
     opt = optim.make_optimizer(cfg.optimizer)
@@ -4698,8 +4931,13 @@ def _train_twice(cfg, host_params, batches):
         t0 = time.perf_counter()
         losses = []
         for b in batches:
+            if rises is not None:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
             state, metrics = step(state, b)
             losses.append(float(metrics["loss"]))
+            if rises is not None:
+                rises.append((base, torch.cuda.max_memory_allocated()))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         after = _campaign_launches()
@@ -5850,6 +6088,9 @@ def main() -> None:
     from repro_torch.kernels.qmatmul import kernel as MK
     from repro_torch.models import shipdet
     build_s = phase_build([K.build, MK.build, FK.build, FK.build_bwd])
+    # the recurrent training's batch search runs on meta in spawned
+    # children beside the phases before phase 17
+    rec_dry = RecTrainDry()
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -5905,13 +6146,14 @@ def main() -> None:
                                                    fl_calls)
     profile["train_step"] = phase_profile_train(train_run, bwd_rows,
                                                 bwd_calls)
+    del train_run, engines         # their states leave the card
     # slices 11 and 12 last: no timing or profile above runs after their
     # engines
     dependable = phase_dependable(cfg, lm_params, prompts, card)
     fleet = phase_fleet(cfg, lm_params, card)
     embed = phase_embed(card)
     dse = phase_dse(cfg, lm_params, card)
-    recurrent = phase_recurrent(card)
+    recurrent = phase_recurrent(card, rec_dry)
     moe = phase_moe(card)
     dense = phase_dense(card)
     start = {}

@@ -15,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
@@ -72,6 +73,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 NEG_INF = -1e30
 
 
+def remat_wanted(cfg, leaves) -> bool:
+    """Recompute blocks in the backward: ``cfg.remat`` asks for it and a
+    gradient will flow into one of ``leaves`` (the blocks' weights)."""
+    return (cfg.remat != "none" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in leaves))
+
+
+def recompute(fn, *args):
+    """``fn(*args)`` under a non-reentrant ``torch.utils.checkpoint``: the
+    backward recomputes what ``fn`` saved, and only its inputs are kept
+    (checkpoints nest).  The bodies it wraps draw no random numbers, so no
+    RNG state is stashed."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def _q_chunk_sweep(q_i, kc, vc, qi: int, chunk: int, scale: float,
+                   window: Optional[int], cdt: torch.dtype):
+    """One query chunk's online softmax over its key chunks 0..qi: (B,
+    chunk, KV, G, hd) in q_i's dtype (f32, or f64 for the witness), the
+    probabilities rounded to the compute dtype ``cdt`` before P·V."""
+    B, _, KV, G, hd = q_i.shape
+    dt = q_i.dtype
+    idx = torch.arange(chunk, device=q_i.device)
+    m = torch.full((B, chunk, KV, G), NEG_INF, dtype=dt, device=q_i.device)
+    l_sum = torch.zeros((B, chunk, KV, G), dtype=dt, device=q_i.device)
+    acc = torch.zeros((B, chunk, KV, G, hd), dtype=dt, device=q_i.device)
+    for kj in range(qi + 1):
+        s = torch.einsum("bqkgh,bckh->bqkgc", q_i, kc[:, kj]) * scale
+        q_pos = qi * chunk + idx
+        k_pos = kj * chunk + idx
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + p.sum(dim=-1)
+        # p rounded to the compute dtype, as the reference casts it
+        p = p.to(cdt).to(dt)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqkgc,bckh->bqkgh", p, vc[:, kj])
+        m = m_new
+    return acc / torch.clamp(l_sum[..., None], min=1e-30)
+
+
 def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, window: Optional[int] = None,
                              chunk: int = 512) -> torch.Tensor:
@@ -80,7 +128,11 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     q (B, S, H, hd), k/v (B, S, KV, hd).  The reference's algorithm chunk
     by chunk, so the (S, S) score matrix is never materialized; KV chunks
     wholly above the diagonal are skipped (in the reference they add an
-    exact zero).
+    exact zero).  When a gradient flows, each query chunk's sweep runs
+    under a checkpoint (``recompute``), as the reference wraps it in
+    ``jax.checkpoint(policy=nothing_saveable)``: the backward recomputes
+    the chunk's scores and probabilities, so training keeps O(S · chunk)
+    per head instead of every score chunk.
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
@@ -96,31 +148,13 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     qc = q.reshape(B, n, chunk, KV, G, hd).to(dt)
     kc = k.reshape(B, n, chunk, KV, hd).to(dt)
     vc = v.reshape(B, n, chunk, KV, hd).to(dt)
-    idx = torch.arange(chunk, device=q.device)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for qi in range(n):
-        q_i = qc[:, qi]
-        m = torch.full((B, chunk, KV, G), NEG_INF, dtype=dt, device=q.device)
-        l_sum = torch.zeros((B, chunk, KV, G), dtype=dt, device=q.device)
-        acc = torch.zeros((B, chunk, KV, G, hd), dtype=dt, device=q.device)
-        for kj in range(qi + 1):
-            s = torch.einsum("bqkgh,bckh->bqkgc", q_i, kc[:, kj]) * scale
-            q_pos = qi * chunk + idx
-            k_pos = kj * chunk + idx
-            mask = q_pos[:, None] >= k_pos[None, :]
-            if window is not None:
-                mask &= q_pos[:, None] - k_pos[None, :] < window
-            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l_sum = l_sum * alpha + p.sum(dim=-1)
-            # p rounded to the compute dtype, as the reference casts it
-            p = p.to(q.dtype).to(dt)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bqkgc,bckh->bqkgh", p, vc[:, kj])
-            m = m_new
-        out = acc / torch.clamp(l_sum[..., None], min=1e-30)
+        args = (qc[:, qi], kc, vc, qi, chunk, scale, window, q.dtype)
+        out = recompute(_q_chunk_sweep, *args) if grad \
+            else _q_chunk_sweep(*args)
         outs.append(out.to(q.dtype))
     out = torch.stack(outs, dim=1).reshape(B, n * chunk, H, hd)
     return out[:, :S]

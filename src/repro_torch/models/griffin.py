@@ -10,6 +10,16 @@ attention layer) and the same arithmetic.
 RG-LRU:  a_t = exp(-c · softplus(Λ) · σ(W_a x_t)),  c = 8
          h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
 
+Remat: with ``cfg.remat`` other than "none" and a gradient to take,
+``forward`` runs each (rec, rec, attn) super-block (its casts and, under a
+``ShardCtx``, its weight gathers included) under a non-reentrant
+checkpoint, where the reference wraps ``super_body`` in
+``jax.checkpoint``; the tail's rec layers run plain, as the reference's
+``tail_body`` does.  The backward recomputes the super-block, the
+⌈log₂ T⌉ levels of ``rglru_parallel`` and the local attention included,
+and the gathers run again.  ``save_dots`` recomputes the whole body, as
+``full`` does.  Training runs on the card (``chip_smoke.py``).
+
 Differences from the reference:
 
 * ``rglru_parallel`` is a log-depth (Hillis–Steele) scan: ⌈log₂ T⌉
@@ -42,8 +52,8 @@ from repro_torch import resolve_device
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.shard import cross_entropy, sharded
-from repro_torch.models.transformer import (ForwardOut, _cast_layers,
-                                            _cdt, _inputs, _logits, _pdt)
+from repro_torch.models.transformer import (ForwardOut, _cdt, _inputs,
+                                            _layers, _logits, _pdt)
 
 RGLRU_C = 8.0
 
@@ -252,37 +262,65 @@ def _attn_decode(cfg, bp, x, kc, vc, pos):
 # ---------------------------------------------------------------------------
 
 
+def _super_blocks(cfg, params):
+    """The reference's scan order over stored weights: the (rec, rec,
+    attn) super-blocks, each a list of (kind, block), and the tail's rec
+    blocks."""
+    n_super, tail, _ = _counts(cfg)
+    rec = _layers(params["rec_blocks"]) if n_super else []
+    attn = _layers(params["attn_blocks"]) if n_super else []
+    supers = [[("rec", rec[2 * s]), ("rec", rec[2 * s + 1]),
+               ("attn", attn[s])] for s in range(n_super)]
+    tail_rec = [("rec", bp) for bp in _layers(params["tail_rec"])] \
+        if tail else []
+    return supers, tail_rec
+
+
 def _schedule(cfg, params):
     """The layers in execution order: ("rec", i, block) for the i-th
     recurrent layer (cache row i), ("attn", j, block) for the j-th
-    attention layer, as the reference's super-blocks and tail run them."""
-    n_super, tail, _ = _counts(cfg)
-    rec = _cast_layers(cfg, params["rec_blocks"]) if n_super else []
-    attn = _cast_layers(cfg, params["attn_blocks"]) if n_super else []
-    out = []
-    for s in range(n_super):
-        out += [("rec", 2 * s, rec[2 * s]), ("rec", 2 * s + 1, rec[2 * s + 1]),
-                ("attn", s, attn[s])]
-    if tail:
-        out += [("rec", 2 * n_super + i, bp)
-                for i, bp in enumerate(_cast_layers(cfg, params["tail_rec"]))]
+    attention layer, each block cast to the compute dtype."""
+    supers, tail_rec = _super_blocks(cfg, params)
+    out, seen = [], {"rec": 0, "attn": 0}
+    for kind, bp in sum(supers, []) + tail_rec:
+        out.append((kind, seen[kind],
+                    {k: t.to(_cdt(cfg)) for k, t in bp.items()}))
+        seen[kind] += 1
     return out
+
+
+def _run(cfg, layers, x, positions, sh=None):
+    """``layers``, a list of (kind, block of stored weights), over the
+    whole sequence: each block cast to the compute dtype and (under
+    ``sh``) gathered whole just before it runs."""
+    for kind, bp in layers:
+        bp = {k: t.to(_cdt(cfg)) for k, t in bp.items()}
+        bp = bp if sh is None else sh.layer(bp)
+        if kind == "rec":
+            x, _ = _rec_block(cfg, bp, x)
+        else:
+            x, _, _ = _attn_full(cfg, bp, x, positions)
+    return x
 
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
     """Under ``ctx`` the tokens, the logits and ``params`` are this rank's;
     each layer's weights are gathered whole just before it runs (no
-    tensor parallelism inside the recurrence)."""
+    tensor parallelism inside the recurrence).  With ``cfg.remat`` and a
+    gradient to take, each (rec, rec, attn) super-block runs under
+    ``common.recompute``; the tail's rec layers do not, as in the
+    reference."""
     sh = sharded(cfg, ctx)
     x = _inputs(cfg, params, tokens, embeds, sh)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for kind, _, bp in _schedule(cfg, params):
-        bp = bp if sh is None else sh.layer(bp)
-        if kind == "rec":
-            x, _ = _rec_block(cfg, bp, x)
-        else:
-            x, _, _ = _attn_full(cfg, bp, x, positions)
+    supers, tail_rec = _super_blocks(cfg, params)
+    remat = common.remat_wanted(cfg, [*params["rec_blocks"].values(),
+                                      *params["attn_blocks"].values()])
+    for layers in supers:
+        x = common.recompute(_run, cfg, layers, x, positions, sh) if remat \
+            else _run(cfg, layers, x, positions, sh)
+    x = _run(cfg, tail_rec, x, positions, sh)
     logits = _logits(cfg, params, x, sh)
     z = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, z, z)

@@ -19,11 +19,21 @@ Two implementations, as in the reference:
                       so each chunk is dense matmul work; chunks are chained
                       by carrying S.
 
+Remat: with ``cfg.remat`` other than "none" and a gradient to take,
+``forward`` runs each layer (its cast to the compute dtype and, under a
+``ShardCtx``, its weight gather included) under a non-reentrant
+checkpoint, where the reference wraps the layer body in ``jax.checkpoint``.
+The backward then recomputes the layer, the chunked WKV's C×C score
+tensors included, and the forward keeps each layer's input only; the
+gather runs again in the backward, as the reference's remat under FSDP
+gathers again.  ``save_dots`` recomputes the whole body, as ``full`` does
+(the reference's policy keeps the matmul outputs).  Training runs on the
+card (``train.steps.make_train_step``, ``chip_smoke.py``).
+
 Differences from the reference: the ``lax.scan`` over layers (and over
 chunks and tokens) is a Python loop, and ``decode_step`` writes the new
 state into ``cache`` in place, as the port's transformer writes its KV
-cache.  Training on the card is not ported; ``loss_fn`` is autograd-ready
-for the CPU tests.
+cache.
 """
 from __future__ import annotations
 
@@ -37,7 +47,8 @@ from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.shard import cross_entropy, sharded
 from repro_torch.models.transformer import (ForwardOut, _cast_layers,
-                                            _cdt, _inputs, _logits, _pdt)
+                                            _cdt, _inputs, _layers, _logits,
+                                            _pdt)
 
 LORA_R = 16          # ddlerp low-rank dim
 DECAY_LORA_R = 32
@@ -231,17 +242,30 @@ def _channel_mix(cfg, bp, x, state=None):
 # ---------------------------------------------------------------------------
 
 
+def _layer(cfg, bp, x, sh=None):
+    """One layer over the whole sequence, from its stored weights: cast to
+    the compute dtype and (under ``sh``) gathered whole, then time-mix and
+    channel-mix."""
+    bp = {k: t.to(_cdt(cfg)) for k, t in bp.items()}
+    bp = bp if sh is None else sh.layer(bp)
+    x, _ = _time_mix(cfg, bp, x, use_chunked=True)
+    x, _ = _channel_mix(cfg, bp, x)
+    return x
+
+
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None) -> ForwardOut:
     """Under ``ctx`` the tokens, the logits and ``params`` are this rank's;
     each layer's weights are gathered whole just before it runs (no
-    tensor parallelism inside the recurrence)."""
+    tensor parallelism inside the recurrence).  With ``cfg.remat`` and a
+    gradient to take, each layer (its cast and gather included) runs under
+    ``common.recompute``."""
     sh = sharded(cfg, ctx)
     x = _inputs(cfg, params, tokens, embeds, sh)
-    for bp in _cast_layers(cfg, params["blocks"]):
-        bp = bp if sh is None else sh.layer(bp)
-        x, _ = _time_mix(cfg, bp, x, use_chunked=True)
-        x, _ = _channel_mix(cfg, bp, x)
+    remat = common.remat_wanted(cfg, params["blocks"].values())
+    for bp in _layers(params["blocks"]):
+        x = common.recompute(_layer, cfg, bp, x, sh) if remat \
+            else _layer(cfg, bp, x, sh)
     logits = _logits(cfg, params, x, sh)
     z = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, z, z)

@@ -19,8 +19,10 @@ same arithmetic.  Differences:
   layer instead of twice.
 
 * ``cfg.remat`` ("save_dots" or "full") wraps each block of a training
-  ``forward`` in ``torch.utils.checkpoint`` (non-reentrant), which keeps
-  the block's input and recomputes the whole block in the backward.  The
+  ``forward`` in ``common.recompute`` (a non-reentrant
+  ``torch.utils.checkpoint``), which keeps the block's input and
+  recomputes the whole block in the backward; chunked attention's own
+  per-query-chunk checkpoints nest inside it.  The
   reference's "save_dots" keeps the matmul outputs; the port recomputes
   them too: a memory choice that changes no value, and no selective
   policy sees the ctypes kernel launches, which the dispatcher cannot.
@@ -109,7 +111,6 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.flashattn.ops import flash_attn_model
@@ -654,8 +655,8 @@ def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, (bp, moe) in enumerate(_blocks(params)):
         if remat:
-            x, a, z = torch.utils.checkpoint.checkpoint(
-                _block, cfg, bp, x, positions, moe, sh, use_reentrant=False)
+            x, a, z = common.recompute(_block, cfg, bp, x, positions, moe,
+                                       sh)
         else:
             x, k, v = _attention(cfg, bp, x, positions, sh)
             if keep_kv is not None:
@@ -668,9 +669,9 @@ def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
 
 def _remat(cfg: ArchConfig, params) -> bool:
     """Recompute blocks when ``cfg.remat`` asks and a gradient will flow."""
-    return (cfg.remat != "none" and torch.is_grad_enabled()
-            and any(t.requires_grad for blk in ("dense_blocks", "moe_blocks")
-                    for t in (params.get(blk) or {}).values()))
+    return common.remat_wanted(cfg, [
+        t for blk in ("dense_blocks", "moe_blocks")
+        for t in (params.get(blk) or {}).values()])
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,

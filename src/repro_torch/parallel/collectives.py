@@ -31,6 +31,7 @@ each kind from the code's rules and holds the run to it, and
 from __future__ import annotations
 
 import collections
+import time
 
 import torch
 import torch.distributed as dist
@@ -67,6 +68,56 @@ def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+SETTLE_S = 10.0            # the longest _settle waits for gloo's worker
+
+
+def _uses(t: torch.Tensor) -> int:
+    return torch._C._storage_Use_Count(t.untyped_storage()._cdata)
+
+
+def _issue(fn, *tensors, **kw) -> None:
+    """``fn(*tensors, **kw)``, one collective, given views of ``tensors``
+    of its own; on the host (gloo) it returns only once the process
+    group has let go of them.  Gloo's worker thread keeps a finished work
+    item, and the operands in it, until it takes up the next one, a moment
+    after ``wait`` has returned: an operand the caller drops at once would
+    be freed whenever that thread gets to run, and a step's tracked peak
+    (``launch.op_analysis``) would hang on the thread's scheduling."""
+    if tensors[0].device.type != "cpu":
+        fn(*tensors, **kw)
+        return
+    uses = [_uses(t) for t in tensors]
+    fn(*[t.view(t.shape) for t in tensors], **kw)
+    _settle(tensors, uses)
+
+
+def _p2p(sends, recvs, group) -> None:
+    """Each (tensor, global rank) of ``sends`` sent and of ``recvs``
+    received, as one batch of point-to-point ops; on the host it returns
+    once gloo has let go of the tensors, as ``_issue`` does."""
+    tensors = [t for t, _ in sends + recvs]
+    cpu = tensors[0].device.type == "cpu"
+    uses = [_uses(t) for t in tensors] if cpu else None
+    own = (lambda t: t.view(t.shape)) if cpu else (lambda t: t)
+    ops = [dist.P2POp(dist.isend, own(t), r, group) for t, r in sends]
+    ops += [dist.P2POp(dist.irecv, own(t), r, group) for t, r in recvs]
+    reqs = dist.batch_isend_irecv(ops)
+    for req in reqs:
+        req.wait()
+    del ops, reqs, req
+    if cpu:
+        _settle(tensors, uses)
+
+
+def _settle(tensors, uses) -> None:
+    """Wait until each of ``tensors``' storages is down to its use count
+    in ``uses`` (at most SETTLE_S in all)."""
+    end = time.monotonic() + SETTLE_S
+    for t, n in zip(tensors, uses):
+        while _uses(t) > n and time.monotonic() < end:
+            time.sleep(1e-4)       # the worker needs the core, not a spin
+
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
 
@@ -74,7 +125,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 def _all_reduce_raw(x: torch.Tensor, group, op: str) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     _count("all_reduce", out)
-    dist.all_reduce(out, op=_OPS[op], group=group)
+    _issue(dist.all_reduce, out, op=_OPS[op], group=group)
     return out
 
 
@@ -90,7 +141,7 @@ def _gather_raw(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     _count("all_gather", src)
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    fn(flat, src.reshape(-1), group=group)
+    _issue(fn, flat, src.reshape(-1), group=group)
     out = flat.view((size,) + src.shape)
     if size == 1:
         return out[0]
@@ -112,7 +163,8 @@ def _scatter_raw(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     _count("reduce_scatter", src)
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
-    fn(out.view(-1), src.reshape(-1), op=dist.ReduceOp.SUM, group=group)
+    _issue(fn, out.view(-1), src.reshape(-1), op=dist.ReduceOp.SUM,
+           group=group)
     return out
 
 
@@ -206,10 +258,7 @@ def ring_all_gather(x: torch.Tensor, mesh, axes, dim: int = 0
     for _ in range(n - 1):
         recv = torch.empty_like(cur)
         _count("send_recv", cur)
-        for req in dist.batch_isend_irecv(
-                [dist.P2POp(dist.isend, cur, nxt, group),
-                 dist.P2POp(dist.irecv, recv, prv, group)]):
-            req.wait()
+        _p2p([(cur, nxt)], [(recv, prv)], group)
         chunks.append(recv)
         cur = recv
     # chunk j came from group rank (idx − j) mod n
@@ -230,11 +279,9 @@ def _ppermute_raw(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     group = mesh.group(axis)
     ranks = dist.get_process_group_ranks(group)
     src = x.detach().contiguous()
-    ops = [dist.P2POp(dist.isend, src, ranks[d], group) for d in dests]
-    ops += [dist.P2POp(dist.irecv, out, ranks[s], group) for s in srcs]
     _count("send_recv", src)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    _p2p([(src, ranks[d]) for d in dests], [(out, ranks[s]) for s in srcs],
+         group)
     return out
 
 
@@ -284,7 +331,7 @@ def all_to_all_tokens(x: torch.Tensor, mesh, axes, split_axis: int,
     src = torch.stack(x.detach().chunk(n, dim=split_axis)).contiguous()
     out = torch.empty_like(src)
     _count("all_to_all", src)
-    dist.all_to_all_single(out, src, group=mesh.group(axes))
+    _issue(dist.all_to_all_single, out, src, group=mesh.group(axes))
     return torch.cat(out.unbind(0), dim=concat_axis)
 
 
