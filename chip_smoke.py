@@ -135,7 +135,19 @@ Phases, each of which raises on failure:
    ``decode_step(embed=)`` steps, logits finite, greedy streams under
    ``cuda`` equal to ``ref``, rows 4 and 9 launched as derived, row 9
    against its plain version at each model's attention shape; prefill ms
-   and decode ms/step; within ``EMBED_BUDGET_S``.
+   and decode ms/step; within ``EMBED_BUDGET_S``; then both trained
+   (slice 20, ``phase_embed_train``) through ``make_train_step`` with the
+   f32 ``embeds`` in the token embedding's place, AdamW, bf16 compute,
+   flash attention, rows of 4,096 tokens at the ``TRAIN_POINTS`` the
+   port's dry-run chose (musicgen-large in full at 8 rows, llava-next-34b
+   at 7 of 60 layers at 1 row): two runs of 3 steps from clones of one
+   state with losses ``==`` and final parameters torch.equal, rows 9 and
+   10 launched as derived and row 4 never, peak device memory under 70
+   GB, the dry-run's predicted rise (``TrainDry``) within 15 % of a
+   step's ``max_memory_allocated`` rise; row 10 at each model's attention
+   shape against its plain version, rows 9 and 10 there timed beside
+   SDPA's forward and backward and their bounds; ms per step, tokens/s;
+   within ``EMBED_TRAIN_BUDGET_S``.
 16. slice 13, the selective-hardening DSE (``phase_dse``): the cost
    oracle at full width (``dse.cost.measure_serving`` on SmolLM-135M in
    full, W8A8 FFN, batch 8, reusing the main path's params; every decode
@@ -160,14 +172,14 @@ Phases, each of which raises on failure:
    seconds, prefill ms and decode ms/step; then each trained from the
    same parameters (``_rec_train``: AdamW, remat save_dots, rows of 4,096
    tokens) at the largest batch of at most 8 rows that the port's dry-run
-   puts under 70 GB (``RecTrainDry``: one train step on meta at a fake
-   (1, 1) mesh, in spawned children started after 2): one batch's loss
-   and gradients with remat "none" ``==`` and torch.equal to save_dots',
-   two runs of 3 steps from clones of one state with losses ``==`` and
-   final parameters torch.equal, peak device memory under 70 GB, the
-   dry-run's predicted rise within 15 % of a step's
-   ``max_memory_allocated`` rise, its peak with remat "none" printed; ms
-   per train step and tokens/s; within ``REC_BUDGET_S``.
+   puts under 70 GB (``TRAIN_POINTS``; ``TrainDry``: one train step on
+   meta at a fake (1, 1) mesh per model, in spawned children started
+   after 2): one batch's loss and gradients with remat "none" ``==`` and
+   torch.equal to save_dots', two runs of REC_TRAIN_RUN_STEPS steps from
+   clones of one state with losses ``==`` and final parameters
+   torch.equal, peak device memory under 70 GB, the dry-run's predicted
+   rise within 15 % of a step's ``max_memory_allocated`` rise; ms per
+   train step and tokens/s; within ``REC_BUDGET_S``.
 18. slice 14, the mixture-of-experts transformers (``phase_moe``), weights
    drawn on the card, W8A8 FFN and experts, bf16, flash prefill:
    mixtral-8x7b at full width with 4 of its 32 layers, an ``Engine`` of
@@ -3644,6 +3656,145 @@ def phase_embed(card: str) -> dict:
     return out
 
 
+# slices 19-20: the models trained on the card on rows of 4,096 tokens
+TRAIN_4K_SEQ = 4096                # train_4k's rows
+# (layers, rows) of each: the points the port's dry-run chose on the host's
+# CPU (``python -m repro_torch.launch.dryrun --arch A --shape train_4k
+# --mesh 1,1 --batch R --set n_layers=L``, and ``--set attn_impl=flash``
+# for the transformers), the largest batch of at most 8 rows, or for
+# llava-next-34b the largest depth of at most 8 of its 60 layers at 1 row,
+# whose predicted peak is under MOE_PEAK_BYTES (GB: the peak, its rise):
+#   rwkv6-1.6b, 24 layers: 8 rows 66.176 (47.111);
+#   recurrentgemma-2b, 8 of 26 layers: 2 rows 67.698 (51.465); 3 rows
+#     92.592;
+#   musicgen-large, 48 layers: 8 rows 57.204 (18.177); 4 rows 55.569:
+#     most of the rise is the step's f32 gradients, 12.9 GB;
+#   llava-next-34b, 1 row: 7 layers 67.676 (19.334); 8 layers 74.444.
+TRAIN_POINTS = {"rwkv6-1.6b": (24, 8), "recurrentgemma-2b": (8, 2),
+                "musicgen-large": (48, 8), "llava-next-34b": (7, 1)}
+TRAIN_DRY_WAIT_S = 300             # the longest wait for a dry-run cell
+EMBED_TRAIN_ROWS = ("flash_attention_fwd_lse", "flash_attention_bwd")
+EMBED_TRAIN_BUDGET_S = 150         # the phase's share of the limit
+
+
+def _train_points():
+    """name -> (config, rows) of each TRAIN_POINTS model: its registry
+    config (its own optimizer, remat and dtypes) at that depth, with flash
+    attention for the transformers."""
+    from repro_torch.configs import registry
+    out = {}
+    for name, (layers, rows) in TRAIN_POINTS.items():
+        cfg = dataclasses.replace(registry.get(name), n_layers=layers)
+        if cfg.family == "transformer":
+            cfg = dataclasses.replace(cfg, attn_impl="flash")
+        out[name] = (cfg, rows)
+    return out
+
+
+class TrainDry:
+    """One dry-run train step (``launch.dryrun.run_cells`` on meta at a
+    fake (1, 1) mesh) per TRAIN_POINTS model at its point, in two spawned
+    children started early (rwkv6's step on meta takes ~155 s of CPU), so
+    that their fake process groups never meet this process's and the
+    card's phases run meanwhile."""
+
+    def __init__(self):
+        from repro_torch.launch import dryrun
+        from repro_torch.models.config import ShapeConfig
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=__import__("multiprocessing").get_context("spawn"))
+        self.runs = {
+            name: self.pool.submit(dryrun.run_cells, [(cfg, ShapeConfig(
+                f"train_{rows}x{TRAIN_4K_SEQ}", TRAIN_4K_SEQ, rows,
+                "train"), (1, 1))])
+            for name, (cfg, rows) in _train_points().items()}
+
+    def result(self, name):
+        """The dry-run's record for ``name``, waiting at most
+        TRAIN_DRY_WAIT_S; raises what the child raised."""
+        return self.runs[name].result(TRAIN_DRY_WAIT_S)[0]
+
+    def close(self):
+        self.pool.shutdown(cancel_futures=True)
+
+
+def phase_embed_train(card: str, dry: TrainDry) -> dict:
+    """Slice 20: the embedding-input models trained at full width on the
+    card through ``train/steps.make_train_step``, the f32 ``embeds`` of
+    their stub front ends in the token embedding's place: musicgen-large
+    in full at 8 x 4,096 (f32 parameters, remat save_dots) and
+    llava-next-34b at 7 of 60 layers at 1 x 4,096 (bf16 parameters, remat
+    full), both AdamW, bf16 compute, flash attention, at the points
+    TRAIN_POINTS fixes, each through ``_train_model`` (two runs from
+    clones of one state, losses ``==``, parameters torch.equal, rows 9 and
+    10 as derived, row 4 never, the peak under MOE_PEAK_BYTES and the
+    dry-run's rise (``dry``, a ``TrainDry`` started early by the caller)
+    against the card's); then row 10 at each model's training
+    shape against its plain version (``_hold_flash_bwd``), and rows 9 and
+    10 there timed beside SDPA's forward and backward and their bounds.
+    Launch counts are reset at its start and read at its end."""
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    failed, out = [], {"card": card}
+    _reset_all_launches()
+    gc.collect()                   # engines of earlier phases hold cycles
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    peak = 0
+    for name, (cfg, rows) in _train_points().items():
+        if cfg.input_mode != "embeddings":
+            continue
+        full = registry.get(name).n_layers
+        depth = (f"{full} layers, in full" if cfg.n_layers == full else
+                 f"depth cut to {cfg.n_layers} of {full} layers")
+        t0 = time.perf_counter()
+        res = _train_model("embed_train", name, cfg, depth, TRAIN_4K_SEQ,
+                           failed, rows=rows, dry=dry.result(name))
+        res["train_s"] = time.perf_counter() - t0
+        peak = max(peak, res["peak_bytes"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # row 10 at the model's training shape, then rows 9 and 10 timed
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        ratio = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        case = FlashCase(gen, rows, H, KV, TRAIN_4K_SEQ, hd,
+                         torch.bfloat16)
+        max_err = {"flash_attention_fwd_lse": 0.0,
+                   "flash_attention_bwd": _hold_flash_bwd(
+                       f"{name}_train", case, gen, ratio)}
+        shape = [(rows, H, KV, TRAIN_4K_SEQ, hd, None)]
+        fl_rows, fl_calls = phase_time_flash(
+            gen, max_err, shapes=shape, names=("flash_attention_fwd_lse",),
+            reps=MOE_TIME_REPS)
+        bwd_rows, bwd_calls = phase_time_bwd(gen, max_err, shapes=shape,
+                                             reps=MOE_TIME_REPS)
+        flash_device_times(fl_rows, fl_calls, reps=MOE_TIME_REPS)
+        bwd_device_times(bwd_rows, bwd_calls)
+        fwd, bwd = fl_rows[0], bwd_rows[0]
+        res["row10_s"] = time.perf_counter() - t0 - res["train_s"]
+        text = (f"({rows}, {H}, {TRAIN_4K_SEQ}, {hd})/({rows}, {KV}, "
+                f"{TRAIN_4K_SEQ}, {hd})")
+        print(f"embed_train: {name}: row 10 at {text} bf16 (G·S = "
+              f"{H // KV * TRAIN_4K_SEQ}): error / limit "
+              f"{ratio[torch.bfloat16]:.4f}, two launches equal; row 9 "
+              f"{fwd['ms']:.4f} ms (device {fwd['device_ms']}), SDPA "
+              f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.5f} ms "
+              f"({fwd['bound_by']}); row 10 {bwd['ms']:.4f} ms (device "
+              f"{bwd['device_ms']}), SDPA backward {bwd['library_ms']:.4f} "
+              f"ms, bound {bwd['bound_ms']:.5f} ms ({bwd['bound_by']}); "
+              f"training {res['train_s']:.1f} s, row 10 held and timed in "
+              f"{res['row10_s']:.1f} s")
+        res["row10"] = {"bwd_ratio": ratio[torch.bfloat16],
+                        "max_abs_err": max_err}
+        res["times"] = fl_rows + bwd_rows
+        out[name] = res
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        del case, fl_calls, bwd_calls     # their inputs leave the card
+        torch.cuda.empty_cache()
+    return _phase_end("embed_train", out, failed, EMBED_TRAIN_ROWS, peak,
+                      EMBED_TRAIN_BUDGET_S, t_phase, card)
+
+
 # slice 13: the selective-hardening DSE on the card
 DSE_BATCH = 8                      # decode batch of the serving oracle
 DSE_STEPS = 4                      # decode steps per timed window
@@ -3917,107 +4068,13 @@ REC_CHECK_STEPS = 16
 REC_TOL = 1e-4                     # f32 logits the engine samples from
                                    # (prefill's last, each decode step):
                                    # max |err| / max |logit|
-REC_TRAIN_SEQ = 4096               # train_4k's rows, past the 2,048 window
-REC_TRAIN_MAX_ROWS = 8             # the largest batch tried
 REC_TRAIN_CHECK_ROWS = 1           # remat "none" against save_dots: one
 REC_TRAIN_CHECK_SEQ = 1024         # row of 1,024 tokens, where none fits
-REC_DRY_WAIT_S = 300               # the longest wait for the dry-run
+REC_TRAIN_RUN_STEPS = 1            # steps per run (3 before slice 20:
+                                   # rwkv6's step takes 22-31 s of host
+                                   # time; the replay of several steps is
+                                   # held on every other trained model)
 REC_BUDGET_S = 300                 # the phase's share of the limit
-
-
-def _rec_train_cfgs():
-    """The trained recurrent models: rwkv6-1.6b in full, recurrentgemma-2b
-    at REC_GRIFFIN_LAYERS of its layers, each with its registry optimizer
-    (AdamW) and remat (save_dots)."""
-    from repro_torch.configs import registry
-    return {"rwkv6-1.6b": registry.get("rwkv6-1.6b"),
-            "recurrentgemma-2b": dataclasses.replace(
-                registry.get("recurrentgemma-2b"),
-                n_layers=REC_GRIFFIN_LAYERS)}
-
-
-class RecTrainDry:
-    """The batch of each trained recurrent model, chosen by the port's own
-    dry-run (``launch.dryrun.run_cells``: one train step on meta at a fake
-    (1, 1) mesh, in spawned children, so that its fake process group never
-    meets this process's and the card's phases run meanwhile): the largest
-    batch of at most REC_TRAIN_MAX_ROWS rows of REC_TRAIN_SEQ tokens whose
-    predicted peak is under MOE_PEAK_BYTES.  A thread per model runs the
-    step at half the most rows and at the most (with remat "none" there
-    too), then, until the batch under the limit and the one above it have
-    both been run, the batch that the two nearest runs on either side point
-    to (bytes per row between them) and the one after it; then the step at
-    the batch found with remat "none" if not yet run.  Every record is
-    kept."""
-
-    def __init__(self):
-        import threading
-        # three children: rwkv6's first round is three steps of ~155 s
-        self.pool = concurrent.futures.ProcessPoolExecutor(
-            3, mp_context=__import__("multiprocessing").get_context("spawn"))
-        self.out = {}
-        self.threads = [threading.Thread(target=self._search, args=(n, c),
-                                         daemon=True)
-                        for n, c in _rec_train_cfgs().items()]
-        for t in self.threads:
-            t.start()
-
-    def _cells(self, cfg, rows, remat=None):
-        from repro_torch.launch import dryrun
-        from repro_torch.models.config import ShapeConfig
-        c = cfg if remat is None else dataclasses.replace(cfg, remat=remat)
-        shape = ShapeConfig(f"train_{rows}x{REC_TRAIN_SEQ}", REC_TRAIN_SEQ,
-                            rows, "train")
-        return self.pool.submit(dryrun.run_cells, [(c, shape, (1, 1))])
-
-    def _search(self, name, cfg):
-        try:
-            peak = lambda rec: rec["memory_analysis"]["peak_bytes"]   # noqa
-            t0 = time.perf_counter()
-            most = REC_TRAIN_MAX_ROWS
-            none = {most: self._cells(cfg, most, "none")}
-            todo = {most // 2, most}
-            recs = {}
-            while todo:
-                runs = {r: self._cells(cfg, r) for r in sorted(todo)}
-                recs.update({r: f.result()[0] for r, f in runs.items()})
-                fit = [r for r in recs if peak(recs[r]) < MOE_PEAK_BYTES]
-                lo = max(fit, default=0)
-                over = [r for r in recs if r > lo]
-                if lo == most or min(over) == lo + 1:
-                    break
-                hi = min(over)
-                g = (lo + hi) // 2 if lo == 0 else lo + int(
-                    (MOE_PEAK_BYTES - peak(recs[lo])) * (hi - lo)
-                    // (peak(recs[hi]) - peak(recs[lo])))
-                g = min(max(g, lo + 1), hi - 1)
-                todo = {g, g + 1} - {hi}
-            if lo == 0:
-                raise AssertionError(
-                    f"one row is over the limit: {peak(recs[min(recs)])}")
-            if lo not in none:
-                none[lo] = self._cells(cfg, lo, "none")
-            self.out[name] = {"rows": lo, "records": recs,
-                              "none": none[lo].result()[0],
-                              "seconds": time.perf_counter() - t0}
-        except Exception as e:              # read by ``result``
-            self.out[name] = e
-
-    def result(self, name, timeout):
-        """The search's record for ``name``, waiting at most ``timeout``
-        seconds; raises what the search raised."""
-        for t in self.threads:
-            t.join(timeout)
-        res = self.out.get(name)
-        if res is None:
-            raise AssertionError(f"the dry-run of {name} did not end in "
-                                 f"time")
-        if isinstance(res, Exception):
-            raise res
-        return res
-
-    def close(self):
-        self.pool.shutdown(cancel_futures=True)
 
 
 def _rec_serve(cfg, params, prompts, max_len, one_at_a_time=False,
@@ -4151,26 +4208,26 @@ def _rec_model(name, cfg, depth, params, init_s, gen, failed):
             "serve_s": serve_s, "steps": steps}
 
 
-def _rec_train(name, cfg, host, dry, failed):
+def _rec_train(name, cfg, host, rows, rec, failed):
     """``cfg`` trained on the card from ``host`` (the serving checks'
-    parameters, kept on the host) on rows of REC_TRAIN_SEQ tokens, with
-    its own optimizer and remat, at the batch ``dry`` (``RecTrainDry``'s
-    record) chose: first the loss and every gradient of one batch of
-    REC_TRAIN_CHECK_ROWS x REC_TRAIN_CHECK_SEQ tokens (where remat "none"
-    fits) with remat "none" and with the config's, ``==`` and
-    torch.equal; then ``_train_twice`` on TRAIN_RUN_STEPS
+    parameters, kept on the host) on ``rows`` rows of TRAIN_4K_SEQ tokens
+    (its TRAIN_POINTS batch), with its own optimizer and remat, ``rec``
+    the dry-run's record of one step there: first the loss and every
+    gradient of one batch of REC_TRAIN_CHECK_ROWS x REC_TRAIN_CHECK_SEQ
+    tokens (where remat "none" fits) with remat "none" and with the
+    config's, ``==`` and
+    torch.equal; then ``_train_twice`` on REC_TRAIN_RUN_STEPS
     batches: losses ``==`` and finite, final parameters torch.equal, the
     peak device memory under MOE_PEAK_BYTES, the dry-run's predicted rise
     within ITEM17_PEAK_RTOL of the largest ``max_memory_allocated`` rise
     of a step; ms per step, tokens/s."""
     from repro_torch import tree
     from repro_torch.models import api
-    rows = dry["rows"]
-    rec, none = dry["records"][rows], dry["none"]
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    check = _train_batches(cfg, REC_TRAIN_CHECK_SEQ, REC_TRAIN_CHECK_ROWS)[0]
+    check = _train_batches(cfg, REC_TRAIN_CHECK_SEQ, REC_TRAIN_CHECK_ROWS,
+                           1)[0]
     params = tree.map(lambda t: t.to(DEVICE, copy=True), host)
     got = {}
     for remat in ("none", cfg.remat):
@@ -4191,7 +4248,7 @@ def _rec_train(name, cfg, host, dry, failed):
     torch.cuda.empty_cache()
     check_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    batches = _train_batches(cfg, REC_TRAIN_SEQ, rows)
+    batches = _train_batches(cfg, TRAIN_4K_SEQ, rows, REC_TRAIN_RUN_STEPS)
     rises = []
     runs, same, _ = _train_twice(cfg, host, batches, rises)
     del batches
@@ -4203,23 +4260,19 @@ def _rec_train(name, cfg, host, dry, failed):
     card_rise = max(p - b0 for b0, p in rises)
     predicted = rec["memory_analysis"]["peak_live_bytes"]
     ratio = predicted / card_rise if card_rise else math.inf
-    none_peak = none["memory_analysis"]["peak_bytes"]
     launched = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
-    tokens = rows * REC_TRAIN_SEQ
+    tokens = rows * TRAIN_4K_SEQ
     ms = [r["ms_per_step"] for r in runs]
     ok = (remat_equal and replay and same and finite
           and peak < MOE_PEAK_BYTES
           and abs(ratio - 1) <= ITEM17_PEAK_RTOL)
     print(f"recurrent: {name} training ({cfg.n_layers} layers, "
           f"{cfg.optimizer}, remat {cfg.remat}, {cfg.param_dtype} params, "
-          f"{cfg.compute_dtype} compute), rows of {REC_TRAIN_SEQ} tokens: "
+          f"{cfg.compute_dtype} compute), rows of {TRAIN_4K_SEQ} tokens: "
           f"the dry-run's batch {rows} rows (predicted peak "
-          f"{rec['memory_analysis']['peak_bytes'] / 1e9:.3f} GB; with remat "
-          f"none "
-          f"{none_peak / 1e9:.3f} GB; dry-runs "
-          f"{ {r: round(v['memory_analysis']['peak_bytes'] / 1e9, 3) for r, v in sorted(dry['records'].items())} } "
-          f"GB in {dry['seconds']:.1f} s in the children); remat none "
+          f"{rec['memory_analysis']['peak_bytes'] / 1e9:.3f} GB, its step "
+          f"{rec['run_s']:.1f} s in a child); remat none "
           f"against {cfg.remat} at {REC_TRAIN_CHECK_ROWS} x "
           f"{REC_TRAIN_CHECK_SEQ} ({check_s:.1f} s): loss "
           f"{float(l0):.6f} == {float(l1):.6f}, gradients torch.equal: "
@@ -4237,31 +4290,28 @@ def _rec_train(name, cfg, host, dry, failed):
           + ("" if ok else "  FAILED"))
     if not ok:
         failed.append(f"{name} training")
-    return {"rows": rows, "seq": REC_TRAIN_SEQ, "runs": runs,
+    return {"rows": rows, "seq": TRAIN_4K_SEQ, "runs": runs,
             "remat_equal": remat_equal, "losses_equal": replay,
             "params_equal": same, "finite": finite, "peak_bytes": peak,
             "resident_bytes": resident, "card_rise_bytes": card_rise,
             "predicted_rise_bytes": predicted, "rise_ratio": ratio,
             "predicted_peak_bytes": rec["memory_analysis"]["peak_bytes"],
-            "predicted_none_peak_bytes": none_peak,
-            "dry_peaks": {r: v["memory_analysis"]["peak_bytes"]
-                          for r, v in dry["records"].items()},
-            "dry_seconds": dry["seconds"], "ms_per_step": ms,
+            "dry_run_s": rec["run_s"], "ms_per_step": ms,
             "check_s": check_s, "replay_s": replay_s,
             "tokens_per_s": tokens / ms[1] * 1e3}
 
 
-def phase_recurrent(card: str, dry: RecTrainDry) -> dict:
+def phase_recurrent(card: str, dry: TrainDry) -> dict:
     """Slice 13: the recurrent families at full width on the card, weights
     drawn on the card (slice 15; every check compares the port with itself,
     so none depends on which values were drawn): rwkv6-1.6b in full (24
     layers) and recurrentgemma-2b with its depth cut to 8 of 26 layers (two
     2:1 super-blocks and the two-block recurrent tail), each through
     ``_rec_model``, then trained from the same parameters (slice 19,
-    ``_rec_train``) at the batch ``dry`` (a ``RecTrainDry``, started
-    early by the caller) picks.  No hand kernel serves or trains them (the
-    reference runs them as plain jnp): the phase checks that none of rows
-    1-10 launched."""
+    ``_rec_train``) at its TRAIN_POINTS batch, against ``dry`` (a
+    ``TrainDry``, started early by the caller).  No hand kernel serves or
+    trains them (the reference runs them as plain jnp): the phase checks
+    that none of rows 1-10 launched."""
     from repro_torch import tree
     from repro_torch.configs import registry
     t_phase = time.perf_counter()
@@ -4275,7 +4325,7 @@ def phase_recurrent(card: str, dry: RecTrainDry) -> dict:
             registry.get("recurrentgemma-2b"), n_layers=REC_GRIFFIN_LAYERS),
             f"depth cut to {REC_GRIFFIN_LAYERS} of {full} layers"),
     }
-    trained = _rec_train_cfgs()
+    trained = _train_points()
     gc.collect()                   # engines of earlier phases hold cycles
     torch.cuda.empty_cache()
     for name, (cfg, depth) in models.items():
@@ -4286,13 +4336,13 @@ def phase_recurrent(card: str, dry: RecTrainDry) -> dict:
         del params
         gc.collect()               # the serving checks' engines hold cycles
         torch.cuda.empty_cache()
-        if trained[name] != cfg:
+        tcfg, rows = trained[name]
+        if tcfg != cfg:
             failed.append(f"{name}: the dry-run's config is not the card's")
-        out[name]["train"] = _rec_train(
-            name, cfg, host, dry.result(name, REC_DRY_WAIT_S), failed)
+        out[name]["train"] = _rec_train(name, cfg, host, rows,
+                                        dry.result(name), failed)
         del host
         torch.cuda.empty_cache()
-    dry.close()
     launches = _campaign_launches()
     none = not any(launches.values())
     print(f"recurrent: rows 1-10 launched on this path: "
@@ -4818,15 +4868,15 @@ def _dense_model(name, cfg, depth, gen, failed):
             "row4_per_call": _row4_per_call(cfg)}
 
 
-def _train_batches(cfg, seq, rows=1):
-    """TRAIN_RUN_STEPS seeded batches of ``rows`` x ``seq`` tokens, on the
-    card."""
+def _train_batches(cfg, seq, rows=1, steps=TRAIN_RUN_STEPS):
+    """``steps`` seeded batches of ``rows`` x ``seq`` tokens (with
+    ``embeds`` for an embedding-input model), on the card."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.models.config import ShapeConfig
     stream = TokenStream(cfg, ShapeConfig("train", seq, rows, "train"))
     return [{k: torch.from_numpy(v).to(DEVICE)
              for k, v in stream.batch_at(i).items()}
-            for i in range(TRAIN_RUN_STEPS)]
+            for i in range(steps)]
 
 
 def _adafactor_first_update(cfg, seq):
@@ -4955,29 +5005,37 @@ def _train_twice(cfg, host_params, batches, rises=None):
 
 
 def _train_model(label, name, cfg, depth, seq, failed, before_runs=None,
-                 keep=None):
+                 keep=None, rows=1, dry=None):
     """Draw ``cfg``'s parameters on the card, call ``before_runs(params)``,
     keep them on the host, then ``_train_twice`` on TRAIN_RUN_STEPS
-    batches of 1 x ``seq``: the two runs' losses ``==``, finite, final
-    parameters torch.equal; rows 9 (2·L per step: the forward and its
-    recompute) and 10 (L per step) launched as derived, row 4 never (no
-    W8A8 in training).  ``keep`` (a dict) receives the config, the host
-    start, the first run's final parameters (on the host), the batches and
-    the second run's record (its timing warm)."""
+    batches of ``rows`` x ``seq`` (with ``embeds`` for an embedding-input
+    model, as ``TokenStream`` draws them): the two runs' losses ``==``,
+    finite, final parameters torch.equal; rows 9 (2·L per step: the
+    forward and its recompute) and 10 (L per step) launched as derived,
+    row 4 never (no W8A8 in training).  With ``dry`` (the dry-run's record
+    of one step at this config and batch) the peak device memory is held
+    under MOE_PEAK_BYTES and the dry-run's predicted rise within
+    ITEM17_PEAK_RTOL of the largest ``max_memory_allocated`` rise of a
+    step.  ``keep`` (a dict) receives the config, the host start, the
+    first run's final parameters (on the host), the batches and the second
+    run's record (its timing warm)."""
     from repro_torch import tree
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     params, init_s = _card_params(cfg, 15)
     extra = before_runs(params) if before_runs else {}
     host = tree.map(lambda t: t.to("cpu", copy=True), params)
     n_params = sum(t.numel() for t in tree.leaves(params))
     del params
     torch.cuda.empty_cache()
-    batches = _train_batches(cfg, seq)
-    runs, same, first = _train_twice(cfg, host, batches)
+    peak = torch.cuda.max_memory_allocated()
+    batches = _train_batches(cfg, seq, rows)
+    rises = [] if dry is not None else None
+    runs, same, first = _train_twice(cfg, host, batches, rises)
     if keep is not None:          # the sharded phase's start and reference
         keep.update(cfg=cfg, host=host, first=first, batches=batches,
                     run=runs[1])
-    del host, first
+    del host, first, batches
     L, n = cfg.n_layers, TRAIN_RUN_STEPS
     want = {"qmatmul_acc": 0, "flash_attention_fwd_lse": 2 * L * n,
             "flash_attention_bwd": L * n}
@@ -4986,25 +5044,49 @@ def _train_model(label, name, cfg, depth, seq, failed, before_runs=None,
     a, b = (r["losses"] for r in runs)
     replay = a == b
     finite = all(math.isfinite(x) for x in a + b)
-    peak = torch.cuda.max_memory_allocated()
     ok = replay and same and finite and launched
+    held = ""
+    if dry is None:
+        peak = torch.cuda.max_memory_allocated()
+    else:
+        peak = max([peak] + [p for _, p in rises])
+        card_rise = max(p - b0 for b0, p in rises)
+        predicted = dry["memory_analysis"]["peak_live_bytes"]
+        ratio = predicted / card_rise if card_rise else math.inf
+        ok = ok and peak < MOE_PEAK_BYTES \
+            and abs(ratio - 1) <= ITEM17_PEAK_RTOL
+        extra.update(card_rise_bytes=card_rise,
+                     predicted_rise_bytes=predicted, rise_ratio=ratio,
+                     predicted_peak_bytes=dry["memory_analysis"]
+                     ["peak_bytes"], resident_bytes=resident,
+                     dry_run_s=dry["run_s"])
+        held = (f" (limit {MOE_PEAK_BYTES / 1e9:.0f} GB; "
+                f"{resident / 1e9:.3f} GB held before); the dry-run's "
+                f"peak {dry['memory_analysis']['peak_bytes'] / 1e9:.3f} GB, "
+                f"its rise {predicted / 1e9:.3f} GB against the card's "
+                f"{card_rise / 1e9:.3f} GB (ratio {ratio:.4f}, limit 1 ± "
+                f"{ITEM17_PEAK_RTOL})")
+    tokens = rows * seq
     print(f"{label}: {name} training ({depth}; {n_params / 1e9:.2f} G "
           f"parameters, "
           f"{cfg.param_dtype}, {cfg.optimizer}, remat {cfg.remat}, flash, "
-          f"batch 1 x {seq}): params on the card in {init_s:.2f} s; two runs "
+          f"batch {rows} x {seq}): params on the card in {init_s:.2f} s; "
+          f"two runs "
           f"of {n} steps from clones of one state: losses "
           f"{[f'{x:.6f}' for x in a]} == {[f'{x:.6f}' for x in b]}: "
           f"{replay}, finite: {finite}; final parameters equal: {same}; "
           f"{runs[0]['ms_per_step']:.1f} / {runs[1]['ms_per_step']:.1f} "
-          f"ms/step; launches per run {runs[0]['launches']} = derived "
-          f"{want}: {launched}; peak device memory {peak / 1e9:.2f} GB"
-          + ("" if ok else "  FAILED"))
+          f"ms/step, {tokens / runs[1]['ms_per_step'] * 1e3:.0f} tokens/s; "
+          f"launches per run {runs[0]['launches']} = derived "
+          f"{want}: {launched}; peak device memory {peak / 1e9:.3f} GB"
+          + held + ("" if ok else "  FAILED"))
     if not ok:
         failed.append(f"{name} training")
-    return {"layers": L, "depth": depth, "seq": seq, "params": n_params,
-            "init_s": init_s, "runs": runs, "losses_equal": replay,
-            "params_equal": same, "finite": finite,
-            "launches_as_derived": launched, "peak_bytes": peak, **extra}
+    return {"layers": L, "depth": depth, "seq": seq, "rows": rows,
+            "params": n_params, "init_s": init_s, "runs": runs,
+            "losses_equal": replay, "params_equal": same, "finite": finite,
+            "launches_as_derived": launched, "peak_bytes": peak,
+            "tokens_per_s": tokens / runs[1]["ms_per_step"] * 1e3, **extra}
 
 
 def _phase_end(label, out, failed, launches_needed, peak, budget, t_phase,
@@ -6088,9 +6170,9 @@ def main() -> None:
     from repro_torch.kernels.qmatmul import kernel as MK
     from repro_torch.models import shipdet
     build_s = phase_build([K.build, MK.build, FK.build, FK.build_bwd])
-    # the recurrent training's batch search runs on meta in spawned
-    # children beside the phases before phase 17
-    rec_dry = RecTrainDry()
+    # the trained models' dry-run steps run on meta in spawned children
+    # beside the phases before them
+    train_dry = TrainDry()
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -6152,8 +6234,10 @@ def main() -> None:
     dependable = phase_dependable(cfg, lm_params, prompts, card)
     fleet = phase_fleet(cfg, lm_params, card)
     embed = phase_embed(card)
+    embed_train = phase_embed_train(card, train_dry)
     dse = phase_dse(cfg, lm_params, card)
-    recurrent = phase_recurrent(card, rec_dry)
+    recurrent = phase_recurrent(card, train_dry)
+    train_dry.close()
     moe = phase_moe(card)
     dense = phase_dense(card)
     start = {}
@@ -6207,7 +6291,8 @@ def main() -> None:
                        "backward_per_call": bwd_rows,
                        "campaign": campaign,
                        "dependable": dependable, "fleet": fleet,
-                       "embed": embed, "dse": dse,
+                       "embed": embed, "embed_train": embed_train,
+                       "dse": dse,
                        "recurrent": recurrent, "moe": moe, "dense": dense,
                        "moe_train": moe_train, "shard": shard,
                        "item17": item17, "examples": examples}, f,

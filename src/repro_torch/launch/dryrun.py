@@ -32,6 +32,9 @@ Usage:
       --jobs 6
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
       --mesh 2,4 --set quant=w8a8_ffn --set attn_impl=flash
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llava-next-34b \\
+      --shape train_4k --mesh 1,1 --batch 1 --set n_layers=7 \\
+      --set attn_impl=flash
 """
 from __future__ import annotations
 
@@ -241,6 +244,9 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[], metavar="FIELD=VAL",
                     help="ArchConfig override, e.g. --set remat=none "
                          "--set quant=w8a8_ffn")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows of the global batch in place of the "
+                         "shape's (the shape's name gets _b<rows>)")
     ap.add_argument("--tag", type=str, default="",
                     help="artifact suffix for variant runs")
     ap.add_argument("--jobs", type=int, default=1,
@@ -264,6 +270,10 @@ def main(argv=None):
         cells = [(cfg, s) for s in shapes]
     if args.set:
         cells = _overrides(cells, args.set)
+    if args.batch:
+        cells = [(c, dataclasses.replace(s, name=f"{s.name}_b{args.batch}",
+                                         global_batch=args.batch))
+                 for c, s in cells]
 
     tasks = [(cfg, shape, mshape, axes, label, Path(args.out), True,
               args.tag) for mshape, axes, label in meshes

@@ -168,6 +168,18 @@ def _scatter_raw(x: torch.Tensor, group, size: int, dim: int) -> torch.Tensor:
     return out
 
 
+def all_reduce_(x: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
+    """``all_reduce`` into ``x`` itself, outside autograd: no copy of ``x``
+    is made (a train step's gradients, summed where they are replicated,
+    would otherwise be held twice at the step's peak); returns ``x``."""
+    axes = _axes(axes)
+    if not axes:
+        return x
+    _count("all_reduce", x)
+    _issue(dist.all_reduce, x, op=_OPS[op], group=mesh.group(axes))
+    return x
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):

@@ -131,6 +131,22 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
         flag = torch.tensor([float(err is not None)], device=dev)
         return bool(C.all_reduce(flag, mesh, mesh.axis_names, op="max"))
 
+    def agreed_step(found: Optional[int]) -> Optional[int]:
+        """The checkpoint step every rank takes: the newest that any rank
+        found in the directory (None where none did).  Rank 0 alone
+        writes checkpoints, from a background thread, so ranks that read
+        the directory at different moments can find different steps (a
+        rank that starts late finds the step-0 save its peers are still
+        gathering for, and would skip the gathers they wait in); each rank
+        reads before this all-reduce, and rank 0 writes again only after
+        it."""
+        if mesh is None:
+            return found
+        newest = torch.tensor([-1 if found is None else found],
+                              dtype=torch.int64, device=dev)
+        newest = int(C.all_reduce(newest, mesh, mesh.axis_names, op="max"))
+        return None if newest < 0 else newest
+
     # incremental + async checkpointing: dirty-chunk writes on a background
     # thread; every restore below waits for in-flight saves to be durable
     # before reading, so recovery never races the writer
@@ -139,7 +155,7 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
         max_pending=ft.ckpt_max_pending)
     try:
         # ---- init or resume
-        start = ckpt.latest_step(ft.ckpt_dir)
+        start = agreed_step(ckpt.latest_step(ft.ckpt_dir))
         if start is None:
             # the unsharded loop's draw (a CPU generator), cut into shards
             state = steps_mod.init_train_state(
@@ -190,7 +206,8 @@ def run(cfg: ArchConfig, shape: ShapeConfig, ft: FTConfig,
                     raise RuntimeError(
                         f"exceeded max_recoveries={ft.max_recoveries}") from e
                 ick.wait()                  # durability barrier before read
-                restored, state = restore(ckpt.latest_step(ft.ckpt_dir))
+                restored, state = restore(
+                    agreed_step(ckpt.latest_step(ft.ckpt_dir)))
                 # drop optimistic losses past the restore point, replay
                 replayed += step - restored
                 losses = losses[: restored - start]

@@ -122,12 +122,13 @@ def _grad_fn(cfg: ArchConfig, ctx: Optional[ShardCtx]):
 
 def _sum_copies(grads, specs, mesh):
     """Each leaf's gradient summed over the mesh axes its spec does not
-    name: the ranks that hold copies of it, each with its own partial."""
+    name: the ranks that hold copies of it, each with its own partial.
+    The sums are taken in place (the gradients are the step's own)."""
     out = []
     for g, spec in zip(tree.leaves(grads), tree.leaves(specs)):
         named = {a for e in spec for a in entry_axes(e)}
         axes = tuple(a for a in mesh.axis_names if a not in named)
-        out.append(C.all_reduce(g, mesh, axes) if axes else g)
+        out.append(C.all_reduce_(g.contiguous(), mesh, axes) if axes else g)
     return tree.unflatten(tree.structure(grads), out)
 
 

@@ -4,9 +4,13 @@ forward, one train step (its own optimizer) and one decode step on the CPU
 with the reference's shape, finiteness, ``step == 1`` and "params moved"
 checks; its config equals the reference's field by field; its forward
 logits hold the reference's on the same parameters (the reference's,
-converted); and the two dense giants, ``command-r-plus-104b`` and
-``llama3-405b``, take two train steps from the reference's converted state
-with losses that hold the reference's.
+converted); the two dense giants, ``command-r-plus-104b`` and
+``llama3-405b``, and the embedding-input models, ``musicgen-large`` and
+``llava-next-34b`` (on shared ``embeds``, at widths that keep MHA and a
+group of 7), take two train steps from the reference's converted state
+with losses that hold the reference's; and the embedding-input models'
+loss and every gradient hold ``jax.value_and_grad``'s (2e-4), the unused
+token table's gradient zero in both.
 
 Tolerances are those of each family's own parity file, on the f32 path:
 2e-4 for the dense transformers, token- and embedding-input
@@ -48,6 +52,7 @@ TRANSFORMER_TOL = dict(rtol=2e-4, atol=2e-4)
 MOE_TOL = dict(rtol=1e-4, atol=1e-4)
 RECURRENT_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-4
+GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 CONVERT = {"transformer": convert.transformer_params_from_numpy,
            "rwkv": convert.rwkv6_params_from_numpy,
            "hybrid": convert.griffin_params_from_numpy}
@@ -96,16 +101,18 @@ def parity_params():
     the port's draw)."""
     cache = {}
 
-    def get(name):
-        if name not in cache:
-            jcfg = _cfg(name, jregistry, jreduced, compute_dtype="float32")
-            tcfg = _cfg(name, tregistry, treduced, compute_dtype="float32")
+    def get(name, **kw):
+        key = (name, tuple(sorted(kw.items())))
+        if key not in cache:
+            kw = {"compute_dtype": "float32", **kw}
+            jcfg = _cfg(name, jregistry, jreduced, **kw)
+            tcfg = _cfg(name, tregistry, treduced, **kw)
             host = tree.map(_numpy, tapi.init_params(
                 tcfg, torch.Generator().manual_seed(0), device="cpu"))
-            cache[name] = (jcfg, tcfg,
-                           jax.tree_util.tree_map(jnp.asarray, host),
-                           CONVERT[tcfg.family](host, device="cpu"))
-        return cache[name]
+            cache[key] = (jcfg, tcfg,
+                          jax.tree_util.tree_map(jnp.asarray, host),
+                          CONVERT[tcfg.family](host, device="cpu"))
+        return cache[key]
     return get
 
 
@@ -242,27 +249,104 @@ def test_forward_matches_reference(arch, parity_params, monkeypatch):
                                np.asarray(want, np.float32), **_tol(tcfg))
 
 
-@pytest.mark.parametrize("arch", ["command-r-plus-104b", "llama3-405b"])
-def test_train_steps_match_reference(arch, parity_params):
-    """Two train steps (the arch's own optimizer: AdamW for command-r,
-    Adafactor for llama3) from the reference's train state over the shared
-    parameters: both losses, the second after one update of the bf16
-    parameters."""
-    jcfg, tcfg, jp, _ = parity_params(arch)
+# Reduced widths that keep the embedding-input models' structure: musicgen's
+# MHA (a KV head per query head) and llava's group of 7 query heads per KV
+# head; both keep their untied head, remat and parameter dtype (llava bf16).
+EMBED_STRUCTURE = {"musicgen-large": dict(n_kv_heads=4),
+                   "llava-next-34b": dict(n_heads=14, n_kv_heads=2)}
+
+
+def _train_batch(cfg, rng):
+    """(reference batch, port batch) of one train step: seeded tokens as
+    labels, and seeded f32 ``embeds`` in the tokens' place for an
+    embedding-input arch."""
+    t = rng.integers(0, cfg.vocab_size, (B, S))
+    jb = {"tokens": jnp.asarray(t, jnp.int32),
+          "labels": jnp.asarray(t, jnp.int32)}
+    tt = torch.from_numpy(t).to(torch.int32)
+    tb = {"tokens": tt, "labels": tt}
+    if cfg.input_mode == "embeddings":
+        e = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        jb["embeds"], tb["embeds"] = jnp.asarray(e), torch.from_numpy(e)
+    return jb, tb
+
+
+def _train_state(jcfg, jp):
     js = jsteps.TrainState(jp, joptim.make_optimizer(jcfg.optimizer).init(jp),
                            jnp.zeros((), jnp.int32))
     host = jax.device_get(js)
-    ts = convert.train_state_from_numpy((host.params, host.opt_state,
-                                         host.step), device="cpu")
+    return js, convert.train_state_from_numpy(
+        (host.params, host.opt_state, host.step), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["command-r-plus-104b", "llama3-405b",
+                                  "musicgen-large", "llava-next-34b"])
+def test_train_steps_match_reference(arch, parity_params):
+    """Two train steps (the arch's own optimizer: AdamW for command-r,
+    musicgen and llava, Adafactor for llama3) from the reference's train
+    state over the shared parameters: both losses, the second after one
+    update of the parameters (bf16 for command-r, llama3 and llava).  The
+    embedding-input archs train on shared seeded ``embeds`` at their own
+    remat, at widths that keep their head structure (``EMBED_STRUCTURE``)."""
+    jcfg, tcfg, jp, _ = parity_params(arch, **EMBED_STRUCTURE.get(arch, {}))
+    js, ts = _train_state(jcfg, jp)
     jstep = jax.jit(jsteps.make_train_step(jcfg))
     tstep = tsteps.make_train_step(tcfg)
     rng = np.random.default_rng(6)
     for _ in range(2):
-        t = rng.integers(0, tcfg.vocab_size, (B, S))
-        js, jm = jstep(js, {"tokens": jnp.asarray(t, jnp.int32),
-                            "labels": jnp.asarray(t, jnp.int32)})
-        tt = torch.from_numpy(t).to(torch.int32)
-        ts, tm = tstep(ts, {"tokens": tt, "labels": tt})
+        jb, tb = _train_batch(tcfg, rng)
+        js, jm = jstep(js, jb)
+        ts, tm = tstep(ts, tb)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=LOSS_RTOL)
     assert int(ts.step) == int(js.step) == 2
+
+
+def _np32(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-34b"])
+def test_embeds_loss_and_grads_match_jax_grad(arch, parity_params):
+    """The embedding-input path's loss and every parameter's gradient
+    against ``jax.value_and_grad`` of the reference's, at the model's own
+    remat (musicgen save_dots, llava full) and widths that keep its head
+    structure.  The token table ``embed`` is unused (``embeds`` take its
+    place and the head is ``lm_head``): its gradient is zero in both
+    packages, one AdamW step from the same state gives it the same value
+    (weight decay alone) in both, and its moments stay zero."""
+    jcfg, tcfg, jp, _ = parity_params(arch, **EMBED_STRUCTURE[arch])
+    assert tcfg.remat == jcfg.remat != "none"
+    assert not tcfg.tie_embeddings and "lm_head" in jp
+    jb, tb = _train_batch(tcfg, np.random.default_rng(8))
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: japi.loss_fn(jcfg, p, jb), has_aux=True)(jp)
+    js, ts = _train_state(jcfg, jp)
+    # the train step's own gradient function (unused leaves get zeros)
+    tl, _, tg = tsteps._grad_fn(tcfg, None)(ts.params, tb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=LOSS_RTOL)
+    ref = jax.tree_util.tree_leaves_with_path(jg)
+    got = tree.leaves_with_paths(tg)
+    assert len(ref) == len(got)
+    for (jpath, want), (path, g) in zip(ref, got):
+        name = tree.path_str(path)
+        assert name == "/".join(str(getattr(k, "key", k)) for k in jpath)
+        np.testing.assert_allclose(_np32(g), _np32(want), err_msg=name,
+                                   **GRAD_TOL)
+    assert tg["embed"].shape == ts.params["embed"].shape
+    assert not np.any(_np32(tg["embed"]))
+    assert not np.any(_np32(jg["embed"]))
+    # one AdamW step (the train step's clip and in-place update) on it
+    js, _ = jax.jit(jsteps.make_train_step(jcfg))(js, jb)
+    ts, _ = tsteps.make_train_step(tcfg)(ts, tb)
+    before = _np32(jp["embed"])
+    moved = _np32(ts.params["embed"])
+    np.testing.assert_array_equal(moved, _np32(js.params["embed"]))
+    # f32: the decay moves it; bf16: lr·wd·|p| is under half a bf16 step
+    # of |p|, so it rounds back to its value in both packages
+    assert np.any(moved != before) == (tcfg.param_dtype == "float32")
+    for k in ("m", "v"):
+        assert not np.any(_np32(ts.opt_state[k]["embed"]))
+        assert not np.any(_np32(js.opt_state[k]["embed"]))

@@ -25,11 +25,16 @@ on one CPU device):
   (both packages' chunked attention recomputes each query chunk in the
   backward, so the counts include the same recompute);
 * one production-mesh decode cell (pod16x16, 256 fake ranks) in at most
-  10 s.
+  10 s;
+* ``--batch`` sets a cell's rows (one more row adds that row's inputs to
+  the arguments and nothing else);
+* at a (1, 1) mesh a train cell's peak beyond its arguments is the
+  unsharded step's on real CPU tensors, the step the card trains with.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import resource
 import time
 
@@ -47,8 +52,9 @@ from repro.models.config import valid_cells as jvalid_cells
 from repro.train import steps as jsteps
 from repro_torch import tree
 from repro_torch.configs import registry
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, op_analysis
 from repro_torch.models.config import SHAPES, reduced, valid_cells
+from repro_torch.train import optim as toptim
 from repro_torch.train import steps
 
 jax.config.update("jax_platform_name", "cpu")
@@ -220,3 +226,50 @@ def test_production_decode_cell_is_quick():
                                label="pod16x16")
     assert time.perf_counter() - t0 <= PROD_DECODE_S
     assert rec["n_devices"] == 256 and rec["op_analysis"]["flops"] > 0
+
+
+def test_cli_batch_sets_the_rows(tmp_path):
+    """``--batch`` runs the shape at that many rows (the name gets
+    ``_b<rows>``): one more row of an embedding-input train cell adds its
+    int32 tokens and labels and its f32 ``embeds`` to the arguments, and
+    nothing else."""
+    args = []
+    for rows in (1, 2):
+        dryrun.main(["--arch", "musicgen-large", "--shape", "train_4k",
+                     "--mesh", "1,1", "--batch", str(rows), "--set",
+                     "n_layers=1", "--out", str(tmp_path)])
+        rec = json.loads((tmp_path / f"musicgen-large__train_4k_b{rows}__"
+                                      f"1x1.json").read_text())
+        args.append(rec["memory_analysis"]["argument_size_in_bytes"])
+    S, d = SHAPES["train_4k"].seq_len, registry.get("musicgen-large").d_model
+    assert args[1] - args[0] == 2 * S * 4 + S * d * 4
+
+
+@pytest.mark.parametrize("name", ["musicgen-large", "smollm-135m"])
+def test_one_rank_train_cell_holds_what_the_plain_step_holds(name,
+                                                             monkeypatch):
+    """At a (1, 1) mesh the dry-run's train step (under a ``ShardCtx``)
+    holds, beyond its arguments, the same bytes at its peak as the
+    unsharded ``make_train_step`` on real CPU tensors, the step the card
+    trains with: the gradients of replicated leaves are summed in place
+    (an out-of-place sum held every such gradient twice).  Eight layers,
+    one row of 16 tokens and AdamW run in blocks of one layer, so that the
+    gradients, not the activations or the optimizer's temporaries, make
+    the peak, as at full width."""
+    monkeypatch.setattr(toptim, "_BLOCK", 1)
+    cfg = dataclasses.replace(reduced(registry.get(name)), n_layers=8)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=16,
+                                global_batch=1)
+    dry = dryrun.run_cell_fake(cfg, shape, (1, 1))["memory_analysis"]
+    opt = toptim.make_optimizer(cfg.optimizer)
+    state = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   opt, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: (torch.randn(v.shape, generator=gen) if v.is_floating_point()
+                 else torch.zeros(v.shape, dtype=v.dtype))
+             for k, v in steps.input_specs(cfg, shape).items()}
+    _, an = op_analysis.analyze(steps.make_train_step(cfg, optimizer=opt),
+                                state, batch)
+    plain = an.memory_analysis()
+    assert dry["argument_size_in_bytes"] == plain["argument_size_in_bytes"]
+    assert dry["temp_size_in_bytes"] == plain["temp_size_in_bytes"]

@@ -5,7 +5,11 @@ f32): a clean run; a NaN drill whose losses are ``==`` the clean sharded
 run's (the replay contract); ``RuntimeError("node lost")`` raised on one
 rank only, from which every rank recovers within the call's deadline
 (the ranks agree on the fault before the step, so none waits in a
-collective); a resume from a sharded checkpoint; and the clean curve
+collective); a resume from a sharded checkpoint; a rank that starts
+late, after rank 0 could have saved step 0, taking its peers' branch (the
+ranks agree on the step they start from before rank 0 writes: a late rank
+that took the resume branch alone left its peers in the save's gathers
+until the deadline killed the pool); and the clean curve
 against the reference's unsharded ``ft_loop.run`` from the reference's
 initial state within rtol 1e-4 (``test_torch_ft_loop.py``: the two
 frameworks' f32 sums differ in their last bits).  One pool of 4 spawned
@@ -37,6 +41,7 @@ SHAPE = ShapeConfig("tiny", seq_len=16, global_batch=4, kind="train")
 TINY = dict(n_layers=1, d_model=32, d_ff=64, vocab_size=64,
             compute_dtype="float32", param_dtype="float32")
 N_STEPS = 12
+LATE_RANK, LATE_WAIT_S = 3, 8.0   # outside rank 0's "model" pair
 
 
 @pytest.fixture(scope="module")
@@ -97,6 +102,21 @@ def test_resume_from_sharded_checkpoint(pool, clean, tmp_path):
     rest = _run(pool, tmp_path / "resume")
     _same_on_every_rank(rest)
     assert first[0]["losses"] + rest[0]["losses"] == clean[0]["losses"]
+
+
+def test_late_rank_starts_with_its_peers(pool, clean, tmp_path):
+    """Rank LATE_RANK waits up to LATE_WAIT_S for a step-0 checkpoint
+    before it enters the loop.  Ranks 0 and 1 need no gather with it to
+    save step 0, so without the agreement rank 0 wrote the checkpoint, the
+    late rank resumed from it and its partner waited in the save's gathers
+    until the call's deadline.  Agreed, every rank starts afresh and the
+    run is the clean one."""
+    res = pool.run(cases.ft_run_late, MESH, AXES,
+                   (_cfg(), SHAPE, str(tmp_path / "late"), N_STEPS,
+                    LATE_RANK, LATE_WAIT_S))
+    _same_on_every_rank(res)
+    assert res[0]["recoveries"] == 0 and res[0]["saves"] == 4
+    assert res[0]["losses"] == clean[0]["losses"]
 
 
 def test_clean_curve_tracks_reference(pool, tmp_path):

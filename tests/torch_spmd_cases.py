@@ -10,6 +10,8 @@ tensors, arrays and numbers.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -502,6 +504,18 @@ def ft_run(mesh, cfg, shape, ckpt_dir, n_steps, hook=None, ckpt_every=4):
     return {"losses": rep.losses, "recoveries": rep.recoveries,
             "replayed": rep.steps_replayed, "events": rep.events,
             "saves": rep.ckpt_stats["saves"]}
+
+
+def ft_run_late(mesh, cfg, shape, ckpt_dir, n_steps, late, wait_s):
+    """``ft_run`` with rank ``late`` starting late: before it calls the
+    loop it waits, up to ``wait_s`` seconds, for a step-0 checkpoint to
+    appear in ``ckpt_dir``, as a rank slowed by a loaded machine might
+    find the one its peers are still saving."""
+    if mesh.rank == late:
+        end = time.monotonic() + wait_s
+        while ckpt.latest_step(ckpt_dir) is None and time.monotonic() < end:
+            time.sleep(0.05)
+    return ft_run(mesh, cfg, shape, ckpt_dir, n_steps)
 
 
 def analyzed_step(mesh, cfg, shape, full, batch):
