@@ -255,7 +255,16 @@ Phases, each of which raises on failure:
    weights quantized): FLOPs by dtype (kernel rows included), collective
    counts and bytes per kind, argument bytes and the tracked peak equal,
    the predicted peak within 15 % of the step's ``max_memory_allocated``
-   rise; rows 4, 9 and 10 launched; within ``ITEM17_BUDGET_S``.
+   rise; rows 4, 9 and 10 launched; slice 21's vocabulary split over the
+   model axis: qwen3-0.6b in full (flash, AdamW) trained one step at 8 x
+   4,096 as rank 0 of a fake (1, 16) process group in a spawned child, on
+   the card's tensors (the collectives move nothing: no value is checked),
+   against its dry-run on meta: FLOPs by dtype, collective counts (also
+   as ``_shard_collectives`` derives them) and bytes, argument bytes and
+   the tracked peak equal, the predicted rise within 15 % of the card's,
+   rows 9 and 10 launched 56 and 28 times; the (1, 1) dry-run's peak of
+   the same step, the vocabulary whole, printed beside it; within
+   ``ITEM17_BUDGET_S``.
 23. slice 18 (``phase_examples``): each of the seven walkthroughs in
    ``examples/*_torch.py`` through its ``run()`` on the card at full
    width, over what the earlier phases drew (SmolLM-135M, the training
@@ -391,7 +400,7 @@ BWD_REPLACES = {
 }
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024   # ShapeConfig(kind="train"), 8192 tokens
 TRAIN_STEPS = 12
-TRAIN_CKPT_EVERY = 4
+TRAIN_CKPT_EVERY = 8               # saves at steps 0 and 8 (the resume point)
 TRAIN_NAN_STEP = 9
 TRAIN_RESUME_AT = 8
 TRAIN_ROUNDS = 3                   # timing rounds of one train step
@@ -2219,7 +2228,7 @@ def _executed(rep) -> int:
 def phase_train(tcfg, shape):
     """The main path of slice 4, with the attention launch counts reset
     before it and read after it: ``ft_loop.run`` in a temporary directory —
-    a clean run of 12 steps (checkpoint every 4; the loss falls; the
+    a clean run of 12 steps (checkpoint every 8; the loss falls; the
     examples phase's training example is a second clean run and an SEU
     drill with one recovery, each held ``==`` to it there, and the item17
     phase's sharded loop recovers from a NaN at step 9 onto it), the clean
@@ -5280,32 +5289,44 @@ SHARD_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse", "flash_attention_bwd")
 SHARD_BUDGET_S = 45                # the phase's share of the limit
 
 
-def _shard_collectives(cfg, kind, specs, calls=1):
+def _shard_collectives(cfg, kind, specs, calls=1, model=1):
     """Each kind's count of the collectives that ``calls`` calls of
     ``kind`` ("prefill", "decode" or "train", a step) issue under a
-    ShardCtx on the (1, 1) ("data", "model") mesh.  The gathers come from
-    the parameters' spec table ``specs`` (``param_specs``) and the model's
-    own leaf groups (``_ATTN_LEAVES``, ``_FFN_LEAVES``): each entry that
-    names an axis is one gather where its layer uses the leaf, but for the
-    model dim of a leaf that runs tensor-parallel (attention's in a
-    prefill or a train step, the FFN's and the experts' always); decode
-    attention and the ends (the embedding, the head) gather theirs whole.
-    What the table cannot give is written here: the code's sums, one per
-    row-parallel product (attention's ``wo`` outside decode, the FFN's
-    ``wd`` and the shared experts' ``ws_o``, two under W8A8: the absmax's
-    MAX and the int32 sum), the expert combine's sum and the aux/z
-    ``pmean`` of a MoE layer, the CE's sum over the batch, and the
-    prefill's K/V heads gathered for the cache.  At one shard the decode
-    softmax is the unsharded one, with no flash-decoding reductions.  In a
+    ShardCtx on a (1, ``model``) ("data", "model") mesh.  The gathers come
+    from the parameters' spec table ``specs`` (``param_specs`` on that
+    mesh) and the model's own leaf groups (``_ATTN_LEAVES``,
+    ``_FFN_LEAVES``): each entry that names an axis is one gather where
+    its layer uses the leaf, but for the model dim of a leaf that runs
+    tensor-parallel (attention's q leaves in a prefill or a train step
+    where the axis divides the heads, its k/v leaves where it divides the
+    KV heads too; the FFN's and the experts' always); decode attention
+    gathers its leaves whole.  The ends: at one model rank the embedding
+    and the head gather theirs whole; on more (the vocabulary split) the
+    embedding keeps its model dim and sums its rows over the axis (one
+    all-reduce), and so does a train step's head (the loss's columns),
+    while a prefill's and a decode step's head, which return whole
+    logits, gather it whole.  What the table cannot give is written here:
+    the code's sums, one per row-parallel product (attention's ``wo``
+    outside decode where its q heads are local, the FFN's ``wd`` and the
+    shared experts' ``ws_o``, two under W8A8: the absmax's MAX and the
+    int32 sum), the expert combine's sum and the aux/z ``pmean`` of a MoE
+    layer, the CE's sum over the batch and, with the vocabulary split, its
+    MAX, sum of exponentials and gold logit over the model axis, and the
+    prefill's K/V heads gathered for the cache where they are local.  At
+    one shard the decode softmax is the unsharded one; on more its max,
+    sum and P·V are reduced over the time shards (flash-decoding).  In a
     train step each forward gather's adjoint is a reduce-scatter and each
-    sum's a sum, the blocks' recompute under remat re-issues their gathers,
-    attention's sum and, where shared experts follow it, the expert
-    combine's sum (PyTorch's checkpoint recomputes a block only up to the
-    last tensor its backward saves), then one sum per parameter whose
-    spec leaves an axis out, one per set of axes in the global norm, and
-    Adafactor's means over sharded dims (``optim.adafactor``)."""
+    sum's a sum (the MAX has none), the blocks' recompute under remat
+    re-issues their gathers, attention's sum and, where shared experts
+    follow it, the expert combine's sum (PyTorch's checkpoint recomputes a
+    block only up to the last tensor its backward saves), then one sum per
+    parameter whose spec leaves an axis out, one per set of axes in the
+    global norm, and Adafactor's means over sharded dims
+    (``optim.adafactor``).  The MoE's expert-TP layout (E not divided by
+    the axis) is not derived."""
     from repro_torch import tree
-    from repro_torch.models.transformer import _ATTN_LEAVES, _FFN_LEAVES
+    from repro_torch.models.transformer import (_ATTN_LEAVES, _FFN_LEAVES,
+                                                _KV_LEAVES, moe_mode)
     from repro_torch.parallel.sharding import entry_axes
 
     def gathers(spec, keep_model):
@@ -5313,30 +5334,42 @@ def _shard_collectives(cfg, kind, specs, calls=1):
             keep_model and entry_axes(e) == ("model",)))
 
     m, L = cfg.moe, cfg.n_layers
+    if m is not None and moe_mode(cfg, model) != "ep":
+        raise ValueError("expert-TP collectives are not derived")
     n_moe = 0 if m is None else L - m.n_dense_layers
+    split = model > 1                  # the vocabulary over the model axis
+    tq = cfg.n_heads % model == 0
+    tkv = tq and cfg.n_kv_heads % model == 0
     head = "embed" if cfg.tie_embeddings else "lm_head"
-    ends = gathers(specs["embed"], False) + gathers(specs[head], False)
+    embed_g = gathers(specs["embed"], split)
+    head_whole = gathers(specs[head], False)
     attn_tp = attn_whole = ffn_g = 0   # a forward's gathers of the blocks
     for blk, n in (("dense_blocks", L - n_moe), ("moe_blocks", n_moe)):
         for k, spec in specs.get(blk, {}).items():
             if k in _ATTN_LEAVES:
-                attn_tp += n * gathers(spec, True)
+                attn_tp += n * gathers(spec, tkv if k in _KV_LEAVES else tq)
                 attn_whole += n * gathers(spec, False)
             elif k in _FFN_LEAVES or blk == "moe_blocks":
                 ffn_g += n * gathers(spec, True)
     prod = 2 if cfg.quant == "w8a8_ffn" else 1
     moe_r = 0 if m is None else 2 + (m.n_shared_experts > 0) * prod
     ffn_r = (L - n_moe) * prod + n_moe * moe_r
+    attn_r = L * tq                    # wo's sum over local q heads
     if kind == "decode":
-        out = {"all_gather": ends + attn_whole + ffn_g, "all_reduce": ffn_r,
+        out = {"all_gather": embed_g + head_whole + attn_whole + ffn_g,
+               "all_reduce": split + 3 * L * (model > 1) + ffn_r,
                "reduce_scatter": 0}
     elif kind == "prefill":
-        out = {"all_gather": ends + attn_tp + ffn_g + 2 * L,
-               "all_reduce": L + ffn_r, "reduce_scatter": 0}
+        out = {"all_gather": embed_g + head_whole + attn_tp + ffn_g
+               + 2 * L * tkv,
+               "all_reduce": split + attn_r + ffn_r, "reduce_scatter": 0}
     else:
-        blk_g, blk_r = attn_tp + ffn_g, L + ffn_r
+        ends = embed_g + gathers(specs[head], split)
+        blk_g, blk_r = attn_tp + ffn_g, attn_r + ffn_r
         shared = 0 if m is None else n_moe * (m.n_shared_experts > 0)
-        re_g, re_r = (blk_g, L + shared) if cfg.remat != "none" else (0, 0)
+        re_g, re_r = (blk_g, attn_r + shared) if cfg.remat != "none" \
+            else (0, 0)
+        ce_f, ce_b = (1 + 3 * split), (1 + 2 * split)  # batch, vocab sums
         named = [{a for e in sp for a in entry_axes(e)}
                  for sp in tree.leaves(specs)]
         opt_r = 0                      # Adafactor's means over shards
@@ -5346,7 +5379,8 @@ def _shard_collectives(cfg, kind, specs, calls=1):
                 opt_r += 1 + (on[-1] + 2 * on[-2] if len(on) >= 2 else 0)
         out = {"all_gather": ends + blk_g + re_g,
                "reduce_scatter": ends + blk_g,
-               "all_reduce": (1 + blk_r + re_r) + (1 + blk_r)
+               "all_reduce": (ce_f + split + blk_r + re_r)
+               + (ce_b + split + blk_r)
                + sum(a != {"data", "model"} for a in named)
                + len({frozenset(a) for a in named if a}) + opt_r}
     out = {k: v * calls for k, v in out.items()}
@@ -5856,15 +5890,164 @@ def _item17_on_card(mesh, start, dry, failed):
     return out, peak
 
 
-def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses) -> dict:
+# the vocabulary split over the model axis: qwen3-0.6b's train cell as
+# rank 0 of a fake (1, 16) mesh, on the card
+VOCAB_MESH = (1, 16)
+VOCAB_ROWS = 8                     # rows of TRAIN_4K_SEQ tokens
+
+
+def _vocab_cell():
+    """(cfg, shape) of the vocab-split cell: qwen3-0.6b in full (28
+    layers, AdamW, remat save_dots), flash, VOCAB_ROWS x TRAIN_4K_SEQ."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ShapeConfig
+    return (dataclasses.replace(registry.get("qwen3-0.6b"),
+                                attn_impl="flash"),
+            ShapeConfig(f"train_{VOCAB_ROWS}x{TRAIN_4K_SEQ}", TRAIN_4K_SEQ,
+                        VOCAB_ROWS, "train"))
+
+
+class VocabDry:
+    """The dry-run (``launch.dryrun.run_cells`` on meta) of the vocab-split
+    cell at VOCAB_MESH and, for the whole-vocabulary step beside it, at a
+    (1, 1) mesh, in a spawned child started early (each ~40 s of CPU)."""
+
+    def __init__(self):
+        from repro_torch.launch import dryrun
+        cfg, shape = _vocab_cell()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=__import__("multiprocessing").get_context("spawn"))
+        self.run = self.pool.submit(dryrun.run_cells, [
+            (cfg, shape, VOCAB_MESH), (cfg, shape, (1, 1))])
+
+    def result(self):
+        """The two records, waiting at most TRAIN_DRY_WAIT_S."""
+        try:
+            return self.run.result(TRAIN_DRY_WAIT_S)
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+
+
+def _vocab_on_card():
+    """The vocab-split cell's step for real on the card, in a spawned
+    child (its fake process group never meets the caller's NCCL group):
+    rank 0 of a fake VOCAB_MESH group (``dryrun.fake_process_group``,
+    whose collectives move nothing, so no value is checked), the seeded
+    state drawn whole on the card and cut by ``dryrun.build_cell`` into
+    this rank's shards, the step run under ``launch.op_analysis``.
+    Returns its summary and memory analysis, the ``max_memory_allocated``
+    rise over the arguments, rows 9 and 10's launches, the collectives
+    ``_shard_collectives`` derives for it and its seconds."""
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.flashattn import kernel as FK
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.train import optim, steps
+    cfg, shape = _vocab_cell()
+    t0 = time.perf_counter()
+    with dryrun.fake_process_group(math.prod(VOCAB_MESH)):
+        mesh = make_mesh(VOCAB_MESH, ("data", "model"), device=DEVICE)
+        state = steps.init_train_state(
+            cfg, torch.Generator(device=DEVICE).manual_seed(32),
+            optim.make_optimizer(cfg.optimizer), device=DEVICE)
+        derived = _shard_collectives(
+            cfg, "train", param_specs(cfg, state.params, ("data",), "model",
+                                      mesh), model=VOCAB_MESH[1])
+        batch = {k: torch.from_numpy(v) for k, v in
+                 TokenStream(cfg, shape).batch_at(0).items()}
+        fn, args = dryrun.build_cell(cfg, shape, mesh, state=state,
+                                     batch=batch)
+        del state, batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        FK.reset_launches()
+        t1 = time.perf_counter()
+        res, an = op_analysis.analyze(fn, *args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        rise = torch.cuda.max_memory_allocated() - base
+        del res, args
+    return {"summary": an.summary(), "memory": an.memory_analysis(),
+            "rise": rise, "launches": {k.__name__: k.launches
+                                       for k in FK.KERNELS},
+            "derived": derived, "step_s": step_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def _item17_vocab_split(card_run, dry, failed):
+    """The vocab-split cell on the card (``card_run``, ``_vocab_on_card``'s
+    record) against its dry-run on meta (``dry``, ``VocabDry``'s records):
+    FLOPs by dtype (kernel rows included), collective counts and bytes per
+    kind, argument bytes and the tracked peak equal; the collective counts
+    as ``_shard_collectives`` derives them; the predicted rise within
+    ITEM17_PEAK_RTOL of the card's; rows 9 and 10 launched 2·L and L times
+    (the forward and its recompute, the backward).  The (1, 1) dry-run's
+    predicted peak, the step with the vocabulary whole, is printed beside
+    it."""
+    cfg, shape = _vocab_cell()
+    rec, whole = dry
+    card_sum, card_mem = card_run["summary"], card_run["memory"]
+    dsum, dmem = rec["op_analysis"], rec["memory_analysis"]
+    same = {k: card_sum[k] == dsum[k] for k in
+            ("flops_by_dtype", "collective_counts", "collective_bytes")}
+    same.update({k: card_mem[k] == dmem[k] for k in
+                 ("argument_size_in_bytes", "peak_bytes")})
+    from repro_torch.launch.op_analysis import _KIND
+    derived = {_KIND[k]: v for k, v in card_run["derived"].items()}
+    counted = card_sum["collective_counts"] == derived
+    L = cfg.n_layers
+    want_l = {"flash_attention_fwd_lse": (2 if cfg.remat != "none" else 1)
+              * L, "flash_attention_bwd": L}
+    launched = {k: card_run["launches"][k] for k in want_l} == want_l
+    ratio = dmem["peak_live_bytes"] / card_run["rise"]
+    ok = all(same.values()) and counted and launched and \
+        abs(ratio - 1) <= ITEM17_PEAK_RTOL
+    print(f"item17: vocab split, {cfg.name} in full (flash, "
+          f"{cfg.optimizer}) train step at {shape.global_batch} x "
+          f"{shape.seq_len} as rank 0 of a fake {VOCAB_MESH} mesh on the "
+          f"card (the collectives move nothing: values not checked): equal "
+          f"to the dry-run {same}; collectives {card_sum['collective_counts']}"
+          f" = derived: {counted}; launches {card_run['launches']} = derived "
+          f"{want_l}: {launched}; args "
+          f"{card_mem['argument_size_in_bytes'] / 1e9:.3f} GB; predicted "
+          f"rise {dmem['peak_live_bytes'] / 1e9:.3f} GB against the card's "
+          f"{card_run['rise'] / 1e9:.3f} GB (ratio {ratio:.4f}, limit 1 ± "
+          f"{ITEM17_PEAK_RTOL}); predicted peak "
+          f"{dmem['peak_bytes'] / 1e9:.3f} GB a rank, at a (1, 1) mesh "
+          f"(the vocabulary whole) {whole['memory_analysis']['peak_bytes'] / 1e9:.3f}"
+          f" GB; step {card_run['step_s']:.2f} s, child "
+          f"{card_run['seconds']:.2f} s, dry-runs {rec['run_s']:.2f} + "
+          f"{whole['run_s']:.2f} s" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("the vocab-split cell")
+        print(f"  card {card_mem} {card_sum}\n  dry {dmem} {dsum}\n  "
+              f"derived {derived}")
+    return {"equal": same, "collectives_as_derived": counted,
+            "launches": card_run["launches"], "launches_as_derived":
+            launched, "card_memory": card_mem, "dry_memory": dmem,
+            "rise_bytes": card_run["rise"], "peak_ratio": ratio,
+            "whole_vocab_peak_bytes": whole["memory_analysis"]["peak_bytes"],
+            "flops_by_dtype": card_sum["flops_by_dtype"],
+            "collective_counts": card_sum["collective_counts"],
+            "step_s": card_run["step_s"], "child_s": card_run["seconds"],
+            "dry_run_s": [rec["run_s"], whole["run_s"]]}
+
+
+def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
+                 vocab_dry: VocabDry) -> dict:
     """Slice 17 under NCCL at world size 1 in this process: the pipeline
     (``_item17_pipeline``, a one-rank "stage" mesh), the sharded FT loop
     (``_item17_ft_loop``, a (1, 1) ("data", "model") mesh) and the dry-run
     against the card (``_item17_on_card``), its meta runs started first in
     a spawned child (``dryrun.run_cells``: its fake process group never
-    meets this one) and read at the end.  Launch counts are reset at
-    its start and read at its end; the process group is torn down at its
-    end."""
+    meets this one) and read at the end; and slice 21's vocab-split cell
+    (``_vocab_on_card`` in a spawned child beside the pipeline and the FT
+    loop, held by ``_item17_vocab_split`` against ``vocab_dry``).  Launch
+    counts are reset at its start and read at its end; the process group
+    is torn down at its end."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh, process_group
     from repro_torch.parallel import collectives as C
@@ -5878,6 +6061,9 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses) -> dict:
     pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=__import__("multiprocessing").get_context("spawn"))
     dry = pool.submit(dryrun.run_cells, [(c, s, (1, 1)) for _, c, s in cells])
+    vocab_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=__import__("multiprocessing").get_context("spawn"))
+    vocab_run = vocab_pool.submit(_vocab_on_card)
     for b, kv, s, hd in ((1, 8, 1024, 128), (1, 8, 4608, 128),
                          (8, 3, 1024, 64)):
         if FK.bwd_workspace_floats(b, kv, s, hd) != \
@@ -5896,6 +6082,12 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses) -> dict:
         out["pipeline"] = _item17_pipeline(stage_mesh, gen, failed)
         out["ft_loop"] = _item17_ft_loop(tcfg, tshape, mesh, clean_losses,
                                          failed)
+        try:
+            card_run = vocab_run.result(timeout=ITEM17_BUDGET_S)
+        finally:
+            vocab_pool.shutdown(cancel_futures=True)
+        out["vocab_split"] = _item17_vocab_split(card_run,
+                                                 vocab_dry.result(), failed)
         try:
             records = dry.result(timeout=ITEM17_BUDGET_S)
         finally:
@@ -6173,6 +6365,7 @@ def main() -> None:
     # the trained models' dry-run steps run on meta in spawned children
     # beside the phases before them
     train_dry = TrainDry()
+    vocab_dry = VocabDry()
     specs = shipdet.network_specs(194)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_err = phase_compare(specs, gen)
@@ -6244,7 +6437,7 @@ def main() -> None:
     moe_train = phase_moe_train(card, start)
     shard = phase_shard(card, start)
     item17 = phase_item17(card, start, tcfg, tshape,
-                          train["runs"]["clean"][0]["losses"])
+                          train["runs"]["clean"][0]["losses"], vocab_dry)
     del start
     examples = phase_examples(
         card, (cfg, lm_params),

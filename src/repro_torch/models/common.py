@@ -257,9 +257,41 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    return _mean_nll(logz - gold, mask, psum, n_shards)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 v_lo: int, vmax, vsum,
+                                 mask: Optional[torch.Tensor] = None,
+                                 psum=None, n_shards: int = 1
+                                 ) -> torch.Tensor:
+    """``cross_entropy_loss`` of the whole-vocabulary logits, from this
+    rank's columns ``[v_lo, v_lo + V_loc)`` (``logits`` (B, S, V_loc)).
+    ``vmax`` is the MAX over the vocabulary's shards, ``vsum`` the SUM,
+    differentiable with its exact adjoint (``collectives.all_reduce``).
+    The row max is the global MAX of the local maxima, outside the
+    gradient as ``jax.nn.logsumexp`` keeps it; Σ exp(x − max) is the SUM
+    of the local sums; the gold logit is the local gather where the label
+    falls in this rank's columns, else 0, SUMmed (one nonzero term).  So
+    the logits' gradient is each column's softmax minus its one-hot, and
+    no rank holds a row whole.  ``mask``, ``psum`` and ``n_shards`` as in
+    ``cross_entropy_loss``."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    m = vmax(logits.detach().amax(dim=-1))
+    m = torch.where(torch.isinf(m), 0.0, m)      # as torch.logsumexp
+    logz = torch.log(vsum(torch.exp(logits - m[..., None]).sum(dim=-1))) + m
+    local = labels.long() - v_lo
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1,
+                        torch.where(mine, local, 0)[..., None])[..., 0]
+    gold = vsum(torch.where(mine, gold, 0.0))
+    return _mean_nll(logz - gold, mask, psum, n_shards)
+
+
+def _mean_nll(nll: torch.Tensor, mask, psum, n_shards: int) -> torch.Tensor:
+    """The mean of the per-token ``nll`` (``cross_entropy_loss``'s)."""
     if mask is not None:
-        mask = mask.to(logits.dtype)
+        mask = mask.to(nll.dtype)
         num, den = torch.sum(nll * mask), torch.sum(mask)
         if psum is not None:
             num, den = psum(num), psum(den)

@@ -304,9 +304,10 @@ def _run(cfg, layers, x, positions, sh=None):
 
 
 def forward(cfg: ArchConfig, params, tokens, ctx=None,
-            embeds=None) -> ForwardOut:
-    """Under ``ctx`` the tokens, the logits and ``params`` are this rank's;
-    each layer's weights are gathered whole just before it runs (no
+            embeds=None, vocab_local=False) -> ForwardOut:
+    """Under ``ctx`` the tokens, the logits and ``params`` are this rank's
+    (the logits whole, or this rank's columns of the vocabulary with
+    ``vocab_local``, as ``transformer.forward``); each layer's weights are gathered whole just before it runs (no
     tensor parallelism inside the recurrence).  With ``cfg.remat`` and a
     gradient to take, each (rec, rec, attn) super-block runs under
     ``common.recompute``; the tail's rec layers do not, as in the
@@ -321,14 +322,14 @@ def forward(cfg: ArchConfig, params, tokens, ctx=None,
         x = common.recompute(_run, cfg, layers, x, positions, sh) if remat \
             else _run(cfg, layers, x, positions, sh)
     x = _run(cfg, tail_rec, x, positions, sh)
-    logits = _logits(cfg, params, x, sh)
+    logits = _logits(cfg, params, x, sh, vocab_local)
     z = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ForwardOut(logits, z, z)
 
 
 def loss_fn(cfg, params, batch, ctx=None):
     out = forward(cfg, params, batch["tokens"], ctx,
-                  embeds=batch.get("embeds"))
+                  embeds=batch.get("embeds"), vocab_local=True)
     loss = cross_entropy(sharded(cfg, ctx), out.logits, batch["labels"],
                          batch.get("mask"))
     return loss, {"ce": loss}

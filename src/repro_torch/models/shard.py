@@ -12,9 +12,19 @@ gathers, slices and sums with the collectives of ``parallel.collectives``:
   gathered just before its layer uses it and freed after (its backward
   reduce-scatters the gradient back to the shards);
 * a dimension sharded over the model axis stays local where the layer runs
-  tensor-parallel (heads, d_ff, experts), and is gathered where it runs
-  replicated (the embedding and the head, attention whose heads the axis
-  does not divide, the recurrent families, decode attention);
+  tensor-parallel (heads, d_ff, experts, the vocabulary), and is gathered
+  where it runs replicated (attention whose heads the axis does not
+  divide, the recurrent families, decode attention, and the head of the
+  entries that return whole logits);
+* the vocabulary stays split over the model axis as the reference's specs
+  lay it out (``embed: P(model, fsdp)``, ``lm_head: P(fsdp, model)``)
+  wherever the axis is free for tensor parallelism and has more than one
+  rank (``Sharded.vocab_split``): the embedding looks up the ids in this
+  rank's rows, zero elsewhere, and sums over the axis (one nonzero term
+  per position: exact); the loss's head is this rank's columns, and its
+  cross-entropy (``cross_entropy``, ``common.vocab_parallel_cross_entropy``)
+  makes the row max (MAX), the sum of exponentials and the gold logit
+  (SUMs) global over the axis, so no rank holds a logit row whole;
 * a row-parallel product (``wo``, ``wd``, the experts' combine, the shared
   experts' ``ws_o``) is summed over the model axis.  Under W8A8 the sum is
   exact: the per-row activation absmax is first made global (MAX), so that
@@ -107,6 +117,10 @@ class Sharded:
         self.tp = ctx.model not in ctx.dp
         self.msize = ctx.model_size if self.tp else 1
         self.row = RowSum(self.mesh, ctx.model) if self.tp else None
+        # the vocabulary split over the model axis (its rows of the
+        # embedding, its columns of the head and of the loss's logits)
+        self.vocab_split = self.msize > 1 and \
+            self.model_local("embed", 2) == 0
 
     # ---------------------------------------------------------- parameters
     def spec(self, name: str, ndim: int):
@@ -132,6 +146,18 @@ class Sharded:
             if self.tp and entry_axes(e) == (self.ctx.model,):
                 return dim
         return None
+
+    def vocab_lo(self, v_local: int) -> int:
+        """The first vocabulary id of this rank's ``v_local`` rows."""
+        return self.mesh.axis_index(self.ctx.model) * v_local
+
+    def vocab_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The differentiable SUM of ``t`` over the vocabulary's shards."""
+        return C.all_reduce(t, self.mesh, self.ctx.model)
+
+    def vocab_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The MAX of ``t`` over the vocabulary's shards (no gradient)."""
+        return C.all_reduce(t, self.mesh, self.ctx.model, op="max")
 
     # -------------------------------------------------------------- losses
     def pmean_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -200,14 +226,24 @@ class Sharded:
 
 def cross_entropy(sh: Optional[Sharded], logits, labels, mask=None):
     """The batch's mean next-token CE (``common.cross_entropy_loss``);
-    under ``sh`` the global batch's, from this rank's rows."""
+    under ``sh`` the global batch's, from this rank's rows.  Where
+    ``sh.vocab_split``, ``logits`` are this rank's columns of the
+    vocabulary (the models' ``forward(..., vocab_local=True)``) and the
+    loss is ``common.vocab_parallel_cross_entropy`` over the model axis:
+    every model rank gets the same loss, and its logits' gradient is the
+    softmax minus the one-hot of its own columns."""
     from repro_torch.models import common
-    if sh is None or sh.ctx.batch_axes is None:
-        return common.cross_entropy_loss(logits, labels, mask)
-    axes = sh.ctx.batch_axes
-    return common.cross_entropy_loss(
-        logits, labels, mask, psum=lambda t: C.all_reduce(t, sh.mesh, axes),
-        n_shards=sh.mesh.size(axes))
+    psum, n = None, 1
+    if sh is not None and sh.ctx.batch_axes is not None:
+        axes = sh.ctx.batch_axes
+        psum, n = (lambda t: C.all_reduce(t, sh.mesh, axes)), \
+            sh.mesh.size(axes)
+    if sh is not None and sh.vocab_split:
+        return common.vocab_parallel_cross_entropy(
+            logits, labels, sh.vocab_lo(logits.shape[-1]), sh.vocab_max,
+            sh.vocab_sum, mask, psum=psum, n_shards=n)
+    return common.cross_entropy_loss(logits, labels, mask, psum=psum,
+                                     n_shards=n)
 
 
 def sharded(cfg, ctx: Optional[ShardCtx]) -> Optional[Sharded]:

@@ -96,8 +96,15 @@ GSPMD and ``shard_map``:
   accumulators, exactly), so the fixed-order combine runs on whole rows;
   the shared experts are tensor-parallel; aux and z are ``pmean``ed over
   dp + (model,);
-* the embedding and the head are gathered where they are used (vocab
-  over the model axis, d over dp), so the logits are whole on each rank;
+* the vocabulary stays split over the model axis as the reference's
+  specs lay it out, where the axis has more than one rank and is free for
+  tensor parallelism (``Sharded.vocab_split``): the embedding looks up
+  this rank's rows and sums over the axis (exact: one nonzero term per
+  position), and the loss takes this rank's columns of the logits
+  through a vocab-parallel cross-entropy (``shard.cross_entropy``).
+  ``forward``, ``prefill`` and ``decode_step`` return whole logits: their
+  head is gathered over the model axis, as at one rank; d is gathered
+  over dp (FSDP) in every entry;
 * ``decode_step`` reads a cache laid out by ``cache_specs``: batch over
   dp, the time dim over the model axis.  Each rank writes the new row
   where it owns its slot and attends to its slots; the softmax's max and
@@ -594,12 +601,16 @@ def _ffn(cfg: ArchConfig, bp, x, moe: bool, sh=None):
     return _dense_ffn(cfg, bp, x, sh), None, None
 
 
-def _logits(cfg: ArchConfig, params, x, sh=None):
+def _logits(cfg: ArchConfig, params, x, sh=None, vocab_local=False):
     """Final norm and head: the tied embedding's transpose or
-    ``lm_head``, gathered where it is used under ``sh``."""
+    ``lm_head``, gathered where it is used under ``sh``.  With
+    ``vocab_local`` and ``sh.vocab_split`` the head is gathered over the
+    dp axes only: this rank's columns of the vocabulary, (B, S, V/m)
+    logits (the loss's, ``shard.cross_entropy``)."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
     name = "embed" if cfg.tie_embeddings else "lm_head"
-    head = params[name] if sh is None else sh.gather(params[name], name)
+    head = params[name] if sh is None else sh.gather(
+        params[name], name, keep_model=vocab_local and sh.vocab_split)
     if cfg.tie_embeddings:
         head = head.T
     return x @ head.to(x.dtype)
@@ -607,13 +618,24 @@ def _logits(cfg: ArchConfig, params, x, sh=None):
 
 def _embed(cfg: ArchConfig, params, tokens, sh=None):
     """The embedding rows of ``tokens``, an out-of-range id read as JAX's
-    gather reads it: negative ids count from the end once, then clamp."""
-    table = params["embed"] if sh is None else sh.gather(params["embed"],
-                                                          "embed")
-    V = table.shape[0]
+    gather reads it: negative ids count from the end once, then clamp.
+    Where ``sh.vocab_split`` the table is this rank's rows ``[v_lo, v_lo
+    + V/m)`` (gathered over the dp axes only): the ids in them are looked
+    up, the others read zero, and one SUM over the model axis gives every
+    row (one nonzero term each, so exact); the gradient reaches only this
+    rank's rows."""
+    split = sh is not None and sh.vocab_split
+    table = params["embed"] if sh is None else sh.gather(
+        params["embed"], "embed", keep_model=split)
+    V = table.shape[0] * (sh.msize if split else 1)
     ids = tokens.long()
     ids = torch.clamp(torch.where(ids < 0, ids + V, ids), 0, V - 1)
-    return F.embedding(ids, table).to(_cdt(cfg))
+    if not split:
+        return F.embedding(ids, table).to(_cdt(cfg))
+    local = ids - sh.vocab_lo(table.shape[0])
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(mine, local, 0), table).to(_cdt(cfg))
+    return sh.vocab_sum(torch.where(mine[..., None], rows, 0))
 
 
 class ForwardOut(NamedTuple):
@@ -644,11 +666,12 @@ def _inputs(cfg: ArchConfig, params, tokens, embeds=None, sh=None):
 
 
 def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
-           embeds=None, sh=None):
+           embeds=None, sh=None, vocab_local=False):
     """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
     norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
-    ``remat`` recomputes each block in the backward.  Returns (logits,
-    aux, z_loss), the last two summed over the MoE layers."""
+    ``remat`` recomputes each block in the backward; ``vocab_local`` as in
+    ``_logits``.  Returns (logits, aux, z_loss), the last two summed over
+    the MoE layers."""
     x = _inputs(cfg, params, tokens, embeds, sh)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -664,7 +687,7 @@ def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
             x, a, z = _ffn(cfg, bp, x, moe, sh)
         if moe:
             aux, zl = aux + a, zl + z
-    return _logits(cfg, params, x, sh), aux, zl
+    return _logits(cfg, params, x, sh, vocab_local), aux, zl
 
 
 def _remat(cfg: ArchConfig, params) -> bool:
@@ -675,12 +698,16 @@ def _remat(cfg: ArchConfig, params) -> bool:
 
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
-            embeds=None) -> ForwardOut:
+            embeds=None, vocab_local=False) -> ForwardOut:
     """tokens: (B, S) int (or embeds (B, S, d)) → logits (B, S, V), and the
     MoE layers' mean aux and z losses (zero for a dense config).  Under
-    ``ctx`` the tokens, the logits and ``params`` are this rank's."""
+    ``ctx`` the tokens, the logits and ``params`` are this rank's; the
+    logits are whole (the head gathered over the model axis) unless
+    ``vocab_local`` asks for this rank's columns of the vocabulary where
+    it is split (``Sharded.vocab_split``), as ``loss_fn`` does."""
     logits, aux, zl = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
-                             embeds=embeds, sh=sharded(cfg, ctx))
+                             embeds=embeds, sh=sharded(cfg, ctx),
+                             vocab_local=vocab_local)
     denom = max(_n_moe(cfg), 1)
     return ForwardOut(logits, aux / denom, zl / denom)
 
@@ -691,7 +718,7 @@ def loss_fn(cfg: ArchConfig, params, batch, ctx=None):
     "labels", optional "mask"); under ``ctx`` the CE is the global
     batch's, from this rank's rows."""
     out = forward(cfg, params, batch["tokens"], ctx,
-                  embeds=batch.get("embeds"))
+                  embeds=batch.get("embeds"), vocab_local=True)
     loss = cross_entropy(sharded(cfg, ctx), out.logits, batch["labels"],
                          batch.get("mask"))
     if cfg.moe is not None:

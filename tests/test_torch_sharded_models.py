@@ -412,15 +412,8 @@ COUNT_CASES = {                     # registry name, changes to reduced()
 }
 
 
-@pytest.mark.parametrize("case", list(COUNT_CASES))
-def test_chip_smoke_derives_the_collective_counts(pool, case):
-    """``chip_smoke.py``'s phase_shard checks the collectives of each
-    sharded path on a one-rank NCCL group against ``_shard_collectives``,
-    derived from the spec table and the code's sums: the same derivation
-    against the counts of a prefill, decode steps and a train step on a
-    one-rank gloo group, for configs beside the smoke's own (remat, shared
-    experts, Adafactor, biases, an untied head), with FSDP as each
-    config's own."""
+def _derived_and_counted(pool, case, model):
+    import types
     from repro_torch.configs import registry
     from repro_torch.models.config import reduced
     from repro_torch.parallel.sharding import param_specs
@@ -430,15 +423,45 @@ def test_chip_smoke_derives_the_collective_counts(pool, case):
         reduced(full), **{"fsdp_params": full.fsdp_params, "remat":
                           full.remat, "compute_dtype": "float32",
                           "n_layers": 2, **kw})
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": model})
     specs = param_specs(cfg, tapi.init_params(
         cfg, torch.Generator().manual_seed(0), device="cpu"),
-        ("data",), "model", None)
+        ("data",), "model", mesh)
     smoke = _chip_smoke()
-    got = pool.run(cases.collective_counts_case, (1, 1), AXES,
-                   (cfg, 0, 3))[0]
-    want = {"prefill": smoke._shard_collectives(cfg, "prefill", specs),
+    steps = 3 if model == 1 else 4     # the cache's 24 + steps slots split
+    got = pool.run(cases.collective_counts_case, (1, model), AXES,
+                   (cfg, 0, steps))[0]
+    want = {"prefill": smoke._shard_collectives(cfg, "prefill", specs,
+                                                model=model),
             "decode": smoke._shard_collectives(cfg, "decode", specs,
-                                               calls=3)}
+                                               calls=steps, model=model)}
     if cfg.quant == "none":
-        want["train"] = smoke._shard_collectives(cfg, "train", specs)
+        want["train"] = smoke._shard_collectives(cfg, "train", specs,
+                                                 model=model)
+    return got, want
+
+
+@pytest.mark.parametrize("case", list(COUNT_CASES))
+def test_chip_smoke_derives_the_collective_counts(pool, case):
+    """``chip_smoke.py``'s phase_shard checks the collectives of each
+    sharded path on a one-rank NCCL group against ``_shard_collectives``,
+    derived from the spec table and the code's sums: the same derivation
+    against the counts of a prefill, decode steps and a train step on a
+    one-rank gloo group, for configs beside the smoke's own (remat, shared
+    experts, Adafactor, biases, an untied head), with FSDP as each
+    config's own."""
+    got, want = _derived_and_counted(pool, case, 1)
+    assert got == want
+
+
+@pytest.mark.parametrize("case", list(COUNT_CASES))
+def test_chip_smoke_derives_the_collective_counts_vocab_split(pool, case):
+    """The same derivation on a (1, 4) mesh of gloo ranks, where the
+    vocabulary is split over the model axis (the embedding's all-reduce,
+    the loss's local head and its three CE sums with their adjoints), q
+    heads are local and KV heads are not (4 and 2 heads), the experts are
+    in ``ep`` and decode attention reduces over four time shards: the
+    rule ``chip_smoke.py``'s fake (1, 16) qwen3-0.6b train cell is held
+    to on the card."""
+    got, want = _derived_and_counted(pool, case, 4)
     assert got == want

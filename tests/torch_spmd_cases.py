@@ -1,6 +1,6 @@
 """Rank bodies of the port's multi-rank CPU tests
 (``test_torch_parallel.py``, ``test_torch_sharded_models.py``,
-``test_torch_sharded_train.py``).
+``test_torch_sharded_train.py``, ``test_torch_vocab_parallel.py``, ...).
 
 ``launch.mesh.SpmdPool`` runs each body on spawned gloo ranks, which import
 this module by name: its imports are torch, numpy and the port, never jax
@@ -23,7 +23,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import SpmdPool
 from repro_torch.models import api
 from repro_torch.models import transformer as T
-from repro_torch.models.shard import ShardCtx, sharded
+from repro_torch.models.shard import ShardCtx, cross_entropy, sharded
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.sharding import (gather_tree, local_slices,
                                            param_specs, shard_tree)
@@ -528,3 +528,53 @@ def analyzed_step(mesh, cfg, shape, full, batch):
                                  device="cpu", **kw)
     _, an = op_analysis.analyze(fn, *args)
     return {"summary": an.summary(), "memory": an.memory_analysis()}
+
+
+# ------------------------------------------------- the vocabulary split
+
+
+def _seed(mesh, loss):
+    """The train step's seed of a replicated loss: 1 / world."""
+    return torch.full_like(loss, 1.0 / mesh.size(mesh.axis_names))
+
+
+def vocab_ce_case(mesh, cfg, logits, labels, mask):
+    """``shard.cross_entropy`` on this rank's rows (over "data") and
+    columns (over "model") of the whole (B, S, V) ``logits``, the
+    vocabulary split: the loss, and its gradient with respect to this
+    rank's logits under the 1 / world seed."""
+    sh = sharded(cfg, ShardCtx(mesh, ("data",), "model"))
+    assert sh.vocab_split
+    nb = logits.shape[0] // mesh.shape["data"]
+    nv = logits.shape[-1] // mesh.shape["model"]
+    rows = slice(mesh.axis_index("data") * nb,
+                 (mesh.axis_index("data") + 1) * nb)
+    cols = slice(sh.vocab_lo(nv), sh.vocab_lo(nv) + nv)
+    x = torch.from_numpy(logits[rows, :, cols]).requires_grad_()
+    m = None if mask is None else torch.from_numpy(mask[rows])
+    loss = cross_entropy(sh, x, torch.from_numpy(labels[rows]), m)
+    loss.backward(_seed(mesh, loss))
+    return {"loss": loss.detach(), "grad": x.grad}
+
+
+def vocab_embed_case(mesh, cfg, table, ids, w):
+    """``transformer._embed`` of this rank's rows of ``ids`` (over "data")
+    from its shard of ``table`` (``param_specs``: the vocabulary over
+    "model", d over "data" under FSDP), and the gradient of the global
+    Σ rows·w with respect to that shard under the 1 / world seed."""
+    ctx = ShardCtx(mesh, ("data",), "model")
+    sh = sharded(cfg, ctx)
+    assert sh.vocab_split
+    specs = param_specs(cfg, {"embed": table}, ctx.dp, ctx.model, mesh)
+    local = shard_tree({"embed": torch.from_numpy(table)}, specs, mesh,
+                       device="cpu")["embed"].requires_grad_()
+    nb = ids.shape[0] // mesh.shape["data"]
+    rows = slice(mesh.axis_index("data") * nb,
+                 (mesh.axis_index("data") + 1) * nb)
+    C.reset_counts()
+    out = T._embed(cfg, {"embed": local}, torch.from_numpy(ids[rows]), sh)
+    counts = C.counts()
+    loss = C.all_reduce((out * torch.from_numpy(w[rows])).sum(), mesh,
+                        "data")
+    loss.backward(_seed(mesh, loss))
+    return {"rows": out.detach(), "grad": local.grad, "counts": counts}
