@@ -263,7 +263,13 @@ Phases, each of which raises on failure:
    as ``_shard_collectives`` derives them) and bytes, argument bytes and
    the tracked peak equal, the predicted rise within 15 % of the card's,
    rows 9 and 10 launched 56 and 28 times; the (1, 1) dry-run's peak of
-   the same step, the vocabulary whole, printed beside it; within
+   the same step, the vocabulary whole, printed beside it; slice 22's
+   tensor parallelism inside the recurrence: recurrentgemma-2b in full
+   (AdamW, remat save_dots) trained one step at 16 x 4,096 (train_4k's
+   rows per data rank at pod16x16) as rank 0 of a fake (1, 16) group in
+   the same child, held to its dry-run the same way, its collectives as
+   derived, no kernel launched and its tracked peak under 70 GB a rank,
+   printed beside the 84.16 GB of its layers replicated; within
    ``ITEM17_BUDGET_S``.
 23. slice 18 (``phase_examples``): each of the seven walkthroughs in
    ``examples/*_torch.py`` through its ``run()`` on the card at full
@@ -401,6 +407,7 @@ BWD_REPLACES = {
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024   # ShapeConfig(kind="train"), 8192 tokens
 TRAIN_STEPS = 12
 TRAIN_CKPT_EVERY = 8               # saves at steps 0 and 8 (the resume point)
+TRAIN_DRILL_CKPT_EVERY = 5         # the drill saves steps 0 and 5 (of 10)
 TRAIN_NAN_STEP = 9
 TRAIN_RESUME_AT = 8
 TRAIN_ROUNDS = 3                   # timing rounds of one train step
@@ -2287,7 +2294,8 @@ def phase_train(tcfg, shape):
                     n_flips=3))
             return None
 
-        drill = go("drill", 10, every=3, hook=drill_hook)
+        drill = go("drill", 10, every=TRAIN_DRILL_CKPT_EVERY,
+                   hook=drill_hook)
     launches = {k.__name__: k.launches for k in FK.KERNELS}
     derived = {"flash_attention": 0, "flash_attention_checked": 0,
                "flash_attention_fwd_lse": 2 * L * executed,
@@ -5323,15 +5331,10 @@ def _shard_collectives(cfg, kind, specs, calls=1, model=1):
     parameter whose spec leaves an axis out, one per set of axes in the
     global norm, and Adafactor's means over sharded dims
     (``optim.adafactor``).  The MoE's expert-TP layout (E not divided by
-    the axis) is not derived."""
-    from repro_torch import tree
+    the axis) is not derived.  The recurrent families as
+    ``_recurrent_blocks`` derives their blocks'."""
     from repro_torch.models.transformer import (_ATTN_LEAVES, _FFN_LEAVES,
                                                 _KV_LEAVES, moe_mode)
-    from repro_torch.parallel.sharding import entry_axes
-
-    def gathers(spec, keep_model):
-        return sum(1 for e in spec if entry_axes(e) and not (
-            keep_model and entry_axes(e) == ("model",)))
 
     m, L = cfg.moe, cfg.n_layers
     if m is not None and moe_mode(cfg, model) != "ep":
@@ -5341,16 +5344,24 @@ def _shard_collectives(cfg, kind, specs, calls=1, model=1):
     tq = cfg.n_heads % model == 0
     tkv = tq and cfg.n_kv_heads % model == 0
     head = "embed" if cfg.tie_embeddings else "lm_head"
-    embed_g = gathers(specs["embed"], split)
-    head_whole = gathers(specs[head], False)
+    embed_g = _gathers(specs["embed"], split)
+    head_whole = _gathers(specs[head], False)
+    if cfg.family != "transformer":
+        blk = _recurrent_blocks(cfg, kind, specs, model)
+        if kind == "train":
+            return _train_collectives(cfg, specs, calls, split, *blk)
+        out = {"all_gather": embed_g + head_whole + blk[0],
+               "all_reduce": split + blk[1], "reduce_scatter": 0}
+        out = {k: v * calls for k, v in out.items()}
+        return dict(out, all_to_all=0, send_recv=0)
     attn_tp = attn_whole = ffn_g = 0   # a forward's gathers of the blocks
     for blk, n in (("dense_blocks", L - n_moe), ("moe_blocks", n_moe)):
         for k, spec in specs.get(blk, {}).items():
             if k in _ATTN_LEAVES:
-                attn_tp += n * gathers(spec, tkv if k in _KV_LEAVES else tq)
-                attn_whole += n * gathers(spec, False)
+                attn_tp += n * _gathers(spec, tkv if k in _KV_LEAVES else tq)
+                attn_whole += n * _gathers(spec, False)
             elif k in _FFN_LEAVES or blk == "moe_blocks":
-                ffn_g += n * gathers(spec, True)
+                ffn_g += n * _gathers(spec, True)
     prod = 2 if cfg.quant == "w8a8_ffn" else 1
     moe_r = 0 if m is None else 2 + (m.n_shared_experts > 0) * prod
     ffn_r = (L - n_moe) * prod + n_moe * moe_r
@@ -5364,27 +5375,107 @@ def _shard_collectives(cfg, kind, specs, calls=1, model=1):
                + 2 * L * tkv,
                "all_reduce": split + attn_r + ffn_r, "reduce_scatter": 0}
     else:
-        ends = embed_g + gathers(specs[head], split)
         blk_g, blk_r = attn_tp + ffn_g, attn_r + ffn_r
         shared = 0 if m is None else n_moe * (m.n_shared_experts > 0)
         re_g, re_r = (blk_g, attn_r + shared) if cfg.remat != "none" \
             else (0, 0)
-        ce_f, ce_b = (1 + 3 * split), (1 + 2 * split)  # batch, vocab sums
-        named = [{a for e in sp for a in entry_axes(e)}
-                 for sp in tree.leaves(specs)]
-        opt_r = 0                      # Adafactor's means over shards
-        for sp in tree.leaves(specs) if cfg.optimizer == "adafactor" else ():
-            on = [bool(entry_axes(e)) for e in sp]
-            if any(on):                # the update's RMS; vr, vc, mean(vr)
-                opt_r += 1 + (on[-1] + 2 * on[-2] if len(on) >= 2 else 0)
-        out = {"all_gather": ends + blk_g + re_g,
-               "reduce_scatter": ends + blk_g,
-               "all_reduce": (ce_f + split + blk_r + re_r)
-               + (ce_b + split + blk_r)
-               + sum(a != {"data", "model"} for a in named)
-               + len({frozenset(a) for a in named if a}) + opt_r}
+        return _train_collectives(cfg, specs, calls, split, blk_g, blk_r,
+                                  re_g, re_r)
     out = {k: v * calls for k, v in out.items()}
     return dict(out, all_to_all=0, send_recv=0)
+
+
+def _gathers(spec, keep_model):
+    """The gathers of a leaf of spec ``spec`` for use: one per dim that
+    names an axis, but the model dim where ``keep_model``."""
+    from repro_torch.parallel.sharding import entry_axes
+    return sum(1 for e in spec if entry_axes(e) and not (
+        keep_model and entry_axes(e) == ("model",)))
+
+
+def _train_collectives(cfg, specs, calls, split, blk_g, blk_r, re_g, re_r):
+    """A train step's collectives from its blocks' forward gathers and
+    sums (``blk_g``, ``blk_r``) and those their recompute runs again
+    (``re_g``, ``re_r``): see ``_shard_collectives``."""
+    from repro_torch import tree
+    from repro_torch.parallel.sharding import entry_axes
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    ends = _gathers(specs["embed"], split) + _gathers(specs[head], split)
+    ce_f, ce_b = (1 + 3 * split), (1 + 2 * split)  # batch, vocab sums
+    named = [{a for e in sp for a in entry_axes(e)}
+             for sp in tree.leaves(specs)]
+    opt_r = 0                          # Adafactor's means over shards
+    for sp in tree.leaves(specs) if cfg.optimizer == "adafactor" else ():
+        on = [bool(entry_axes(e)) for e in sp]
+        if any(on):                    # the update's RMS; vr, vc, mean(vr)
+            opt_r += 1 + (on[-1] + 2 * on[-2] if len(on) >= 2 else 0)
+    out = {"all_gather": ends + blk_g + re_g,
+           "reduce_scatter": ends + blk_g,
+           "all_reduce": (ce_f + split + blk_r + re_r)
+           + (ce_b + split + blk_r)
+           + sum(a != {"data", "model"} for a in named)
+           + len({frozenset(a) for a in named if a}) + opt_r}
+    out = {k: v * calls for k, v in out.items()}
+    return dict(out, all_to_all=0, send_recv=0)
+
+
+def _recurrent_blocks(cfg, kind, specs, model):
+    """The gathers and sums of an rwkv6 or griffin call's blocks under a
+    ShardCtx on a (1, ``model``) mesh: (gathers, sums) for a prefill or a
+    decode step, (gathers, sums, and those the recompute runs again) for a
+    train step's forward.  Where a block runs tensor-parallel (``model`` >
+    1 dividing rwkv6's heads, griffin's width) its leaves keep their model
+    dims, and it sums each row-parallel product (rwkv6's ``wo`` and
+    ``cm_wv``; griffin's ``w_out``, each MLP's ``mlp_o``, and attention's
+    ``wo`` where the axis divides the q heads, whose leaves then keep it,
+    the k/v leaves where it divides the KV heads too); griffin gathers
+    each recurrent block's conv output for ``w_a``/``w_i``.  Otherwise
+    every leaf is gathered whole.  A prefill gathers a tensor-parallel
+    rwkv6 layer's WKV state (replicated in the cache) and a griffin
+    attention layer's local K/V heads; a decode step the WKV state too,
+    and the cache's shift states (rwkv6's ``tm_x``, ``cm_x``) or, where
+    griffin does not run tensor-parallel, its ``conv`` and ``h``.  Decode
+    attention gathers its leaves whole.  Under remat a rwkv6 layer's
+    recompute runs its gathers and both sums again (``cm_wv``'s is saved
+    for the product with the receptance), a griffin super-block's all its
+    gathers and all its sums but the last (its attention MLP's); the tail
+    is not recomputed."""
+    from repro_torch.models.transformer import _KV_LEAVES, _Q_LEAVES
+    L = cfg.n_layers
+    remat = kind == "train" and cfg.remat != "none"
+    if cfg.family == "rwkv":
+        tp = model > 1 and (cfg.d_model // cfg.recurrent.head_dim) % model \
+            == 0
+        g = L * sum(_gathers(sp, tp) for sp in specs["blocks"].values())
+        r = 2 * L * tp
+        if kind == "train":
+            return (g, r) + ((g, r) if remat else (0, 0))
+        return (g + L * tp + 2 * (kind == "decode"), r)
+    n_super = L // 3
+    W = cfg.recurrent.lru_width or cfg.d_model
+    tp = model > 1 and W % model == 0
+    tq = tp and kind != "decode" and cfg.n_heads % model == 0
+    tkv = tq and cfg.n_kv_heads % model == 0
+    keep = dict.fromkeys(_Q_LEAVES, tq) | dict.fromkeys(_KV_LEAVES, tkv)
+
+    def block(name):
+        """(gathers, sums) of one block of the stack ``name``."""
+        g = sum(_gathers(sp, keep.get(k, tp))
+                for k, sp in specs[name].items())
+        if name == "attn_blocks":
+            return g + 2 * tkv * (kind == "prefill"), tq + tp
+        return g + tp, 2 * tp
+    rg, rr = block("rec_blocks") if n_super else (0, 0)
+    ag, ar = block("attn_blocks") if n_super else (0, 0)
+    tg, tr = block("tail_rec") if "tail_rec" in specs else (0, 0)
+    n_tail = L - 3 * n_super
+    g = n_super * (2 * rg + ag) + n_tail * tg
+    r = n_super * (2 * rr + ar) + n_tail * tr
+    if kind == "train":
+        if not remat:
+            return g, r, 0, 0
+        return g, r, n_super * (2 * rg + ag), n_super * (2 * rr + ar - tp)
+    return g + 2 * (kind == "decode" and not tp), r
 
 
 def _add(a, b):
@@ -5891,9 +5982,17 @@ def _item17_on_card(mesh, start, dry, failed):
 
 
 # the vocabulary split over the model axis: qwen3-0.6b's train cell as
-# rank 0 of a fake (1, 16) mesh, on the card
+# rank 0 of a fake (1, 16) mesh, on the card; and tensor parallelism inside
+# the recurrence: recurrentgemma-2b's train_4k cell at pod16x16 likewise
 VOCAB_MESH = (1, 16)
 VOCAB_ROWS = 8                     # rows of TRAIN_4K_SEQ tokens
+REC_TP_ROWS = 16                   # train_4k's rows per data rank at pod16x16
+REC_TP_PEAK_BYTES = 70e9           # the cell's tracked peak a rank, limit
+# the same cell's dry-run peak a rank with every recurrent layer gathered
+# whole on each model rank (``python -m repro_torch.launch.dryrun --arch
+# recurrentgemma-2b --shape train_4k`` before the layers ran on their
+# shards), printed beside the cell's
+REC_TP_REPLICATED_GB = 84.16
 
 
 def _vocab_cell():
@@ -5907,36 +6006,58 @@ def _vocab_cell():
                         VOCAB_ROWS, "train"))
 
 
+def _rec_tp_cell():
+    """(cfg, shape) of the recurrent tensor-parallel cell: recurrentgemma-2b
+    in full (26 layers, AdamW, remat save_dots), REC_TP_ROWS x
+    TRAIN_4K_SEQ."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ShapeConfig
+    return (registry.get("recurrentgemma-2b"),
+            ShapeConfig(f"train_{REC_TP_ROWS}x{TRAIN_4K_SEQ}", TRAIN_4K_SEQ,
+                        REC_TP_ROWS, "train"))
+
+
 class VocabDry:
     """The dry-run (``launch.dryrun.run_cells`` on meta) of the vocab-split
     cell at VOCAB_MESH and, for the whole-vocabulary step beside it, at a
-    (1, 1) mesh, in a spawned child started early (each ~40 s of CPU)."""
+    (1, 1) mesh, and of the recurrent tensor-parallel cell at VOCAB_MESH,
+    in a spawned child started early (~40, ~40 and ~15 s of CPU)."""
 
     def __init__(self):
         from repro_torch.launch import dryrun
         cfg, shape = _vocab_cell()
+        rcfg, rshape = _rec_tp_cell()
         self.pool = concurrent.futures.ProcessPoolExecutor(
             1, mp_context=__import__("multiprocessing").get_context("spawn"))
         self.run = self.pool.submit(dryrun.run_cells, [
-            (cfg, shape, VOCAB_MESH), (cfg, shape, (1, 1))])
+            (cfg, shape, VOCAB_MESH), (cfg, shape, (1, 1)),
+            (rcfg, rshape, VOCAB_MESH)])
 
     def result(self):
-        """The two records, waiting at most TRAIN_DRY_WAIT_S."""
+        """The three records, waiting at most TRAIN_DRY_WAIT_S."""
         try:
             return self.run.result(TRAIN_DRY_WAIT_S)
         finally:
             self.pool.shutdown(cancel_futures=True)
 
 
-def _vocab_on_card():
-    """The vocab-split cell's step for real on the card, in a spawned
-    child (its fake process group never meets the caller's NCCL group):
-    rank 0 of a fake VOCAB_MESH group (``dryrun.fake_process_group``,
-    whose collectives move nothing, so no value is checked), the seeded
-    state drawn whole on the card and cut by ``dryrun.build_cell`` into
-    this rank's shards, the step run under ``launch.op_analysis``.
-    Returns its summary and memory analysis, the ``max_memory_allocated``
-    rise over the arguments, rows 9 and 10's launches, the collectives
+def _fake_rank_cells():
+    """The vocab-split cell's step and then the recurrent tensor-parallel
+    cell's, each for real on the card as rank 0 of a fake VOCAB_MESH group
+    (``_fake_rank_step``), in a spawned child (its fake process groups
+    never meet the caller's NCCL group): their records by name."""
+    return {"vocab": _fake_rank_step(*_vocab_cell(), seed=32),
+            "rec_tp": _fake_rank_step(*_rec_tp_cell(), seed=33)}
+
+
+def _fake_rank_step(cfg, shape, seed):
+    """One train step of (``cfg``, ``shape``) for real on the card as rank
+    0 of a fake VOCAB_MESH group (``dryrun.fake_process_group``, whose
+    collectives move nothing, so no value is checked), the seeded state
+    drawn whole on the card and cut by ``dryrun.build_cell`` into this
+    rank's shards, the step run under ``launch.op_analysis``.  Returns its
+    summary and memory analysis, the ``max_memory_allocated`` rise over
+    the arguments, rows 9 and 10's launches, the collectives
     ``_shard_collectives`` derives for it and its seconds."""
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.flashattn import kernel as FK
@@ -5944,12 +6065,11 @@ def _vocab_on_card():
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.train import optim, steps
-    cfg, shape = _vocab_cell()
     t0 = time.perf_counter()
     with dryrun.fake_process_group(math.prod(VOCAB_MESH)):
         mesh = make_mesh(VOCAB_MESH, ("data", "model"), device=DEVICE)
         state = steps.init_train_state(
-            cfg, torch.Generator(device=DEVICE).manual_seed(32),
+            cfg, torch.Generator(device=DEVICE).manual_seed(seed),
             optim.make_optimizer(cfg.optimizer), device=DEVICE)
         derived = _shard_collectives(
             cfg, "train", param_specs(cfg, state.params, ("data",), "model",
@@ -5978,8 +6098,9 @@ def _vocab_on_card():
 
 
 def _item17_vocab_split(card_run, dry, failed):
-    """The vocab-split cell on the card (``card_run``, ``_vocab_on_card``'s
-    record) against its dry-run on meta (``dry``, ``VocabDry``'s records):
+    """The vocab-split cell on the card (``card_run``, ``_fake_rank_step``'s
+    record) against its dry-run on meta (``dry``, ``VocabDry``'s first two
+    records):
     FLOPs by dtype (kernel rows included), collective counts and bytes per
     kind, argument bytes and the tracked peak equal; the collective counts
     as ``_shard_collectives`` derives them; the predicted rise within
@@ -5990,19 +6111,12 @@ def _item17_vocab_split(card_run, dry, failed):
     cfg, shape = _vocab_cell()
     rec, whole = dry
     card_sum, card_mem = card_run["summary"], card_run["memory"]
-    dsum, dmem = rec["op_analysis"], rec["memory_analysis"]
-    same = {k: card_sum[k] == dsum[k] for k in
-            ("flops_by_dtype", "collective_counts", "collective_bytes")}
-    same.update({k: card_mem[k] == dmem[k] for k in
-                 ("argument_size_in_bytes", "peak_bytes")})
-    from repro_torch.launch.op_analysis import _KIND
-    derived = {_KIND[k]: v for k, v in card_run["derived"].items()}
-    counted = card_sum["collective_counts"] == derived
+    dmem = rec["memory_analysis"]
+    same, derived, counted, ratio = _fake_rank_holds(card_run, rec)
     L = cfg.n_layers
     want_l = {"flash_attention_fwd_lse": (2 if cfg.remat != "none" else 1)
               * L, "flash_attention_bwd": L}
     launched = {k: card_run["launches"][k] for k in want_l} == want_l
-    ratio = dmem["peak_live_bytes"] / card_run["rise"]
     ok = all(same.values()) and counted and launched and \
         abs(ratio - 1) <= ITEM17_PEAK_RTOL
     print(f"item17: vocab split, {cfg.name} in full (flash, "
@@ -6023,8 +6137,8 @@ def _item17_vocab_split(card_run, dry, failed):
           f"{whole['run_s']:.2f} s" + ("" if ok else "  FAILED"))
     if not ok:
         failed.append("the vocab-split cell")
-        print(f"  card {card_mem} {card_sum}\n  dry {dmem} {dsum}\n  "
-              f"derived {derived}")
+        print(f"  card {card_mem} {card_sum}\n  dry {dmem} "
+              f"{rec['op_analysis']}\n  derived {derived}")
     return {"equal": same, "collectives_as_derived": counted,
             "launches": card_run["launches"], "launches_as_derived":
             launched, "card_memory": card_mem, "dry_memory": dmem,
@@ -6036,6 +6150,75 @@ def _item17_vocab_split(card_run, dry, failed):
             "dry_run_s": [rec["run_s"], whole["run_s"]]}
 
 
+def _fake_rank_holds(card_run, rec):
+    """A fake-rank cell on the card (``_fake_rank_step``'s record) against
+    its dry-run on meta (``rec``): which of FLOPs by dtype, collective
+    counts and bytes, argument bytes and the tracked peak are equal; the
+    collectives ``_shard_collectives`` derives, under op_analysis's names,
+    and whether the card's counts are they; the predicted rise over the
+    card's."""
+    from repro_torch.launch.op_analysis import _KIND
+    card_sum, card_mem = card_run["summary"], card_run["memory"]
+    dsum, dmem = rec["op_analysis"], rec["memory_analysis"]
+    same = {k: card_sum[k] == dsum[k] for k in
+            ("flops_by_dtype", "collective_counts", "collective_bytes")}
+    same.update({k: card_mem[k] == dmem[k] for k in
+                 ("argument_size_in_bytes", "peak_bytes")})
+    derived = {_KIND[k]: v for k, v in card_run["derived"].items()}
+    return (same, derived, card_sum["collective_counts"] == derived,
+            dmem["peak_live_bytes"] / card_run["rise"])
+
+
+def _item17_rec_tp(card_run, rec, failed):
+    """The recurrent tensor-parallel cell on the card (``card_run``,
+    ``_fake_rank_step``'s record) against its dry-run on meta (``rec``,
+    ``VocabDry``'s third record): FLOPs by dtype, collective counts and
+    bytes per kind, argument bytes and the tracked peak equal; the
+    collective counts as ``_shard_collectives`` derives them; the
+    predicted rise within ITEM17_PEAK_RTOL of the card's; no hand kernel
+    launched (recurrentgemma's local attention is the chunked one); the
+    tracked peak a rank under REC_TP_PEAK_BYTES, printed beside the
+    replicated layers' REC_TP_REPLICATED_GB."""
+    cfg, shape = _rec_tp_cell()
+    card_mem = card_run["memory"]
+    dmem = rec["memory_analysis"]
+    same, derived, counted, ratio = _fake_rank_holds(card_run, rec)
+    no_kernel = not any(card_run["launches"].values())
+    fits = dmem["peak_bytes"] < REC_TP_PEAK_BYTES
+    ok = all(same.values()) and counted and no_kernel and fits and \
+        abs(ratio - 1) <= ITEM17_PEAK_RTOL
+    print(f"item17: recurrent TP, {cfg.name} in full ({cfg.n_layers} "
+          f"layers, {cfg.optimizer}, remat {cfg.remat}) train step at "
+          f"{shape.global_batch} x {shape.seq_len} as rank 0 of a fake "
+          f"{VOCAB_MESH} mesh on the card (the collectives move nothing: "
+          f"values not checked): equal to the dry-run {same}; collectives "
+          f"{card_run['summary']['collective_counts']} = derived: {counted};"
+          f" no kernel launched: {no_kernel}; args "
+          f"{card_mem['argument_size_in_bytes'] / 1e9:.3f} GB; predicted "
+          f"rise {dmem['peak_live_bytes'] / 1e9:.3f} GB against the card's "
+          f"{card_run['rise'] / 1e9:.3f} GB (ratio {ratio:.4f}, limit 1 ± "
+          f"{ITEM17_PEAK_RTOL}); peak {dmem['peak_bytes'] / 1e9:.3f} GB a "
+          f"rank (limit {REC_TP_PEAK_BYTES / 1e9:.0f}; "
+          f"{REC_TP_REPLICATED_GB} with the recurrent layers replicated); "
+          f"step {card_run['step_s']:.2f} s, child part "
+          f"{card_run['seconds']:.2f} s, dry-run {rec['run_s']:.2f} s"
+          + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("the recurrent tensor-parallel cell")
+        print(f"  card {card_mem} {card_run['summary']}\n  dry {dmem} "
+              f"{rec['op_analysis']}\n  derived {derived}")
+    return {"equal": same, "collectives_as_derived": counted,
+            "no_kernel": no_kernel, "launches": card_run["launches"],
+            "card_memory": card_mem, "dry_memory": dmem,
+            "rise_bytes": card_run["rise"], "peak_ratio": ratio,
+            "peak_under_limit": fits,
+            "replicated_peak_gb": REC_TP_REPLICATED_GB,
+            "flops_by_dtype": card_run["summary"]["flops_by_dtype"],
+            "collective_counts": card_run["summary"]["collective_counts"],
+            "step_s": card_run["step_s"], "child_s": card_run["seconds"],
+            "dry_run_s": rec["run_s"]}
+
+
 def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
                  vocab_dry: VocabDry) -> dict:
     """Slice 17 under NCCL at world size 1 in this process: the pipeline
@@ -6044,8 +6227,10 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
     against the card (``_item17_on_card``), its meta runs started first in
     a spawned child (``dryrun.run_cells``: its fake process group never
     meets this one) and read at the end; and slice 21's vocab-split cell
-    (``_vocab_on_card`` in a spawned child beside the pipeline and the FT
-    loop, held by ``_item17_vocab_split`` against ``vocab_dry``).  Launch
+    and slice 22's recurrent tensor-parallel cell (``_fake_rank_cells`` in
+    a spawned child beside the pipeline and the FT loop, held by
+    ``_item17_vocab_split`` and ``_item17_rec_tp`` against
+    ``vocab_dry``).  Launch
     counts are reset at its start and read at its end; the process group
     is torn down at its end."""
     from repro_torch.launch import dryrun
@@ -6063,7 +6248,7 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
     dry = pool.submit(dryrun.run_cells, [(c, s, (1, 1)) for _, c, s in cells])
     vocab_pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=__import__("multiprocessing").get_context("spawn"))
-    vocab_run = vocab_pool.submit(_vocab_on_card)
+    vocab_run = vocab_pool.submit(_fake_rank_cells)
     for b, kv, s, hd in ((1, 8, 1024, 128), (1, 8, 4608, 128),
                          (8, 3, 1024, 64)):
         if FK.bwd_workspace_floats(b, kv, s, hd) != \
@@ -6083,11 +6268,14 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
         out["ft_loop"] = _item17_ft_loop(tcfg, tshape, mesh, clean_losses,
                                          failed)
         try:
-            card_run = vocab_run.result(timeout=ITEM17_BUDGET_S)
+            card_runs = vocab_run.result(timeout=ITEM17_BUDGET_S)
         finally:
             vocab_pool.shutdown(cancel_futures=True)
-        out["vocab_split"] = _item17_vocab_split(card_run,
-                                                 vocab_dry.result(), failed)
+        dry_runs = vocab_dry.result()
+        out["vocab_split"] = _item17_vocab_split(card_runs["vocab"],
+                                                 dry_runs[:2], failed)
+        out["rec_tp"] = _item17_rec_tp(card_runs["rec_tp"], dry_runs[2],
+                                       failed)
         try:
             records = dry.result(timeout=ITEM17_BUDGET_S)
         finally:

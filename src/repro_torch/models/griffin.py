@@ -20,6 +20,23 @@ checkpoint, where the reference wraps ``super_body`` in
 and the gathers run again.  ``save_dots`` recomputes the whole body, as
 ``full`` does.  Training runs on the card (``chip_smoke.py``).
 
+Tensor parallelism: under a ``ShardCtx`` whose model axis has m > 1
+ranks and divides the recurrence width W (``_tp``), the blocks run on
+this rank's shards as the reference's specs lay them out.  A recurrent
+block takes W/m columns of ``w_x`` and ``w_gate``, runs the depthwise
+conv on its own channels (exact), gathers the conv output over the axis
+for ``w_a`` and ``w_i`` (whole input rows, this rank's output columns),
+runs the gates, ``lam`` and the RG-LRU on its W/m channels and sums
+``w_out``'s row-parallel product over the axis.  Every MLP is
+column/row-parallel (``mlp_g``, ``mlp_i``; ``mlp_o`` summed).  Attention
+follows the transformer's ``_heads_tp``: q's heads are local where m
+divides ``n_heads`` (a KV head not divided is taken whole, each local q
+head its own), else its weights are gathered whole, and decode attention
+always gathers them.  The cache's ``conv`` and ``h`` are split over W as
+``cache_specs`` lays them out: a tensor-parallel decode step reads and
+writes this rank's slices with no gather.  Otherwise (one model rank or
+``layout="dp"``) each block's weights are gathered whole.
+
 Differences from the reference:
 
 * ``rglru_parallel`` is a log-depth (Hillis–Steele) scan: ⌈log₂ T⌉
@@ -52,7 +69,9 @@ from repro_torch import resolve_device
 from repro_torch.models import common
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.shard import cross_entropy, sharded
-from repro_torch.models.transformer import (ForwardOut, _cdt, _inputs,
+from repro_torch.models.transformer import (_KV_LEAVES, _Q_LEAVES,
+                                            ForwardOut, _cdt, _heads_tp,
+                                            _inputs, _kv_of_local_q,
                                             _layers, _logits, _pdt)
 
 RGLRU_C = 8.0
@@ -191,21 +210,26 @@ def _causal_conv1d(x, w, state=None):
     return out, xp[:, -(K - 1):]
 
 
-def _mlp(cfg, bp, x):
+def _mlp(cfg, bp, x, sh=None):
+    """Under ``sh`` (``_tp``) column/row-parallel, summed over the axis."""
     hm = common.rms_norm(x, bp["ln_mlp"], cfg.norm_eps)
-    return x + (_gelu(hm @ bp["mlp_g"]) * (hm @ bp["mlp_i"])) @ bp["mlp_o"]
+    y = (_gelu(hm @ bp["mlp_g"]) * (hm @ bp["mlp_i"])) @ bp["mlp_o"]
+    return x + (y if sh is None else sh.row.sum(y))
 
 
-def _rec_block(cfg, bp, x, state=None):
-    """state: (conv_state (B,K-1,W), h (B,W)) or None. x: (B,T,d)."""
+def _rec_block(cfg, bp, x, state=None, sh=None):
+    """state: (conv_state (B,K-1,W), h (B,W)) or None. x: (B,T,d).  Under
+    ``sh`` (``_tp``) W is this rank's W/m channels, in ``bp``, the state
+    and the returned state alike."""
     T = x.shape[1]
     h = common.rms_norm(x, bp["ln"], cfg.norm_eps)
     xb = h @ bp["w_x"]                                   # (B, T, W)
     gate = _gelu(h @ bp["w_gate"])
     xb, new_conv = _causal_conv1d(xb, bp["conv_w"],
                                   state[0] if state is not None else None)
-    g_a = torch.sigmoid((xb @ bp["w_a"]).to(torch.float32))
-    g_i = torch.sigmoid((xb @ bp["w_i"]).to(torch.float32))
+    xa = xb if sh is None else sh.model_gather(xb, 2)   # whole rows
+    g_a = torch.sigmoid((xa @ bp["w_a"]).to(torch.float32))
+    g_i = torch.sigmoid((xa @ bp["w_i"]).to(torch.float32))
     xin = g_i * xb.to(torch.float32)
     lam = bp["lam"].to(torch.float32)
     if state is not None and T == 1:
@@ -214,29 +238,36 @@ def _rec_block(cfg, bp, x, state=None):
     else:
         rec = rglru_parallel(xin, g_a, lam)
         new_h = rec[:, -1]
-    x = x + (rec.to(x.dtype) * gate) @ bp["w_out"]
-    return _mlp(cfg, bp, x), (new_conv, new_h)
+    y = (rec.to(x.dtype) * gate) @ bp["w_out"]
+    x = x + (y if sh is None else sh.row.sum(y))
+    return _mlp(cfg, bp, x, sh), (new_conv, new_h)
 
 
-def _attn_full(cfg, bp, x, positions):
-    """Local MQA over the whole sequence: (x', k, v), k after RoPE."""
+def _attn_full(cfg, bp, x, positions, sh=None):
+    """Local MQA over the whole sequence: (x', k, v), k after RoPE.  Under
+    ``sh`` (``_tp``) the heads as ``_heads_tp`` says (k and v this rank's
+    where their heads are local) and the MLP tensor-parallel."""
     B, T, _ = x.shape
-    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    tq, tkv = _heads_tp(cfg, sh)
     h = common.rms_norm(x, bp["ln"], cfg.norm_eps)
-    q = common.apply_rope((h @ bp["wq"]).reshape(B, T, H, hd), positions,
+    q = common.apply_rope((h @ bp["wq"]).reshape(B, T, -1, hd), positions,
                           cfg.rope_theta)
-    k = common.apply_rope((h @ bp["wk"]).reshape(B, T, KV, hd), positions,
+    k = common.apply_rope((h @ bp["wk"]).reshape(B, T, -1, hd), positions,
                           cfg.rope_theta)
-    v = (h @ bp["wv"]).reshape(B, T, KV, hd)
-    o = common.chunked_causal_attention(q, k, v,
+    v = (h @ bp["wv"]).reshape(B, T, -1, hd)
+    kq, vq = _kv_of_local_q(cfg, sh, q, k, v) if tq and not tkv else (k, v)
+    o = common.chunked_causal_attention(q, kq, vq,
                                         window=cfg.recurrent.attn_window)
-    x = x + (o.reshape(B, T, H * hd) @ bp["wo"]).to(x.dtype)
-    return _mlp(cfg, bp, x), k, v
+    y = o.reshape(B, T, -1) @ bp["wo"]
+    x = x + (sh.row.sum(y) if tq else y).to(x.dtype)
+    return _mlp(cfg, bp, x, sh), k, v
 
 
-def _attn_decode(cfg, bp, x, kc, vc, pos):
+def _attn_decode(cfg, bp, x, kc, vc, pos, sh=None):
     """One token of local MQA against the ring ``kc``/``vc`` (B, Win, KV,
-    hd), row b written in place at slot ``pos[b] % Win``."""
+    hd), row b written in place at slot ``pos[b] % Win``; the attention
+    whole, the MLP tensor-parallel under ``sh`` (``_tp``)."""
     B = x.shape[0]
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     Tc = kc.shape[1]
@@ -254,7 +285,7 @@ def _attn_decode(cfg, bp, x, kc, vc, pos):
                                 vc.to(torch.float32),
                                 torch.clamp(pos + 1, max=Tc))
     o = o.reshape(B, 1, H * hd) @ bp["wo"].to(torch.float32)
-    return _mlp(cfg, bp, x + o.to(x.dtype))
+    return _mlp(cfg, bp, x + o.to(x.dtype), sh)
 
 
 # ---------------------------------------------------------------------------
@@ -289,17 +320,40 @@ def _schedule(cfg, params):
     return out
 
 
+def _tp(cfg, sh):
+    """``sh`` where the blocks run tensor-parallel: the model axis has more
+    than one rank and divides the recurrence width (else None)."""
+    W = cfg.recurrent.lru_width or cfg.d_model
+    return sh if sh is not None and sh.splits(W) else None
+
+
+def _weights(cfg, sh, tp, bp, decode=False):
+    """One block's leaves for use under ``sh``: gathered whole, or (where
+    ``tp``) with their model dims kept, but for attention's q leaves whose
+    heads the axis does not divide, its k/v leaves whose KV heads it does
+    not divide (``_heads_tp``), and every attention leaf of a decode
+    step."""
+    if tp is None:
+        return bp if sh is None else sh.layer(bp)
+    tq, tkv = (False, False) if decode else _heads_tp(cfg, tp)
+    keep = dict.fromkeys(_Q_LEAVES, tq) | dict.fromkeys(_KV_LEAVES, tkv)
+    return {k: sh.gather(v, k, keep_model=keep.get(k, True))
+            for k, v in bp.items()}
+
+
 def _run(cfg, layers, x, positions, sh=None):
     """``layers``, a list of (kind, block of stored weights), over the
     whole sequence: each block cast to the compute dtype and (under
-    ``sh``) gathered whole just before it runs."""
+    ``sh``) gathered just before it runs, tensor-parallel where
+    ``_tp``."""
+    tp = _tp(cfg, sh)
     for kind, bp in layers:
-        bp = {k: t.to(_cdt(cfg)) for k, t in bp.items()}
-        bp = bp if sh is None else sh.layer(bp)
+        bp = _weights(cfg, sh, tp,
+                      {k: t.to(_cdt(cfg)) for k, t in bp.items()})
         if kind == "rec":
-            x, _ = _rec_block(cfg, bp, x)
+            x, _ = _rec_block(cfg, bp, x, sh=tp)
         else:
-            x, _, _ = _attn_full(cfg, bp, x, positions)
+            x, _, _ = _attn_full(cfg, bp, x, positions, tp)
     return x
 
 
@@ -307,8 +361,9 @@ def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None, vocab_local=False) -> ForwardOut:
     """Under ``ctx`` the tokens, the logits and ``params`` are this rank's
     (the logits whole, or this rank's columns of the vocabulary with
-    ``vocab_local``, as ``transformer.forward``); each layer's weights are gathered whole just before it runs (no
-    tensor parallelism inside the recurrence).  With ``cfg.remat`` and a
+    ``vocab_local``, as ``transformer.forward``); each layer's weights are
+    gathered just before it runs, its model dims kept where it runs
+    tensor-parallel (``_tp``).  With ``cfg.remat`` and a
     gradient to take, each (rec, rec, attn) super-block runs under
     ``common.recompute``; the tail's rec layers do not, as in the
     reference."""
@@ -366,11 +421,12 @@ def decode_step(cfg, params, token, cache: GriffinCache, ctx=None,
     """token: (B,) int (or embed (B, d)).  Row b decodes at position
     ``cache.length[b]``; the recurrent state and the KV rings are written
     in place.  Under ``ctx`` the tokens and ``cache`` are this rank's
-    (``cache_specs``): the recurrent width's slices are gathered for the
-    step and written back after it."""
+    (``cache_specs``): where the blocks run tensor-parallel (``_tp``) each
+    rank steps its own slices of the recurrent width in place; otherwise
+    the slices are gathered for the step and written back after it."""
     sh = sharded(cfg, ctx)
-    if sh is None:
-        return _decode(cfg, params, token, cache, embed, None)
+    if sh is None or _tp(cfg, sh) is not None:
+        return _decode(cfg, params, token, cache, embed, sh)
     return sh.on_full_cache(
         cache, lambda full: _decode(cfg, params, token, full, embed, sh))
 
@@ -378,15 +434,17 @@ def decode_step(cfg, params, token, cache: GriffinCache, ctx=None,
 def _decode(cfg, params, token, cache: GriffinCache, embed, sh):
     x = _inputs(cfg, params, token, embed, sh)[:, None, :]
     pos = cache.length
+    tp = _tp(cfg, sh)
     for kind, i, bp in _schedule(cfg, params):
-        bp = bp if sh is None else sh.layer(bp)
+        bp = _weights(cfg, sh, tp, bp, decode=True)
         if kind == "rec":
             x, (cv, hh) = _rec_block(cfg, bp, x,
-                                     state=(cache.conv[i], cache.h[i]))
+                                     state=(cache.conv[i], cache.h[i]),
+                                     sh=tp)
             cache.conv[i].copy_(cv)
             cache.h[i].copy_(hh)
         else:
-            x = _attn_decode(cfg, bp, x, cache.k[i], cache.v[i], pos)
+            x = _attn_decode(cfg, bp, x, cache.k[i], cache.v[i], pos, tp)
     cache.length.add_(1)
     return _logits(cfg, params, x, sh)[:, 0], cache
 
@@ -395,25 +453,36 @@ def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     """Forward pass that also fills a fresh decode cache: each recurrent
     layer's final state, and each attention layer's last ``Win`` positions
     ring-aligned (position p at slot p % Win).  Under ``ctx``, this rank's
-    slices of that cache (``cache_specs``)."""
+    slices of that cache (``cache_specs``); where the blocks run
+    tensor-parallel (``_tp``) each rank writes its own slices of the
+    recurrent width, and K/V heads local to it are gathered for the
+    cache."""
     sh = sharded(cfg, ctx)
+    tp = _tp(cfg, sh)
     x = _inputs(cfg, params, tokens, embeds, sh)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :]
     cache = init_cache(cfg, B, max_len, device=x.device)
+    if tp is not None:
+        cache = sh.local_cache(cache)
+    _, tkv = _heads_tp(cfg, tp)
     win = cache.k.shape[2]
     Tc = min(win, S)
     idx = (torch.arange(Tc, device=x.device) + (S - Tc)) % win
     for kind, i, bp in _schedule(cfg, params):
-        bp = bp if sh is None else sh.layer(bp)
+        bp = _weights(cfg, sh, tp, bp)
         if kind == "rec":
-            x, (cv, hh) = _rec_block(cfg, bp, x)
+            x, (cv, hh) = _rec_block(cfg, bp, x, sh=tp)
             cache.conv[i].copy_(cv)
             cache.h[i].copy_(hh)
         else:
-            x, k, v = _attn_full(cfg, bp, x, positions)
-            cache.k[i][:, idx] = k[:, S - Tc:].to(cache.k.dtype)
-            cache.v[i][:, idx] = v[:, S - Tc:].to(cache.v.dtype)
+            x, k, v = _attn_full(cfg, bp, x, positions, tp)
+            k, v = k[:, S - Tc:], v[:, S - Tc:]
+            if tkv:                    # this rank's KV heads: the cache's all
+                k, v = tp.model_gather(k, 2), tp.model_gather(v, 2)
+            cache.k[i][:, idx] = k.to(cache.k.dtype)
+            cache.v[i][:, idx] = v.to(cache.v.dtype)
     cache.length.fill_(S)
     logits = _logits(cfg, params, x, sh)
-    return logits, (cache if sh is None else sh.local_cache(cache))
+    return logits, (cache if sh is None or tp is not None
+                    else sh.local_cache(cache))

@@ -30,6 +30,21 @@ gathers again.  ``save_dots`` recomputes the whole body, as ``full`` does
 (the reference's policy keeps the matmul outputs).  Training runs on the
 card (``train.steps.make_train_step``, ``chip_smoke.py``).
 
+Tensor parallelism: under a ``ShardCtx`` whose model axis has m > 1
+ranks and divides the H heads (``_tp``), each rank runs its H/m heads
+from the weights as the reference's specs lay them out: ``wr``, ``wk``,
+``wv``, ``wg`` and ``cm_wk`` by columns, ``wo`` and ``cm_wv`` by rows and
+summed over the axis, ``cm_wr`` and the ddlerp whole (its inputs are the
+replicated residual stream).  ``u``, ``ln_x``, ``w0`` and ``dec_B``'s
+output columns, which the specs replicate, are sliced to the local heads
+after their gather.  The heads are independent, so the WKV and the group
+norm are exact on them.  The decode cache keeps the reference's layout,
+the WKV state replicated over the axis: a tensor-parallel layer steps its
+own heads' state and all-gathers the new one over the axis once per layer
+and step (B·H·hd² floats), the price of that layout.  Otherwise (one
+model rank, ``layout="dp"``, or an axis that does not divide H) each
+layer's weights are gathered whole.
+
 Differences from the reference: the ``lax.scan`` over layers (and over
 chunks and tokens) is a Python loop, and ``decode_step`` writes the new
 state into ``cache`` in place, as the port's transformer writes its KV
@@ -191,40 +206,54 @@ def _ddlerp(bp, x, xx):
     return [mixed[:, :, i] for i in range(5)]           # w,k,v,r,g
 
 
-def _time_mix(cfg, bp, x, use_chunked: bool, state=None):
-    """x: (B, T, d). state: (x_prev (B,d), S (B,H,hd,hd)) for decode."""
+def _time_mix(cfg, bp, x, use_chunked: bool, state=None, sh=None):
+    """x: (B, T, d). state: (x_prev (B,d), S (B,H,hd,hd)) for decode.
+    Under ``sh`` (the layer tensor-parallel, ``_tp``) ``bp``'s ``wr``,
+    ``wk``, ``wv``, ``wg`` are this rank's columns and ``wo`` its rows:
+    the WKV and the group norm run on its H/m heads (``u``, ``ln_x``,
+    ``w0`` and ``dec_B``'s columns sliced to them, and S to them on the
+    way in), ``wo``'s product is summed over the axis, and the returned S
+    is this rank's heads'."""
     B, T, d = x.shape
     hd = cfg.recurrent.head_dim
-    H = d // hd
     h = common.rms_norm(x, bp["ln1"], cfg.norm_eps)
     x_prev = state[0] if state is not None else torch.zeros(
         (B, d), dtype=h.dtype, device=h.device)
     xx = torch.cat([x_prev[:, None].to(h.dtype), h[:, :-1]], dim=1)
     xw, xk, xv, xr, xg = _ddlerp(bp, h, xx)
+    w0, dec_b, u, ln_x = bp["w0"], bp["dec_B"], bp["u"], bp["ln_x"]
+    s0 = state[1] if state is not None else None
+    if sh is not None:                 # this rank's heads
+        w0, dec_b, ln_x = (sh.model_slice(t) for t in (w0, dec_b, ln_x))
+        u = sh.model_slice(u, 0)
+        s0 = None if s0 is None else sh.model_slice(s0, 1)
 
     acc = _acc_dtype(h.dtype)
-    r = (xr @ bp["wr"]).reshape(B, T, H, hd).to(acc)
-    k = (xk @ bp["wk"]).reshape(B, T, H, hd).to(acc)
-    v = (xv @ bp["wv"]).reshape(B, T, H, hd).to(acc)
+    r = (xr @ bp["wr"]).reshape(B, T, -1, hd).to(acc)
+    k = (xk @ bp["wk"]).reshape(B, T, -1, hd).to(acc)
+    v = (xv @ bp["wv"]).reshape(B, T, -1, hd).to(acc)
     g = F.silu(xg @ bp["wg"])
+    H = r.shape[2]
 
-    logw = bp["w0"][None, None] + torch.tanh(xw @ bp["dec_A"]) @ bp["dec_B"]
+    logw = w0[None, None] + torch.tanh(xw @ bp["dec_A"]) @ dec_b
     w = torch.exp(-torch.exp(logw.to(acc))).reshape(B, T, H, hd)
-    u = bp["u"].to(acc)
+    u = u.to(acc)
 
-    s0 = state[1] if state is not None else None
     if use_chunked and T > 1:
         o, s = wkv_chunked(r, k, v, w, u, s0)
     else:
         o, s = wkv_scan(r, k, v, w, u, s0)
 
     # per-head group norm
-    o = common.rms_norm(o, bp["ln_x"].reshape(H, hd), cfg.norm_eps)
-    o = o.reshape(B, T, d).to(x.dtype) * g
-    return x + o @ bp["wo"], (h[:, -1], s)
+    o = common.rms_norm(o, ln_x.reshape(H, hd), cfg.norm_eps)
+    o = o.reshape(B, T, H * hd).to(x.dtype) * g
+    y = o @ bp["wo"]
+    return x + (y if sh is None else sh.row.sum(y)), (h[:, -1], s)
 
 
-def _channel_mix(cfg, bp, x, state=None):
+def _channel_mix(cfg, bp, x, state=None, sh=None):
+    """Under ``sh`` ``cm_wk`` is this rank's d_ff/m columns and ``cm_wv``
+    its rows, summed over the axis; ``cm_wr`` is whole."""
     B, T, d = x.shape
     h = common.rms_norm(x, bp["ln2"], cfg.norm_eps)
     x_prev = state if state is not None else torch.zeros(
@@ -233,8 +262,9 @@ def _channel_mix(cfg, bp, x, state=None):
     xk = h + (xx - h) * bp["cm_mu_k"]
     xr = h + (xx - h) * bp["cm_mu_r"]
     kk = torch.square(torch.relu(xk @ bp["cm_wk"]))
-    out = torch.sigmoid(xr @ bp["cm_wr"]) * (kk @ bp["cm_wv"])
-    return x + out, h[:, -1]
+    r = torch.sigmoid(xr @ bp["cm_wr"])
+    y = kk @ bp["cm_wv"]
+    return x + r * (y if sh is None else sh.row.sum(y)), h[:, -1]
 
 
 # ---------------------------------------------------------------------------
@@ -242,14 +272,27 @@ def _channel_mix(cfg, bp, x, state=None):
 # ---------------------------------------------------------------------------
 
 
+def _tp(cfg, sh):
+    """``sh`` where the layers run tensor-parallel: the model axis has more
+    than one rank and divides the heads (else None: gathered whole)."""
+    H = cfg.d_model // cfg.recurrent.head_dim
+    return sh if sh is not None and sh.splits(H) else None
+
+
+def _weights(sh, tp, bp):
+    """One layer's leaves for use: gathered whole, or with their model dims
+    kept where the layer runs tensor-parallel."""
+    return bp if sh is None else sh.layer(bp, keep_model=tp is not None)
+
+
 def _layer(cfg, bp, x, sh=None):
     """One layer over the whole sequence, from its stored weights: cast to
-    the compute dtype and (under ``sh``) gathered whole, then time-mix and
-    channel-mix."""
-    bp = {k: t.to(_cdt(cfg)) for k, t in bp.items()}
-    bp = bp if sh is None else sh.layer(bp)
-    x, _ = _time_mix(cfg, bp, x, use_chunked=True)
-    x, _ = _channel_mix(cfg, bp, x)
+    the compute dtype and (under ``sh``) gathered, then time-mix and
+    channel-mix, tensor-parallel where ``_tp``."""
+    tp = _tp(cfg, sh)
+    bp = _weights(sh, tp, {k: t.to(_cdt(cfg)) for k, t in bp.items()})
+    x, _ = _time_mix(cfg, bp, x, use_chunked=True, sh=tp)
+    x, _ = _channel_mix(cfg, bp, x, sh=tp)
     return x
 
 
@@ -257,10 +300,11 @@ def forward(cfg: ArchConfig, params, tokens, ctx=None,
             embeds=None, vocab_local=False) -> ForwardOut:
     """Under ``ctx`` the tokens, the logits and ``params`` are this rank's
     (the logits whole, or this rank's columns of the vocabulary with
-    ``vocab_local``, as ``transformer.forward``); each layer's weights are gathered whole just before it runs (no
-    tensor parallelism inside the recurrence).  With ``cfg.remat`` and a
-    gradient to take, each layer (its cast and gather included) runs under
-    ``common.recompute``."""
+    ``vocab_local``, as ``transformer.forward``); each layer's weights are
+    gathered just before it runs, its model dims kept where the layer runs
+    tensor-parallel (``_tp``: each rank its own heads and d_ff columns).
+    With ``cfg.remat`` and a gradient to take, each layer (its cast and
+    gather included) runs under ``common.recompute``."""
     sh = sharded(cfg, ctx)
     x = _inputs(cfg, params, tokens, embeds, sh)
     remat = common.remat_wanted(cfg, params["blocks"].values())
@@ -306,7 +350,9 @@ def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
     into ``cache`` in place, advances ``length`` and returns (logits (B, V),
     cache).  Under ``ctx`` the tokens and ``cache`` are this rank's
     (``cache_specs``): the shift states' width slices are gathered for the
-    step and written back after it."""
+    step and written back after it; the WKV state is replicated over the
+    model axis, so a tensor-parallel layer steps its own heads' and
+    all-gathers the new state over the axis."""
     sh = sharded(cfg, ctx)
     if sh is None:
         return _decode(cfg, params, token, cache, embed, None)
@@ -316,16 +362,25 @@ def decode_step(cfg, params, token, cache: RwkvCache, ctx=None, embed=None):
 
 def _decode(cfg, params, token, cache: RwkvCache, embed, sh):
     x = _inputs(cfg, params, token, embed, sh)[:, None, :]
+    tp = _tp(cfg, sh)
     for li, bp in enumerate(_cast_layers(cfg, params["blocks"])):
-        bp = bp if sh is None else sh.layer(bp)
+        bp = _weights(sh, tp, bp)
         x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=False,
-                                  state=(cache.tm_x[li], cache.tm_s[li]))
-        x, cmx = _channel_mix(cfg, bp, x, state=cache.cm_x[li])
+                                  state=(cache.tm_x[li], cache.tm_s[li]),
+                                  sh=tp)
+        x, cmx = _channel_mix(cfg, bp, x, state=cache.cm_x[li], sh=tp)
         cache.tm_x[li].copy_(tmx)
-        cache.tm_s[li].copy_(tms)
+        cache.tm_s[li].copy_(_whole_state(tp, tms))
         cache.cm_x[li].copy_(cmx)
     cache.length.add_(1)
     return _logits(cfg, params, x, sh)[:, 0], cache
+
+
+def _whole_state(tp, s):
+    """A layer's new WKV state for the cache, which holds every head on
+    every rank: this rank's heads' gathered over the model axis where the
+    layer runs tensor-parallel (once per layer and step)."""
+    return s if tp is None else tp.model_gather(s, 1)
 
 
 def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
@@ -335,12 +390,13 @@ def prefill(cfg, params, tokens, max_len: int, ctx=None, embeds=None):
     x = _inputs(cfg, params, tokens, embeds, sh)
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, max_len, device=x.device)
+    tp = _tp(cfg, sh)
     for li, bp in enumerate(_cast_layers(cfg, params["blocks"])):
-        bp = bp if sh is None else sh.layer(bp)
-        x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=True)
-        x, cmx = _channel_mix(cfg, bp, x)
+        bp = _weights(sh, tp, bp)
+        x, (tmx, tms) = _time_mix(cfg, bp, x, use_chunked=True, sh=tp)
+        x, cmx = _channel_mix(cfg, bp, x, sh=tp)
         cache.tm_x[li].copy_(tmx)
-        cache.tm_s[li].copy_(tms)
+        cache.tm_s[li].copy_(_whole_state(tp, tms))
         cache.cm_x[li].copy_(cmx)
     cache.length.fill_(S)
     logits = _logits(cfg, params, x, sh)

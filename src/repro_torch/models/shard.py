@@ -12,10 +12,20 @@ gathers, slices and sums with the collectives of ``parallel.collectives``:
   gathered just before its layer uses it and freed after (its backward
   reduce-scatters the gradient back to the shards);
 * a dimension sharded over the model axis stays local where the layer runs
-  tensor-parallel (heads, d_ff, experts, the vocabulary), and is gathered
-  where it runs replicated (attention whose heads the axis does not
-  divide, the recurrent families, decode attention, and the head of the
+  tensor-parallel (heads, d_ff, experts, the vocabulary, the recurrent
+  families' heads and widths), and is gathered where it runs replicated
+  (attention whose heads the axis does not divide, an rwkv6 layer whose
+  heads it does not divide, decode attention, and the head of the
   entries that return whole logits);
+* the recurrent families run tensor-parallel where the model axis has
+  more than one rank and divides the layer's heads or width
+  (``Sharded.splits``): each rank runs its own heads (rwkv6) or its own
+  channels of the recurrence (griffin) from its columns of the input
+  projections, and the leaves the specs replicate but the local heads
+  index (rwkv6's ``u``, ``ln_x``, ``w0`` and ``dec_B``'s output columns)
+  are sliced after their gather (``Sharded.model_slice``), so that each
+  gradient is a slice of the whole one, summed over the axis with the
+  other replicated leaves';
 * the vocabulary stays split over the model axis as the reference's specs
   lay it out (``embed: P(model, fsdp)``, ``lm_head: P(fsdp, model)``)
   wherever the axis is free for tensor parallelism and has more than one
@@ -26,7 +36,8 @@ gathers, slices and sums with the collectives of ``parallel.collectives``:
   makes the row max (MAX), the sum of exponentials and the gold logit
   (SUMs) global over the axis, so no rank holds a logit row whole;
 * a row-parallel product (``wo``, ``wd``, the experts' combine, the shared
-  experts' ``ws_o``) is summed over the model axis.  Under W8A8 the sum is
+  experts' ``ws_o``, rwkv6's ``wo`` and ``cm_wv``, griffin's ``w_out``
+  and ``mlp_o``) is summed over the model axis.  Under W8A8 the sum is
   exact: the per-row activation absmax is first made global (MAX), so that
   every rank quantizes with the unsharded scale, and the int32
   accumulators are summed (exact mod 2^32) before the rescale.
@@ -136,9 +147,25 @@ class Sharded:
                 t = C.all_gather(t, self.mesh, axes, dim=dim)
         return t
 
-    def layer(self, bp: dict) -> dict:
-        """One layer's leaves gathered whole for use."""
-        return {k: self.gather(v, k) for k, v in bp.items()}
+    def layer(self, bp: dict, keep_model: bool = False) -> dict:
+        """One layer's leaves gathered whole for use, or with their model
+        dims kept (``keep_model``: the layer runs tensor-parallel)."""
+        return {k: self.gather(v, k, keep_model) for k, v in bp.items()}
+
+    def splits(self, n: int) -> bool:
+        """Whether the model axis runs tensor-parallel over more than one
+        rank and divides ``n`` (a layer's heads or width)."""
+        return self.msize > 1 and n % self.msize == 0
+
+    def model_slice(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's 1/m of dim ``dim`` of a leaf that the specs
+        replicate over the model axis (taken after its gather)."""
+        n = t.shape[dim] // self.msize
+        return t.narrow(dim, self.mesh.axis_index(self.ctx.model) * n, n)
+
+    def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t``'s slices of dim ``dim`` gathered over the model axis."""
+        return C.all_gather(t, self.mesh, self.ctx.model, dim=dim)
 
     def model_local(self, name: str, ndim: int) -> Optional[int]:
         """The dim of leaf ``name`` sharded over the model axis, if any."""

@@ -414,6 +414,16 @@ def _heads_tp(cfg: ArchConfig, sh) -> tuple:
     return tq, tq and cfg.n_kv_heads % sh.msize == 0
 
 
+def _kv_of_local_q(cfg: ArchConfig, sh, q, k, v):
+    """k and v for this rank's q heads over replicated KV heads: each
+    local q head's own KV head (group 1)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    hl = q.shape[2]
+    idx = (torch.arange(hl) + sh.mesh.axis_index(sh.ctx.model) * hl) // G
+    idx = idx.to(q.device)
+    return k[:, :, idx], v[:, :, idx]
+
+
 def _attn_weights(cfg: ArchConfig, bp, sh, tq: bool, tkv: bool):
     """One layer's attention leaves for use: FSDP dims gathered, the model
     dim kept where the heads are tensor-parallel."""
@@ -428,14 +438,7 @@ def _attention(cfg: ArchConfig, bp, x, positions, sh=None):
     tq, tkv = _heads_tp(cfg, sh)
     w = bp if sh is None else _attn_weights(cfg, bp, sh, tq, tkv)
     q, k, v = _qkv(cfg, w, x, positions)
-    kq, vq = k, v
-    if tq and not tkv:
-        # local q heads over replicated KV heads: each q head's own
-        G = cfg.n_heads // cfg.n_kv_heads
-        hl = q.shape[2]
-        idx = (torch.arange(hl) + sh.mesh.axis_index(sh.ctx.model) * hl) // G
-        idx = idx.to(x.device)
-        kq, vq = k[:, :, idx], v[:, :, idx]
+    kq, vq = _kv_of_local_q(cfg, sh, q, k, v) if tq and not tkv else (k, v)
     if cfg.attn_impl == "flash":
         o = flash_attn_model(q, kq, vq, window=cfg.swa_window)
     else:

@@ -5,7 +5,9 @@ jax 0.9.0): ``forward``, ``loss_fn``, ``prefill`` and decode steps under a
 ``ShardCtx`` on meshes (1, 2), (2, 2) and (1, 4) of gloo ranks, for dense
 GQA (KV heads dividing the model axis and not, ``seq_shard``, W8A8), the
 MoE in ``ep`` and ``etp`` (mixtral-style top-2, kimi-style top-8 with a
-shared expert, a config that drops tokens), rwkv6 and griffin.
+shared expert, a config that drops tokens), rwkv6 and griffin (tensor-
+parallel inside their layers on a model axis of more than one rank, and
+under ``layout="dp"``).
 
 Where the reference's sharded semantics differ from its single path (MoE
 capacity from the local token count, aux the mean of the shards' aux), the
@@ -102,6 +104,13 @@ CONFIGS = {
                           sub_quadratic=True),
     "griffin": lambda: _both("hybrid", rec=GRIFFIN, n_layers=5, n_kv_heads=1,
                              head_dim=8, sub_quadratic=True),
+    "rwkv_layout_dp": lambda: _both("rwkv", rec=RWKV, n_kv_heads=1,
+                                    head_dim=8, sub_quadratic=True,
+                                    layout="dp", fsdp_params=True),
+    "griffin_layout_dp": lambda: _both("hybrid", rec=GRIFFIN, n_layers=5,
+                                       n_kv_heads=1, head_dim=8,
+                                       sub_quadratic=True, layout="dp",
+                                       fsdp_params=True),
 }
 
 _CACHE = {}
@@ -239,6 +248,12 @@ CASES = {
     "rwkv-1x4": ("rwkv", (1, 4), AXES, ("data",), None),
     "griffin-2x2": ("griffin", (2, 2), AXES, ("data",), None),
     "griffin-1x2": ("griffin", (1, 2), AXES, ("data",), None),
+    # (1, 4): griffin's 4 q heads, its width and d_ff split 4 ways
+    "griffin-1x4": ("griffin", (1, 4), AXES, ("data",), None),
+    "rwkv_layout_dp-2x2": ("rwkv_layout_dp", (2, 2), AXES,
+                           ("data", "model"), None),
+    "griffin_layout_dp-2x2": ("griffin_layout_dp", (2, 2), AXES,
+                              ("data", "model"), None),
 }
 
 

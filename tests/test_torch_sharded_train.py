@@ -1,9 +1,13 @@
 """The port's sharded train step held against the reference's
 single-device step: ``make_train_step(cfg, ctx)`` on a (2, 2) mesh of gloo
 ranks with AdamW, with SGD under ``grad_accum=2`` and with Adafactor under
-``fsdp_params``, and the meshed MoE on a (1, 4) mesh, each from the
-reference's initial state on the reference's batches: the losses, the
-gradient norms and the updated parameters and optimizer state.
+``fsdp_params``, the meshed MoE on a (1, 4) mesh, and rwkv6 and griffin
+run tensor-parallel inside their layers at (2, 2) (griffin also at (1,
+4)), each from the reference's initial state on the reference's batches:
+the losses, the gradient norms and the updated parameters and optimizer
+state.  For the recurrent families the gradient moments of the leaves the
+specs replicate but each rank slices to its heads (rwkv6's ``u``,
+``ln_x``, ``w0``, ``dec_B``) are held by name.
 
 Tolerances: the loss and the gradient norm 1e-4 relative
 (``test_torch_train.py``); per leaf and normwise, the change the steps
@@ -33,12 +37,14 @@ import torch
 import torch_spmd_cases as cases
 from repro.models.config import ArchConfig as JArchConfig
 from repro.models.config import MoEConfig as JMoEConfig
+from repro.models.config import RecurrentConfig as JRecurrentConfig
 from repro.train import optim as joptim
 from repro.train import steps as jsteps
 from repro_torch import tree
 from repro_torch.models import api as tapi
 from repro_torch.models.config import ArchConfig as TArchConfig
 from repro_torch.models.config import MoEConfig as TMoEConfig
+from repro_torch.models.config import RecurrentConfig as TRecurrentConfig
 from repro_torch.train import steps as tsteps
 
 jax.config.update("jax_platform_name", "cpu")
@@ -59,11 +65,27 @@ def pool():
     p.close()
 
 
-def _both(moe=None, **kw):
+# the recurrent families as test_torch_sharded_models.py's configs
+REC = {"rwkv": dict(family="rwkv", n_kv_heads=1, sub_quadratic=True,
+                    recurrent=dict(kind="rwkv6", head_dim=8)),
+       "griffin": dict(family="hybrid", n_layers=5, n_kv_heads=1,
+                       sub_quadratic=True,
+                       recurrent=dict(kind="rglru", attn_window=8,
+                                      lru_width=32, d_conv=4))}
+# the leaves replicated by the specs that a tensor-parallel layer slices
+SLICED = ("u", "ln_x", "w0", "dec_B")
+
+
+def _both(moe=None, rec=None, **kw):
     base = dict(name="t", family="transformer", n_layers=2, d_model=32,
                 n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=128, head_dim=8,
                 compute_dtype="float32", remat="none")
     base.update(kw)
+    if rec is not None:
+        base.update(REC[rec])
+        r = base.pop("recurrent")
+        return (JArchConfig(recurrent=JRecurrentConfig(**r), **base),
+                TArchConfig(recurrent=TRecurrentConfig(**r), **base))
     if moe is None:
         return JArchConfig(**base), TArchConfig(**base)
     m = dict(n_experts=4, top_k=2, d_expert=16, n_dense_layers=1,
@@ -78,6 +100,11 @@ CONFIGS = {
     "adafactor_fsdp": (dict(optimizer="adafactor", fsdp_params=True),
                        (2, 2)),
     "moe_adamw": (dict(optimizer="adamw", moe=True, remat="full"), (1, 4)),
+    "rwkv_adamw": (dict(optimizer="adamw", rec="rwkv", remat="save_dots"),
+                   (2, 2)),
+    "griffin_adamw": (dict(optimizer="adamw", rec="griffin"), (2, 2)),
+    "griffin_adamw_1x4": (dict(optimizer="adamw", rec="griffin",
+                               remat="save_dots"), (1, 4)),
 }
 
 
@@ -86,6 +113,24 @@ def _cfgs(name):
     kw = dict(kw)
     moe = kw.pop("moe", None)
     return _both(moe=moe, **kw)
+
+
+def _randomise_zeros(params, seed=7):
+    """The recurrent families' zero-initialised leaves drawn instead (as
+    ``test_torch_sharded_models.py`` draws them): at zero every rank's
+    slice of ``u``, ``ln_x`` or ``dec_B`` reads the same values, so a slice
+    taken at the wrong heads would not show, and ``ddl_B`` = 0 leaves
+    ``ddl_A`` and ``mu_x`` no first-step gradient, whose second-step
+    moments then rest on one AdamW step of ``ddl_B`` (sign-like where its
+    gradient is tiny): the port's unsharded step is off the reference's
+    there by 4e-5, against STATE_TOL."""
+    rng = np.random.default_rng(seed)
+
+    def f(a):
+        if a.dtype.kind == "f" and not a.any():
+            return (rng.normal(size=a.shape) * 0.3).astype(a.dtype)
+        return a
+    return tree.map(f, params)
 
 
 def _batches(cfg, seed=3):
@@ -104,6 +149,8 @@ def _start(jcfg, tcfg):
     of numpy leaves."""
     params = tree.map(lambda t: t.numpy(), tapi.init_params(
         tcfg, torch.Generator().manual_seed(0), device="cpu"))
+    if tcfg.recurrent is not None:
+        params = _randomise_zeros(params)
     opt = jax.device_get(joptim.make_optimizer(jcfg.optimizer).init(
         jax.tree_util.tree_map(jnp.asarray, params)))
     step = np.zeros((), np.int32)
@@ -144,6 +191,16 @@ def _assert_rel(errs, tol):
     assert errs[worst] <= tol, (worst, errs[worst])
 
 
+def _sliced_moments(errs, ref_opt):
+    """The optimizer state's errors (``_rel_errs``) of the leaves in
+    SLICED, by path: AdamW's first moment after the steps is a sum of the
+    steps' gradients, each of which a rank builds from its slice."""
+    names = dict(zip(errs, (np.asarray(a) for a in tree.leaves(ref_opt))))
+    out = {k: e for k, e in errs.items() if k.split("/")[-1] in SLICED}
+    assert out and all(np.abs(names[k]).max() > 0 for k in out)
+    return out
+
+
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_sharded_train_step_matches_reference(pool, name):
     jcfg, tcfg = _cfgs(name)
@@ -164,7 +221,11 @@ def test_sharded_train_step_matches_reference(pool, name):
                 np.testing.assert_array_equal(a, b)
     _assert_rel(_rel_errs(res[0]["params"], ref.params, full.params),
                 STEP_TOL)
-    _assert_rel(_rel_errs(res[0]["opt"], ref.opt_state), STATE_TOL)
+    opt_errs = _rel_errs(res[0]["opt"], ref.opt_state)
+    _assert_rel(opt_errs, STATE_TOL)
+    if tcfg.family == "rwkv":
+        for k, e in _sliced_moments(opt_errs, ref.opt_state).items():
+            assert e <= STATE_TOL, (k, e)
 
 
 @pytest.mark.parametrize("name,shape", [("adamw", (2, 2)),

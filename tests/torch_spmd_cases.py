@@ -325,11 +325,11 @@ def adafactor_apply_case(mesh, cfg, full_state, grads_seq, dp):
             "want_opt": want_s}
 
 
-def collective_counts_case(mesh, cfg, seed, n_decode):
+def collective_counts_case(mesh, cfg, seed, n_decode, shapes=False):
     """The collectives counted, by kind, in a 24-token prefill, then
     ``n_decode`` decode steps, then (for float parameters) one train step
     of the config's optimizer, each under a ShardCtx from the shards of a
-    seeded state."""
+    seeded state; with ``shapes``, the decoded cache's leaf shapes."""
     ctx = ShardCtx(mesh, ("data",), "model")
     gen = torch.Generator().manual_seed(seed)
     params = api.init_params(cfg, gen, device="cpu")
@@ -345,6 +345,8 @@ def collective_counts_case(mesh, cfg, seed, n_decode):
         for i in range(n_decode):
             _, cache = api.decode_step(cfg, local, toks[:, i], cache, ctx)
         out["decode"] = C.counts()
+    if shapes:
+        out["cache_shapes"] = [list(t.shape) for t in tree.leaves(cache)]
     if cfg.quant == "none":
         opt = optim.make_optimizer(cfg.optimizer)
         state = steps.TrainState(local, opt.init(local),
