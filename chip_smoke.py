@@ -3065,7 +3065,7 @@ FLEET_PROC_ROUNDS = 1              # timed rounds of the proc fleet
 FLEET_LAYERS = 4                   # depth cut: 4 of 30 layers, full width
 FLEET_ROWS = ("qmatmul_acc", "qmatmul_acc_checksum",
               "flash_attention_fwd_lse")
-FLEET_CAMPAIGN_TRIALS = 16         # per fleet campaign configuration
+FLEET_CAMPAIGN_TRIALS = 8          # per ABFT, CKPT, DMR campaign config
 FLEET_NONE_TRIALS = 64             # NONE: enough trials for a manifest SDC
 FLEET_MP_TRIALS = 8                # fleet_mp ABFT / CKPT (NONE: 64)
 FLEET_COMPARE_TRIALS = 8           # ref == cuda, per configuration
@@ -5297,7 +5297,7 @@ SHARD_ROWS = ("qmatmul_acc", "flash_attention_fwd_lse", "flash_attention_bwd")
 SHARD_BUDGET_S = 45                # the phase's share of the limit
 
 
-def _shard_collectives(cfg, kind, specs, calls=1, model=1):
+def _shard_collectives(cfg, kind, specs, calls=1, model=1, seq_len=None):
     """Each kind's count of the collectives that ``calls`` calls of
     ``kind`` ("prefill", "decode" or "train", a step) issue under a
     ShardCtx on a (1, ``model``) ("data", "model") mesh.  The gathers come
@@ -5330,9 +5330,18 @@ def _shard_collectives(cfg, kind, specs, calls=1, model=1):
     block only up to the last tensor its backward saves), then one sum per
     parameter whose spec leaves an axis out, one per set of axes in the
     global norm, and Adafactor's means over sharded dims
-    (``optim.adafactor``).  The MoE's expert-TP layout (E not divided by
-    the axis) is not derived.  The recurrent families as
-    ``_recurrent_blocks`` derives their blocks'."""
+    (``optim.adafactor``).  Under ``cfg.seq_shard`` a train step of
+    ``seq_len`` positions that ``model`` > 1 divides keeps the stream on
+    this rank's rows (``Sharded.seq_split``): every row-parallel sum of a
+    block (``wo`` where the q heads are local, ``wd``, the expert combine,
+    ``ws_o``) is a reduce-scatter, each block gathers its normed rows twice
+    (before attention and before its FFN), the embedding's sum over the
+    vocabulary is a reduce-scatter and the final norm's rows are gathered
+    for the head; each gather's adjoint is a reduce-scatter and each
+    reduce-scatter's a gather, and the recompute runs the gathers again,
+    and the sums it ran again before, now reduce-scatters.  The MoE's
+    expert-TP layout (E not divided by the axis) is not derived.  The
+    recurrent families as ``_recurrent_blocks`` derives their blocks'."""
     from repro_torch.models.transformer import (_ATTN_LEAVES, _FFN_LEAVES,
                                                 _KV_LEAVES, moe_mode)
 
@@ -5375,12 +5384,19 @@ def _shard_collectives(cfg, kind, specs, calls=1, model=1):
                + 2 * L * tkv,
                "all_reduce": split + attn_r + ffn_r, "reduce_scatter": 0}
     else:
-        blk_g, blk_r = attn_tp + ffn_g, attn_r + ffn_r
+        if cfg.seq_shard and split and seq_len is None:
+            raise ValueError("a seq_shard train step needs its seq_len")
+        seq = cfg.seq_shard and split and seq_len % model == 0
+        blk_g, blk_r = attn_tp + ffn_g + 2 * L * seq, attn_r + ffn_r
         shared = 0 if m is None else n_moe * (m.n_shared_experts > 0)
         re_g, re_r = (blk_g, attn_r + shared) if cfg.remat != "none" \
             else (0, 0)
+        blk_s = re_s = 0
+        if seq:                        # every sum but the aux/z pmean
+            blk_s, blk_r = blk_r - n_moe, n_moe
+            re_s, re_r = re_r, 0
         return _train_collectives(cfg, specs, calls, split, blk_g, blk_r,
-                                  re_g, re_r)
+                                  re_g, re_r, seq, blk_s, re_s)
     out = {k: v * calls for k, v in out.items()}
     return dict(out, all_to_all=0, send_recv=0)
 
@@ -5393,10 +5409,12 @@ def _gathers(spec, keep_model):
         keep_model and entry_axes(e) == ("model",)))
 
 
-def _train_collectives(cfg, specs, calls, split, blk_g, blk_r, re_g, re_r):
+def _train_collectives(cfg, specs, calls, split, blk_g, blk_r, re_g, re_r,
+                       seq=False, blk_s=0, re_s=0):
     """A train step's collectives from its blocks' forward gathers and
-    sums (``blk_g``, ``blk_r``) and those their recompute runs again
-    (``re_g``, ``re_r``): see ``_shard_collectives``."""
+    sums (``blk_g``, ``blk_r``, and under ``seq`` the reduce-scatters
+    ``blk_s``) and those their recompute runs again (``re_g``, ``re_r``,
+    ``re_s``): see ``_shard_collectives``."""
     from repro_torch import tree
     from repro_torch.parallel.sharding import entry_axes
     head = "embed" if cfg.tie_embeddings else "lm_head"
@@ -5409,10 +5427,12 @@ def _train_collectives(cfg, specs, calls, split, blk_g, blk_r, re_g, re_r):
         on = [bool(entry_axes(e)) for e in sp]
         if any(on):                    # the update's RMS; vr, vc, mean(vr)
             opt_r += 1 + (on[-1] + 2 * on[-2] if len(on) >= 2 else 0)
-    out = {"all_gather": ends + blk_g + re_g,
-           "reduce_scatter": ends + blk_g,
-           "all_reduce": (ce_f + split + blk_r + re_r)
-           + (ce_b + split + blk_r)
+    emb_r = split and not seq        # the embedding's sum, and its adjoint
+    emb_s = split and seq            # ... scattered onto the rows
+    out = {"all_gather": ends + blk_g + re_g + seq + blk_s + emb_s,
+           "reduce_scatter": ends + blk_g + seq + blk_s + re_s + emb_s,
+           "all_reduce": (ce_f + emb_r + blk_r + re_r)
+           + (ce_b + emb_r + blk_r)
            + sum(a != {"data", "model"} for a in named)
            + len({frozenset(a) for a in named if a}) + opt_r}
     out = {k: v * calls for k, v in out.items()}
@@ -5993,6 +6013,16 @@ REC_TP_PEAK_BYTES = 70e9           # the cell's tracked peak a rank, limit
 # recurrentgemma-2b --shape train_4k`` before the layers ran on their
 # shards), printed beside the cell's
 REC_TP_REPLICATED_GB = 84.16
+# sequence parallelism: command-r-plus-104b's train_4k cell under
+# seq_shard, cut to the largest depth whose weights drawn whole on the card
+# (with the f32 draw of the leaf being drawn), then beside this rank's
+# shards of the state, stay under SEQ_DRAW_PEAK_BYTES (sized from the
+# leaves of ``train.steps.abstract_train_state``, the dry-run's meta state)
+SEQ_LAYERS = 10
+SEQ_ROWS = 16                      # train_4k's rows per data rank at pod16x16
+# the child's peak through the draw, limit: 60 GB, so that the pipeline
+# and the FT loop running beside it in this process have room
+SEQ_DRAW_PEAK_BYTES = 60e9
 
 
 def _vocab_cell():
@@ -6017,11 +6047,27 @@ def _rec_tp_cell():
                         REC_TP_ROWS, "train"))
 
 
+def _seq_cell(seq=True):
+    """(cfg, shape) of the sequence-parallel cell: command-r-plus-104b at
+    SEQ_LAYERS of 64 layers (full width, AdamW, remat full, FSDP), flash,
+    ``seq_shard`` (off for the dry-run beside it), SEQ_ROWS x
+    TRAIN_4K_SEQ."""
+    from repro_torch.configs import registry
+    from repro_torch.models.config import ShapeConfig
+    return (dataclasses.replace(registry.get("command-r-plus-104b"),
+                                n_layers=SEQ_LAYERS, attn_impl="flash",
+                                seq_shard=seq),
+            ShapeConfig(f"train_{SEQ_ROWS}x{TRAIN_4K_SEQ}", TRAIN_4K_SEQ,
+                        SEQ_ROWS, "train"))
+
+
 class VocabDry:
     """The dry-run (``launch.dryrun.run_cells`` on meta) of the vocab-split
     cell at VOCAB_MESH and, for the whole-vocabulary step beside it, at a
-    (1, 1) mesh, and of the recurrent tensor-parallel cell at VOCAB_MESH,
-    in a spawned child started early (~40, ~40 and ~15 s of CPU)."""
+    (1, 1) mesh, of the recurrent tensor-parallel cell at VOCAB_MESH, and
+    of the sequence-parallel cell at VOCAB_MESH with ``seq_shard`` on and
+    off, in a spawned child started early (~40, ~40, ~15, ~10 and ~10 s of
+    CPU)."""
 
     def __init__(self):
         from repro_torch.launch import dryrun
@@ -6031,10 +6077,11 @@ class VocabDry:
             1, mp_context=__import__("multiprocessing").get_context("spawn"))
         self.run = self.pool.submit(dryrun.run_cells, [
             (cfg, shape, VOCAB_MESH), (cfg, shape, (1, 1)),
-            (rcfg, rshape, VOCAB_MESH)])
+            (rcfg, rshape, VOCAB_MESH), (*_seq_cell(), VOCAB_MESH),
+            (*_seq_cell(False), VOCAB_MESH)])
 
     def result(self):
-        """The three records, waiting at most TRAIN_DRY_WAIT_S."""
+        """The five records, waiting at most TRAIN_DRY_WAIT_S."""
         try:
             return self.run.result(TRAIN_DRY_WAIT_S)
         finally:
@@ -6042,44 +6089,61 @@ class VocabDry:
 
 
 def _fake_rank_cells():
-    """The vocab-split cell's step and then the recurrent tensor-parallel
-    cell's, each for real on the card as rank 0 of a fake VOCAB_MESH group
-    (``_fake_rank_step``), in a spawned child (its fake process groups
-    never meet the caller's NCCL group): their records by name."""
+    """The vocab-split cell's step, the recurrent tensor-parallel cell's
+    and the sequence-parallel cell's, each for real on the card as rank 0
+    of a fake VOCAB_MESH group (``_fake_rank_step``), in a spawned child
+    (its fake process groups never meet the caller's NCCL group): their
+    records by name."""
     return {"vocab": _fake_rank_step(*_vocab_cell(), seed=32),
-            "rec_tp": _fake_rank_step(*_rec_tp_cell(), seed=33)}
+            "rec_tp": _fake_rank_step(*_rec_tp_cell(), seed=33),
+            "seq": _fake_rank_step(*_seq_cell(), seed=34)}
 
 
 def _fake_rank_step(cfg, shape, seed):
     """One train step of (``cfg``, ``shape``) for real on the card as rank
     0 of a fake VOCAB_MESH group (``dryrun.fake_process_group``, whose
     collectives move nothing, so no value is checked), the seeded state
-    drawn whole on the card and cut by ``dryrun.build_cell`` into this
-    rank's shards, the step run under ``launch.op_analysis``.  Returns its
+    (``steps.init_train_state``'s) cut by ``dryrun.build_cell`` into this
+    rank's shards: the parameters drawn whole on the card, the optimizer's
+    zero moments as views of one zero each, so that only their shards take
+    memory; the step run under ``launch.op_analysis``.  Returns its
     summary and memory analysis, the ``max_memory_allocated`` rise over
-    the arguments, rows 9 and 10's launches, the collectives
-    ``_shard_collectives`` derives for it and its seconds."""
+    the arguments, its peak through the draw and the cut, rows 9 and 10's
+    launches, the collectives ``_shard_collectives`` derives for it and
+    its seconds."""
+    from repro_torch import tree
     from repro_torch.data.pipeline import TokenStream
     from repro_torch.kernels.flashattn import kernel as FK
     from repro_torch.launch import dryrun, op_analysis
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.train import optim, steps
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     with dryrun.fake_process_group(math.prod(VOCAB_MESH)):
         mesh = make_mesh(VOCAB_MESH, ("data", "model"), device=DEVICE)
-        state = steps.init_train_state(
+        params = api.init_params(
             cfg, torch.Generator(device=DEVICE).manual_seed(seed),
-            optim.make_optimizer(cfg.optimizer), device=DEVICE)
+            device=DEVICE)
+        moments = optim.make_optimizer(cfg.optimizer).init(
+            tree.map(lambda t: t.to("meta"), params))
+        state = steps.TrainState(params, tree.map(
+            lambda t: torch.zeros((), dtype=t.dtype, device=DEVICE).expand(
+                t.shape), moments), torch.zeros((), dtype=torch.int32,
+                                                device=DEVICE))
+        del params, moments
         derived = _shard_collectives(
             cfg, "train", param_specs(cfg, state.params, ("data",), "model",
-                                      mesh), model=VOCAB_MESH[1])
+                                      mesh), model=VOCAB_MESH[1],
+            seq_len=shape.seq_len)
         batch = {k: torch.from_numpy(v) for k, v in
                  TokenStream(cfg, shape).batch_at(0).items()}
         fn, args = dryrun.build_cell(cfg, shape, mesh, state=state,
                                      batch=batch)
         del state, batch
         torch.cuda.synchronize()
+        draw_peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -6091,8 +6155,8 @@ def _fake_rank_step(cfg, shape, seed):
         rise = torch.cuda.max_memory_allocated() - base
         del res, args
     return {"summary": an.summary(), "memory": an.memory_analysis(),
-            "rise": rise, "launches": {k.__name__: k.launches
-                                       for k in FK.KERNELS},
+            "rise": rise, "draw_peak": draw_peak,
+            "launches": {k.__name__: k.launches for k in FK.KERNELS},
             "derived": derived, "step_s": step_s,
             "seconds": time.perf_counter() - t0}
 
@@ -6219,6 +6283,73 @@ def _item17_rec_tp(card_run, rec, failed):
             "dry_run_s": rec["run_s"]}
 
 
+def _item17_seq(card_run, dry, failed):
+    """The sequence-parallel cell on the card (``card_run``,
+    ``_fake_rank_step``'s record) against its dry-run on meta (``dry``,
+    ``VocabDry``'s last two records: ``seq_shard`` on, then off): FLOPs by
+    dtype (rows 9 and 10 included), collective counts and bytes per kind,
+    argument bytes and the tracked peak equal; the collective counts as
+    ``_shard_collectives`` derives them for the sequence layout; the
+    predicted rise within ITEM17_PEAK_RTOL of the card's; rows 9 and 10
+    launched 2·L and L times; the card's peak through the draw under
+    SEQ_DRAW_PEAK_BYTES; the tracked peak below the same cut's with
+    ``seq_shard`` off, the saving printed beside the stream's rows that
+    the layout leaves to the other ranks (SEQ_ROWS x TRAIN_4K_SEQ x d
+    bf16 a layer, times 15/16)."""
+    cfg, shape = _seq_cell()
+    rec, off = dry
+    card_sum, card_mem = card_run["summary"], card_run["memory"]
+    dmem, omem = rec["memory_analysis"], off["memory_analysis"]
+    same, derived, counted, ratio = _fake_rank_holds(card_run, rec)
+    L = cfg.n_layers
+    want_l = {"flash_attention_fwd_lse": 2 * L, "flash_attention_bwd": L}
+    launched = {k: card_run["launches"][k] for k in want_l} == want_l
+    saved = omem["peak_bytes"] - dmem["peak_bytes"]
+    rows = L * shape.global_batch * shape.seq_len * cfg.d_model * 2 * \
+        (VOCAB_MESH[1] - 1) / VOCAB_MESH[1]
+    drawn = card_run["draw_peak"] < SEQ_DRAW_PEAK_BYTES
+    ok = all(same.values()) and counted and launched and saved > 0 and \
+        drawn and abs(ratio - 1) <= ITEM17_PEAK_RTOL
+    print(f"item17: sequence parallel, {cfg.name} at {L} of 64 layers "
+          f"(flash, {cfg.optimizer}, remat {cfg.remat}, seq_shard) train "
+          f"step at {shape.global_batch} x {shape.seq_len} as rank 0 of a "
+          f"fake {VOCAB_MESH} mesh on the card (the collectives move "
+          f"nothing: values not checked): equal to the dry-run {same}; "
+          f"collectives {card_sum['collective_counts']} = derived: "
+          f"{counted}; launches {card_run['launches']} = derived {want_l}: "
+          f"{launched}; the draw's peak {card_run['draw_peak'] / 1e9:.3f} GB "
+          f"(limit {SEQ_DRAW_PEAK_BYTES / 1e9:.0f}); args "
+          f"{card_mem['argument_size_in_bytes'] / 1e9:.3f} GB; predicted rise {dmem['peak_live_bytes'] / 1e9:.3f} GB "
+          f"against the card's {card_run['rise'] / 1e9:.3f} GB (ratio "
+          f"{ratio:.4f}, limit 1 ± {ITEM17_PEAK_RTOL}); peak "
+          f"{dmem['peak_bytes'] / 1e9:.3f} GB a rank, seq_shard off "
+          f"{omem['peak_bytes'] / 1e9:.3f} (saved {saved / 1e9:.3f} GB, "
+          f"{saved / L / 1e9:.3f} a layer; the other ranks' rows of the "
+          f"stream {rows / L / 1e9:.3f} a layer); collective bytes "
+          f"{card_sum['total_collective_bytes'] / 2**30:.3f} GiB, off "
+          f"{off['op_analysis']['total_collective_bytes'] / 2**30:.3f}; "
+          f"step {card_run['step_s']:.2f} s, child part "
+          f"{card_run['seconds']:.2f} s, dry-runs {rec['run_s']:.2f} + "
+          f"{off['run_s']:.2f} s" + ("" if ok else "  FAILED"))
+    if not ok:
+        failed.append("the sequence-parallel cell")
+        print(f"  card {card_mem} {card_sum}\n  dry {dmem} "
+              f"{rec['op_analysis']}\n  derived {derived}")
+    return {"equal": same, "collectives_as_derived": counted,
+            "launches": card_run["launches"], "launches_as_derived":
+            launched, "card_memory": card_mem, "dry_memory": dmem,
+            "off_memory": omem, "saved_bytes": saved,
+            "draw_peak_bytes": card_run["draw_peak"],
+            "rise_bytes": card_run["rise"], "peak_ratio": ratio,
+            "flops_by_dtype": card_sum["flops_by_dtype"],
+            "off_flops_by_dtype": off["op_analysis"]["flops_by_dtype"],
+            "collective_counts": card_sum["collective_counts"],
+            "collective_bytes": card_sum["collective_bytes"],
+            "off_collective_bytes": off["op_analysis"]["collective_bytes"],
+            "step_s": card_run["step_s"], "child_s": card_run["seconds"],
+            "dry_run_s": [rec["run_s"], off["run_s"]]}
+
+
 def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
                  vocab_dry: VocabDry) -> dict:
     """Slice 17 under NCCL at world size 1 in this process: the pipeline
@@ -6226,11 +6357,11 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
     (``_item17_ft_loop``, a (1, 1) ("data", "model") mesh) and the dry-run
     against the card (``_item17_on_card``), its meta runs started first in
     a spawned child (``dryrun.run_cells``: its fake process group never
-    meets this one) and read at the end; and slice 21's vocab-split cell
-    and slice 22's recurrent tensor-parallel cell (``_fake_rank_cells`` in
-    a spawned child beside the pipeline and the FT loop, held by
-    ``_item17_vocab_split`` and ``_item17_rec_tp`` against
-    ``vocab_dry``).  Launch
+    meets this one) and read at the end; and slice 21's vocab-split cell,
+    slice 22's recurrent tensor-parallel cell and slice 23's
+    sequence-parallel cell (``_fake_rank_cells`` in a spawned child beside
+    the pipeline and the FT loop, held by ``_item17_vocab_split``,
+    ``_item17_rec_tp`` and ``_item17_seq`` against ``vocab_dry``).  Launch
     counts are reset at its start and read at its end; the process group
     is torn down at its end."""
     from repro_torch.launch import dryrun
@@ -6276,6 +6407,7 @@ def phase_item17(card: str, start: dict, tcfg, tshape, clean_losses,
                                                  dry_runs[:2], failed)
         out["rec_tp"] = _item17_rec_tp(card_runs["rec_tp"], dry_runs[2],
                                        failed)
+        out["seq"] = _item17_seq(card_runs["seq"], dry_runs[3:], failed)
         try:
             records = dry.result(timeout=ITEM17_BUDGET_S)
         finally:

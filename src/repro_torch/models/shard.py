@@ -40,7 +40,14 @@ gathers, slices and sums with the collectives of ``parallel.collectives``:
   and ``mlp_o``) is summed over the model axis.  Under W8A8 the sum is
   exact: the per-row activation absmax is first made global (MAX), so that
   every rank quantizes with the unsharded scale, and the int32
-  accumulators are summed (exact mod 2^32) before the rescale.
+  accumulators are summed (exact mod 2^32) before the rescale;
+* under ``cfg.seq_shard`` a transformer's training ``forward`` keeps the
+  stream between blocks on this rank's S/m rows, as the reference's
+  ``seq_sp`` pins it (``Sharded.seq_split``): each block gathers its
+  normed rows over the model axis before its column products and
+  reduce-scatters its row-parallel sums back onto its rows
+  (``Sharded.row_seq``), so that only S/m rows a rank are stored between
+  blocks.
 """
 from __future__ import annotations
 
@@ -88,9 +95,9 @@ def _mesh_order(mesh, axes) -> Tuple[str, ...]:
 
 class RowSum:
     """The sum of a row-parallel product over the model axis.  ``seq``: the
-    sum is scattered over the sequence (dim 1 of a (B, S, N) product) and
-    the rows are sliced to match (``cfg.seq_shard``'s reduce-scatter, the
-    all-gather coming after the residual add, in ``out``)."""
+    sum is scattered over the sequence (dim 1 of a (B, S, N) product), so
+    that each rank keeps its S/m rows of it (``Sharded.seq_split``'s
+    layout), and ``rows`` slices a per-row factor to match."""
 
     def __init__(self, mesh, axis: str, seq: bool = False):
         self.mesh, self.axis, self.seq = mesh, axis, seq
@@ -110,12 +117,6 @@ class RowSum:
         i = self.mesh.axis_index(self.axis)
         return t[:, i * n:(i + 1) * n]
 
-    def out(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """x + y, y this object's sum (the residual add)."""
-        if not self.seq:
-            return x + y
-        return C.all_gather(self.rows(x) + y, self.mesh, self.axis, dim=1)
-
 
 class Sharded:
     """A model call's view of its ``ShardCtx``: the spec table of its
@@ -128,6 +129,9 @@ class Sharded:
         self.tp = ctx.model not in ctx.dp
         self.msize = ctx.model_size if self.tp else 1
         self.row = RowSum(self.mesh, ctx.model) if self.tp else None
+        # the same sums scattered over the sequence (``seq_split``)
+        self.row_seq = RowSum(self.mesh, ctx.model, seq=True) \
+            if self.tp else None
         # the vocabulary split over the model axis (its rows of the
         # embedding, its columns of the head and of the loss's logits)
         self.vocab_split = self.msize > 1 and \
@@ -166,6 +170,14 @@ class Sharded:
     def model_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """``t``'s slices of dim ``dim`` gathered over the model axis."""
         return C.all_gather(t, self.mesh, self.ctx.model, dim=dim)
+
+    def seq_split(self, S: int) -> bool:
+        """Whether a training ``forward`` of S positions keeps the stream
+        between blocks on this rank's S/m rows (``cfg.seq_shard``, the
+        reference's ``seq_sp``): the model axis runs tensor-parallel over
+        m > 1 ranks and m divides S."""
+        return bool(self.cfg.seq_shard) and self.msize > 1 and \
+            S % self.msize == 0
 
     def model_local(self, name: str, ndim: int) -> Optional[int]:
         """The dim of leaf ``name`` sharded over the model axis, if any."""

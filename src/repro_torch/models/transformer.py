@@ -84,9 +84,7 @@ GSPMD and ``shard_map``:
   local heads.  Otherwise the heads are replicated (their weights
   gathered);
 * the dense FFN is column-parallel (``wg``, ``wi``) and row-parallel
-  (``wd``); under ``cfg.seq_shard`` its sum is a reduce-scatter over the
-  sequence and an all-gather after the residual add (the MoE block's stays
-  an all-reduce);
+  (``wd``);
 * the meshed MoE (the reference's ``_moe_ffn_local``) routes this rank's
   tokens with ``capacity`` from the local token count, over the experts
   ``[e_lo, e_lo + E_loc)`` in ``ep`` (E divides the model axis) or over all
@@ -110,7 +108,25 @@ GSPMD and ``shard_map``:
   where it owns its slot and attends to its slots; the softmax's max and
   sum are made global before P, and the partial P·V summed
   (flash-decoding);
-* the loss is the global batch's mean (the slices' means averaged).
+* the loss is the global batch's mean (the slices' means averaged);
+* under ``cfg.seq_shard`` (``Sharded.seq_split``: the model axis
+  tensor-parallel over m > 1 ranks that divide S) ``forward``, and so
+  ``loss_fn`` and the train step, keep the stream between blocks on this
+  rank's S/m rows, the layout the reference's ``seq_sp`` pins with
+  ``with_sharding_constraint``.  The embedding's sum over the vocabulary
+  shards is a reduce-scatter onto the rows (a slice where the vocabulary
+  is whole, of ``embeds`` too); each attention and dense FFN half runs
+  its norm on the rows, all-gathers the normed rows before its column
+  products and reduce-scatters ``wo``'s and ``wd``'s sums back onto them
+  (``wo``'s output sliced where the q heads are not local), the residual
+  add on the rows; the MoE half gathers its normed rows whole, so that it
+  routes the same B·S tokens, and reduce-scatters the expert combine's
+  and the shared experts' sums onto the rows (etp's combine, whole on
+  every rank, sliced).  The final norm runs on the rows, which are then
+  gathered for the head.  Every gather sits inside the block that
+  ``cfg.remat`` recomputes, so only the S/m rows are kept between blocks.
+  ``prefill`` and ``decode_step`` keep the whole sequence, as the
+  reference's ``prefill`` does.
 """
 from __future__ import annotations
 
@@ -376,12 +392,12 @@ def _cast_layers(cfg: ArchConfig, blocks) -> List[Dict[str, Any]]:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(cfg: ArchConfig, bp, x, positions):
-    """Pre-norm projections, qk-norm and RoPE: q (B,S,H,hd), k/v
-    (B,S,KV,hd) — or this rank's heads of each, from column shards."""
-    B, S, _ = x.shape
+def _qkv(cfg: ArchConfig, bp, h, positions):
+    """The projections of the normed ``h``, qk-norm and RoPE: q
+    (B,S,H,hd), k/v (B,S,KV,hd) — or this rank's heads of each, from
+    column shards."""
+    B, S, _ = h.shape
     hd = cfg.resolved_head_dim
-    h = common.rms_norm(x, bp["ln1"], cfg.norm_eps)
     q = h @ _w(cfg, bp["wq"])
     k = h @ _w(cfg, bp["wk"])
     v = h @ _w(cfg, bp["wv"])
@@ -431,13 +447,19 @@ def _attn_weights(cfg: ArchConfig, bp, sh, tq: bool, tkv: bool):
             for k, v in bp.items() if k in _ATTN_LEAVES}
 
 
-def _attention(cfg: ArchConfig, bp, x, positions, sh=None):
+def _attention(cfg: ArchConfig, bp, x, positions, sh=None, seq=False):
     """Full-sequence attention block: (x + attn, k, v) — k and v as the
-    KV cache holds them (this rank's KV heads where they are local)."""
-    B, S, _ = x.shape
+    KV cache holds them (this rank's KV heads where they are local).
+    ``seq``: x is this rank's S/m rows of the sequence, the normed rows
+    are gathered whole before the projections and the output comes back
+    onto the rows (``Sharded.seq_split``)."""
     tq, tkv = _heads_tp(cfg, sh)
     w = bp if sh is None else _attn_weights(cfg, bp, sh, tq, tkv)
-    q, k, v = _qkv(cfg, w, x, positions)
+    h = common.rms_norm(x, w["ln1"], cfg.norm_eps)
+    if seq:
+        h = sh.model_gather(h, 1)
+    B, S, _ = h.shape
+    q, k, v = _qkv(cfg, w, h, positions)
     kq, vq = _kv_of_local_q(cfg, sh, q, k, v) if tq and not tkv else (k, v)
     if cfg.attn_impl == "flash":
         o = flash_attn_model(q, kq, vq, window=cfg.swa_window)
@@ -445,7 +467,9 @@ def _attention(cfg: ArchConfig, bp, x, positions, sh=None):
         o = common.chunked_causal_attention(q, kq, vq, window=cfg.swa_window)
     y = o.reshape(B, S, -1) @ _w(cfg, w["wo"])
     if tq:
-        y = sh.row.sum(y)
+        y = (sh.row_seq if seq else sh.row).sum(y)
+    elif seq:
+        y = sh.model_slice(y, 1)
     return x + y, k, v
 
 
@@ -453,18 +477,19 @@ _FFN_LEAVES = ("wg", "wi", "wd") + tuple(n + sfx for n in ("wg", "wi", "wd")
                                          for sfx in ("_q", "_s"))
 
 
-def _dense_ffn(cfg: ArchConfig, bp, x, sh=None):
+def _dense_ffn(cfg: ArchConfig, bp, x, sh=None, seq=False):
+    """x + the FFN of its norm; ``seq`` as in ``_attention``."""
     h = common.rms_norm(x, bp["ln2"], cfg.norm_eps)
     red = None
     if sh is not None:
         bp = {k: sh.gather(v, k, keep_model=True) if k in _FFN_LEAVES else v
               for k, v in bp.items()}
         if sh.tp:
-            red = RowSum(sh.mesh, sh.ctx.model, seq=cfg.seq_shard
-                         and x.shape[1] % sh.msize == 0)
+            red = sh.row_seq if seq else sh.row
+        if seq:
+            h = sh.model_gather(h, 1)
     act = F.silu(_qdot(cfg, h, bp, "wg")) * _qdot(cfg, h, bp, "wi")
-    y = _qdot(cfg, act, bp, "wd", red)
-    return x + y if red is None else red.out(x, y)
+    return x + _qdot(cfg, act, bp, "wd", red)
 
 
 # ------------------------------- MoE ----------------------------------------
@@ -558,14 +583,20 @@ def moe_mode(cfg: ArchConfig, model_size: int) -> str:
     return "ep" if cfg.moe.n_experts % model_size == 0 else "etp"
 
 
-def _moe_ffn(cfg: ArchConfig, bp, x, sh=None):
+def _moe_ffn(cfg: ArchConfig, bp, x, sh=None, seq=False):
     """The reference's ``_moe_ffn_single`` (and, under ``sh``, its
     ``_moe_ffn_local``): (x + routed + shared, aux, z_loss) for x (B, S,
-    d); all B·S tokens (this rank's) share the experts' capacity."""
+    d); all B·S tokens (this rank's) share the experts' capacity.
+    ``seq``: x is this rank's S/m rows; the normed rows are gathered whole
+    (the reference's ``x_spec``), so that the same B·S tokens route, and
+    the sums come back onto the rows."""
     m = cfg.moe
-    B, S, d = x.shape
-    n = B * S
-    h = common.rms_norm(x.reshape(n, d), bp["ln2"], cfg.norm_eps)
+    B, _, d = x.shape
+    h = common.rms_norm(x.reshape(-1, d), bp["ln2"], cfg.norm_eps)
+    if seq:
+        h = sh.model_gather(h.reshape(B, -1, d), 1).reshape(-1, d)
+    n = h.shape[0]
+    S = n // B
     cap = capacity(m, n)
     E_loc, e_lo, ep, etp = m.n_experts, 0, None, None
     if sh is not None:
@@ -585,32 +616,42 @@ def _moe_ffn(cfg: ArchConfig, bp, x, sh=None):
     out = _qeinsum(cfg, act, bp, "we_o", etp).reshape(-1, d) * \
         route.gates[:, None]
     combined = _combine(out, route)
+    red = None if sh is None else sh.row
+    if seq:                     # (B, S, ·): the sums onto this rank's rows
+        combined, red = combined.reshape(B, S, d), sh.row_seq
+        if ep is None:          # etp: whole rows on every rank
+            combined = sh.model_slice(combined, 1)
     if ep is not None:
-        combined = ep.sum(combined)
+        combined = red.sum(combined)
     if m.n_shared_experts:
         sact = F.silu(_qdot(cfg, h, bp, "ws_g")) * _qdot(cfg, h, bp, "ws_i")
-        combined = combined + _qdot(cfg, sact, bp, "ws_o",
-                                    None if sh is None else sh.row)
+        if seq:
+            sact = sact.reshape(B, S, -1)
+        combined = combined + _qdot(cfg, sact, bp, "ws_o", red)
     aux, z = route.aux, route.z_loss
     if sh is not None:
         aux, z = sh.pmean_all(torch.stack([aux, z])).unbind()
-    return x + combined.reshape(B, S, d).to(x.dtype), aux, z
+    return x + combined.reshape(x.shape).to(x.dtype), aux, z
 
 
-def _ffn(cfg: ArchConfig, bp, x, moe: bool, sh=None):
+def _ffn(cfg: ArchConfig, bp, x, moe: bool, sh=None, seq=False):
     """The block's FFN half: (x, aux, z_loss), aux and z None when dense."""
     if moe:
-        return _moe_ffn(cfg, bp, x, sh)
-    return _dense_ffn(cfg, bp, x, sh), None, None
+        return _moe_ffn(cfg, bp, x, sh, seq)
+    return _dense_ffn(cfg, bp, x, sh, seq), None, None
 
 
-def _logits(cfg: ArchConfig, params, x, sh=None, vocab_local=False):
+def _logits(cfg: ArchConfig, params, x, sh=None, vocab_local=False,
+            seq=False):
     """Final norm and head: the tied embedding's transpose or
     ``lm_head``, gathered where it is used under ``sh``.  With
     ``vocab_local`` and ``sh.vocab_split`` the head is gathered over the
     dp axes only: this rank's columns of the vocabulary, (B, S, V/m)
-    logits (the loss's, ``shard.cross_entropy``)."""
+    logits (the loss's, ``shard.cross_entropy``).  ``seq``: x is this
+    rank's S/m rows, normed there and then gathered whole."""
     x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if seq:
+        x = sh.model_gather(x, 1)
     name = "embed" if cfg.tie_embeddings else "lm_head"
     head = params[name] if sh is None else sh.gather(
         params[name], name, keep_model=vocab_local and sh.vocab_split)
@@ -619,14 +660,15 @@ def _logits(cfg: ArchConfig, params, x, sh=None, vocab_local=False):
     return x @ head.to(x.dtype)
 
 
-def _embed(cfg: ArchConfig, params, tokens, sh=None):
+def _embed(cfg: ArchConfig, params, tokens, sh=None, seq=False):
     """The embedding rows of ``tokens``, an out-of-range id read as JAX's
     gather reads it: negative ids count from the end once, then clamp.
     Where ``sh.vocab_split`` the table is this rank's rows ``[v_lo, v_lo
     + V/m)`` (gathered over the dp axes only): the ids in them are looked
     up, the others read zero, and one SUM over the model axis gives every
     row (one nonzero term each, so exact); the gradient reaches only this
-    rank's rows."""
+    rank's rows.  ``seq``: only this rank's S/m positions are returned
+    (the SUM a reduce-scatter onto them)."""
     split = sh is not None and sh.vocab_split
     table = params["embed"] if sh is None else sh.gather(
         params["embed"], "embed", keep_model=split)
@@ -634,11 +676,14 @@ def _embed(cfg: ArchConfig, params, tokens, sh=None):
     ids = tokens.long()
     ids = torch.clamp(torch.where(ids < 0, ids + V, ids), 0, V - 1)
     if not split:
+        if seq:
+            ids = sh.model_slice(ids, 1)
         return F.embedding(ids, table).to(_cdt(cfg))
     local = ids - sh.vocab_lo(table.shape[0])
     mine = (local >= 0) & (local < table.shape[0])
     rows = F.embedding(torch.where(mine, local, 0), table).to(_cdt(cfg))
-    return sh.vocab_sum(torch.where(mine[..., None], rows, 0))
+    rows = torch.where(mine[..., None], rows, 0)
+    return sh.row_seq.sum(rows) if seq else sh.vocab_sum(rows)
 
 
 class ForwardOut(NamedTuple):
@@ -647,9 +692,9 @@ class ForwardOut(NamedTuple):
     z_loss: torch.Tensor
 
 
-def _block(cfg: ArchConfig, bp, x, positions, moe, sh=None):
-    x, _, _ = _attention(cfg, bp, x, positions, sh)
-    return _ffn(cfg, bp, x, moe, sh)
+def _block(cfg: ArchConfig, bp, x, positions, moe, sh=None, seq=False):
+    x, _, _ = _attention(cfg, bp, x, positions, sh, seq)
+    return _ffn(cfg, bp, x, moe, sh, seq)
 
 
 def _blocks(params):
@@ -661,36 +706,41 @@ def _blocks(params):
             for bp in _layers(params[blk])]
 
 
-def _inputs(cfg: ArchConfig, params, tokens, embeds=None, sh=None):
+def _inputs(cfg: ArchConfig, params, tokens, embeds=None, sh=None,
+            seq=False):
     """The token embeddings, or ``embeds`` in their place, in the compute
-    dtype."""
-    return _embed(cfg, params, tokens, sh) if embeds is None \
-        else embeds.to(_cdt(cfg))
+    dtype; ``seq``: this rank's S/m positions of them."""
+    if embeds is None:
+        return _embed(cfg, params, tokens, sh, seq)
+    x = embeds.to(_cdt(cfg))
+    return sh.model_slice(x, 1) if seq else x
 
 
 def _trunk(cfg: ArchConfig, params, tokens, keep_kv=None, remat=False,
-           embeds=None, sh=None, vocab_local=False):
+           embeds=None, sh=None, vocab_local=False, seq=False):
     """Embed (or take ``embeds`` (B, S, d) in its place), every block, final
     norm and head; ``keep_kv(layer, k, v)`` receives each layer's K/V;
     ``remat`` recomputes each block in the backward; ``vocab_local`` as in
-    ``_logits``.  Returns (logits, aux, z_loss), the last two summed over
-    the MoE layers."""
-    x = _inputs(cfg, params, tokens, embeds, sh)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    ``_logits``; ``seq``: the stream between blocks is this rank's S/m
+    rows (``Sharded.seq_split``).  Returns (logits, aux, z_loss), the last
+    two summed over the MoE layers."""
+    S = (tokens if embeds is None else embeds).shape[1]
+    x = _inputs(cfg, params, tokens, embeds, sh, seq)
+    positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, (bp, moe) in enumerate(_blocks(params)):
         if remat:
             x, a, z = common.recompute(_block, cfg, bp, x, positions, moe,
-                                       sh)
+                                       sh, seq)
         else:
-            x, k, v = _attention(cfg, bp, x, positions, sh)
+            x, k, v = _attention(cfg, bp, x, positions, sh, seq)
             if keep_kv is not None:
                 keep_kv(li, k, v)
-            x, a, z = _ffn(cfg, bp, x, moe, sh)
+            x, a, z = _ffn(cfg, bp, x, moe, sh, seq)
         if moe:
             aux, zl = aux + a, zl + z
-    return _logits(cfg, params, x, sh, vocab_local), aux, zl
+    return _logits(cfg, params, x, sh, vocab_local, seq), aux, zl
 
 
 def _remat(cfg: ArchConfig, params) -> bool:
@@ -707,10 +757,15 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, ctx=None,
     ``ctx`` the tokens, the logits and ``params`` are this rank's; the
     logits are whole (the head gathered over the model axis) unless
     ``vocab_local`` asks for this rank's columns of the vocabulary where
-    it is split (``Sharded.vocab_split``), as ``loss_fn`` does."""
+    it is split (``Sharded.vocab_split``), as ``loss_fn`` does.  Under
+    ``cfg.seq_shard`` the stream between blocks is this rank's S/m rows
+    where ``Sharded.seq_split`` says so (the logits whole all the
+    same)."""
+    sh = sharded(cfg, ctx)
+    S = (tokens if embeds is None else embeds).shape[1]
     logits, aux, zl = _trunk(cfg, params, tokens, remat=_remat(cfg, params),
-                             embeds=embeds, sh=sharded(cfg, ctx),
-                             vocab_local=vocab_local)
+                             embeds=embeds, sh=sh, vocab_local=vocab_local,
+                             seq=sh is not None and sh.seq_split(S))
     denom = max(_n_moe(cfg), 1)
     return ForwardOut(logits, aux / denom, zl / denom)
 
@@ -832,7 +887,8 @@ def decode_step(cfg: ArchConfig, params, token: torch.Tensor,
         reduce = reduce if n > 1 else None    # one shard: the whole T
     for li, (bp, moe) in enumerate(_blocks(params)):
         w = bp if sh is None else _attn_weights(cfg, bp, sh, False, False)
-        q, k, v = _qkv(cfg, w, x, pos[:, None])
+        q, k, v = _qkv(cfg, w, common.rms_norm(x, w["ln1"], cfg.norm_eps),
+                       pos[:, None])
         kv = ((cache.k[li], k[:, 0]), (cache.v[li], v[:, 0]))
         if cache.k_s is not None:                    # int8 KV cache
             k_q, k_sc = _quantize_kv_rows(k[:, 0])   # (B, KV, hd), (B, KV)

@@ -580,3 +580,105 @@ def vocab_embed_case(mesh, cfg, table, ids, w):
                         "data")
     loss.backward(_seed(mesh, loss))
     return {"rows": out.detach(), "grad": local.grad, "counts": counts}
+
+
+# ------------------------------------------------- sequence parallelism
+
+
+def _record_routes():
+    """Wrap ``transformer._local_route`` so that each call's tokens and
+    maps are recorded: (the list, a function that restores it)."""
+    real, seen = T._local_route, []
+
+    def route(h, router_w, m, cap, e_lo=0, E_loc=None):
+        r = real(h, router_w, m, cap, e_lo, E_loc)
+        seen.append({"h": h.detach().clone(), "router": router_w.detach(),
+                     "cap": cap, "e_lo": int(e_lo), "E_loc": E_loc or
+                     m.n_experts, "gather_idx": r.gather_idx,
+                     "filled": r.filled, "gates": r.gates.detach()})
+        return r
+    T._local_route = route
+
+    def restore():
+        T._local_route = real
+    return seen, restore
+
+
+def _loss_and_grads(mesh, cfg, params, specs, loc, ctx):
+    """The train step's loss and gradients of this rank's shards
+    (``steps._grad_fn``), the gradients summed over copies and gathered
+    whole; the (shape, bytes) of each (B, s, d) tensor that autograd saves
+    through the loss's graph (the parameters' own storages left out) and
+    the collectives counted."""
+    own = {t.untyped_storage().data_ptr() for t in tree.leaves(params)}
+    saved = []
+
+    def pack(t):
+        if t.untyped_storage().data_ptr() not in own and t.dim() == 3 \
+                and t.shape[-1] == cfg.d_model:
+            saved.append((list(t.shape), t.numel() * t.element_size()))
+        return t
+    C.reset_counts()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _, grads = steps._grad_fn(cfg, ctx)(params, loc)
+    counts = C.counts()
+    grads = steps._sum_copies(grads, specs, mesh)
+    with torch.no_grad():
+        grads = gather_tree(grads, specs, mesh)
+    return {"loss": loss, "saved": saved, "grads": grads,
+            "train_counts": counts}
+
+
+def seq_case(mesh, cfg, full, batch, dp=("data",), prefill_len=None):
+    """Under a ShardCtx on this rank's shards and batch slice: forward's
+    logits, the loss and its gradients (summed over copies, gathered
+    whole), each MoE layer's routed tokens and maps in the forward, the
+    (B, s, d) activations autograd keeps through the loss's graph (the
+    shapes and bytes packed by ``saved_tensors_hooks``, the parameters'
+    own storages left out) and the collectives of each part; with
+    ``prefill_len``, a prefill's logits and the next decode step's."""
+    ctx = ShardCtx(mesh, dp, "model")
+    specs = param_specs(cfg, full, dp, "model", mesh)
+    params = shard_tree(full, specs, mesh, device="cpu")
+    loc = shard_batch(batch, mesh, dp, device="cpu")
+    out = {}
+    seen, restore = _record_routes()
+    try:
+        C.reset_counts()
+        with torch.no_grad():
+            out["logits"] = api.forward(cfg, params, loc["tokens"], ctx).logits
+        out["fwd_counts"] = C.counts()
+    finally:
+        restore()
+    out["routes"] = seen
+    if cfg.quant != "none":       # int8 leaves: the loss, no gradient
+        with torch.no_grad():
+            out["loss"] = api.loss_fn(cfg, params, loc, ctx)[0]
+    else:
+        out.update(_loss_and_grads(mesh, cfg, params, specs, loc, ctx))
+    if prefill_len is not None:
+        C.reset_counts()
+        with torch.no_grad():
+            lg, cache = api.prefill(cfg, params, loc["tokens"], prefill_len,
+                                    ctx)
+            out["prefill_counts"] = C.counts()
+            out["prefill"] = lg
+            out["decode"] = api.decode_step(cfg, params, loc["tokens"][:, 0],
+                                            cache, ctx)[0]
+    return out
+
+
+def unsharded_case(mesh, cfg, full, batch, max_len):
+    """``ctx=None`` on the whole batch: forward's logits, the loss and its
+    gradients, a prefill's logits and the next decode step's."""
+    params = tree.map(torch.from_numpy, full)
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = {}
+    with torch.no_grad():
+        out["logits"] = api.forward(cfg, params, b["tokens"]).logits
+        lg, cache = api.prefill(cfg, params, b["tokens"], max_len)
+        out["prefill"] = lg
+        out["decode"] = api.decode_step(cfg, params, b["tokens"][:, 0],
+                                        cache)[0]
+    out["loss"], _, out["grads"] = steps._grad_fn(cfg, None)(params, b)
+    return out
